@@ -1,0 +1,93 @@
+"""Model factory of the port (``nmrf_tpu/models/__init__.py``)."""
+
+import torch
+from torch import nn
+
+from .layers import Conv1d, Conv2d, LayerNorm, Linear
+from .nmp import WindowAttention
+from .nmrf import NMRF
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another.  Raises when CUDA is asked for (or defaulted to) and absent."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "nmrf_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return device
+
+
+def init_weights(model, seed):
+    """Seeded random weights with the JAX package's initializers: Linear
+    trunc_normal(0.02) and zero bias, convolutions kaiming_normal(fan_out),
+    depthwise positional convs torch's default uniform, LayerNorm ones and
+    zeros, relative-position tables trunc_normal(0.02), zero last layer of
+    the DPN head."""
+    g = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, Linear):
+                nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04,
+                                      generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (Conv2d, Conv1d)):
+                fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+                m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Conv2d):  # depthwise positional conv
+                bound = 1.0 / m.weight[0].numel() ** 0.5
+                m.weight.uniform_(-bound, bound, generator=g)
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, WindowAttention):
+                nn.init.trunc_normal_(m.relative_position_enc_table, std=0.02,
+                                      a=-0.04, b=0.04, generator=g)
+        model.dpn.prop_head.layers[-1].weight.zero_()
+    return model
+
+
+def build_model(cfg, device=None):
+    """The NMRF inference model of a config tree, in eval mode, on
+    ``device`` (CUDA unless given; raises when CUDA is absent).  Weights
+    are random from ``cfg.SEED``; load trained ones with
+    ``load_state_dict``."""
+    device = resolve_device(device)
+    if cfg.BACKBONE.MODEL_TYPE != "resnet":
+        raise NotImplementedError(
+            f"backbone {cfg.BACKBONE.MODEL_TYPE!r}: the port has the resnet "
+            "variant only so far")
+    model = NMRF(
+        backbone_out_channels=cfg.BACKBONE.OUT_CHANNELS,
+        num_proposals=cfg.DPN.NUM_PROPOSALS,
+        max_disp=cfg.DPN.MAX_DISP,
+        cost_group=cfg.DPN.COST_GROUP,
+        context_dim=cfg.DPN.CONTEXT_DIM,
+        prop_embed_dim=cfg.NMP.PROP_EMBED_DIM,
+        infer_embed_dim=cfg.NMP.INFER_EMBED_DIM,
+        mlp_ratio=cfg.NMP.MLP_RATIO,
+        split_size=cfg.NMP.SPLIT_SIZE,
+        window_size=cfg.NMP.WINDOW_SIZE,
+        refine_window_size=cfg.NMP.REFINE_WINDOW_SIZE,
+        prop_n_heads=cfg.NMP.PROP_N_HEADS,
+        infer_n_heads=cfg.NMP.INFER_N_HEADS,
+        num_prop_layers=cfg.NMP.NUM_PROP_LAYERS,
+        num_infer_layers=cfg.NMP.NUM_INFER_LAYERS,
+        num_refine_layers=cfg.NMP.NUM_REFINE_LAYERS,
+        with_refinement=cfg.NMP.WITH_REFINEMENT,
+        normalize_before=cfg.NMP.NORMALIZE_BEFORE,
+        gelu_approx=cfg.TPU.GELU_APPROX,
+        use_kernels=cfg.TPU.USE_PALLAS,
+        dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
+    )
+    init_weights(model, cfg.SEED)
+    return model.to(device).eval()
+
+
+__all__ = ["NMRF", "build_model", "init_weights", "resolve_device"]

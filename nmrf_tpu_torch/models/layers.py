@@ -1,0 +1,156 @@
+"""Common layers of the port (``nmrf_tpu/models/layers.py``).
+
+Compute-dtype convention, mirroring flax's ``dtype`` argument in the JAX
+package: parameters are stored in float32; a layer built with
+``dtype=torch.bfloat16`` casts its input and parameters to bf16 and returns
+bf16, and a layer with ``dtype=None`` computes in the promotion of its input
+and float32 (so float32 for a bf16 input).  Norms compute in float32.
+
+Numerical-parity notes:
+  * LayerNorm eps = 1e-5 (torch default).
+  * GELU is the exact erf form; ``GELU(approximate=True)`` lowers it to the
+    tanh form for bf16 inputs only (``TPU.GELU_APPROX``), as a per-module
+    attribute.
+  * InstanceNorm2d: affine-free, eps=1e-5, single-pass f32 moments.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _dt(dtype, x):
+    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with the compute-dtype convention above."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` on channel-last [B, H, W, C] tensors with the compute-
+    dtype convention above."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 dilation=1, bias=True, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
+                     self.stride, self.padding, self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` over the last axis of [M, C, L] with the compute-dtype
+    convention above."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, padding=0, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        padding=self.padding)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5) computed and returned in float32."""
+
+    def __init__(self, dim):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+class GELU(nn.Module):
+    """Exact GELU; with ``approximate`` the tanh form for bf16 inputs."""
+
+    def __init__(self, approximate=False):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        tanh = self.approximate and x.dtype == torch.bfloat16
+        return F.gelu(x, approximate="tanh" if tanh else "none")
+
+
+def instance_norm_2d(x, eps=1e-5):
+    """Affine-free instance norm over the spatial dims of [B, H, W, C].
+    Moments are single-pass E[x^2] - E[x]^2 in float32; returns float32."""
+    xf = x.float()
+    n = x.shape[1] * x.shape[2]
+    s1 = xf.sum(dim=(1, 2), keepdim=True)
+    s2 = (xf * xf).sum(dim=(1, 2), keepdim=True)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return (xf - mean) * torch.rsqrt(var + eps)
+
+
+class Mlp(nn.Module):
+    """timm-style MLP: fc1 -> act -> fc2 (dropout is training-only)."""
+
+    def __init__(self, in_features, hidden_features, out_features, act=None,
+                 dtype=None):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
+        self.act = act if act is not None else GELU()
+        self.fc2 = Linear(hidden_features, out_features, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class MLPBlock(nn.Module):
+    """Reference plain MLP (``NMP.py:54-66``): n Linear layers, ReLU between."""
+
+    def __init__(self, in_dim, hidden_dim, output_dim, num_layers, dtype=None):
+        super().__init__()
+        dims_in = [in_dim] + [hidden_dim] * (num_layers - 1)
+        dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(
+            Linear(i, o, dtype=dtype) for i, o in zip(dims_in, dims_out))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x
+
+
+class ConvINReluConv(nn.Module):
+    """Conv3x3 (no bias) -> InstanceNorm -> ReLU -> Conv1x1 (no bias), the
+    projection stack of concatconv/gw/context (``NMRF.py:56-65``).  The
+    convolutions are registered as ``0`` and ``3``, the indices of the
+    reference's ``nn.Sequential``."""
+
+    def __init__(self, in_channels, mid_channels, out_channels, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.add_module("0", Conv2d(in_channels, mid_channels, 3, padding=1,
+                                    bias=False, dtype=dtype))
+        self.add_module("3", Conv2d(mid_channels, out_channels, 1, bias=False,
+                                    dtype=dtype))
+
+    def forward(self, x):
+        x = instance_norm_2d(self._modules["0"](x))
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        return self._modules["3"](torch.relu(x))

@@ -1,0 +1,131 @@
+"""NMRF top-level model, inference forward (``nmrf_tpu/models/nmrf.py``;
+reference ``nmrf/models/NMRF.py:21-273``): backbone -> group-wise cost
+volume -> DPN -> NMRF inference (8x8 sub-patch decode + selection) ->
+refinement (4x4 sub-patch residual decode).  Channel-last throughout."""
+
+import torch
+from torch import nn
+
+from ..ops.correlation import correlation_volume
+from .backbone import Backbone
+from .dpn import DPN
+from .layers import ConvINReluConv, Linear, MLPBlock
+from .stages import Inference, Refinement
+
+
+def _subpatch_to_full(x, patch):
+    """[..., B, H, W, N, patch*patch] -> [..., B, H*patch, W*patch, N]."""
+    *lead, B, H, W, N, _ = x.shape
+    x = x.reshape(*lead, B, H, W, N, patch, patch)
+    k = len(lead)
+    perm = list(range(k)) + [k + i for i in (0, 1, 4, 2, 5, 3)]
+    return x.permute(*perm).reshape(*lead, B, H * patch, W * patch, N)
+
+
+def _select_argmax(values, scores):
+    """values at argmax(scores) along the last axis (first maximum wins)."""
+    idx = torch.argmax(scores, dim=-1, keepdim=True)
+    return torch.gather(values, -1, idx).squeeze(-1)
+
+
+def _lower_median_pool(x, k):
+    """Block-pool [B, H, W] by k x k lower median (torch.median semantics:
+    the lower of the two middle values, reference ``NMRF.py:230-231``)."""
+    B, H, W = x.shape
+    v = x.reshape(B, H // k, k, W // k, k).permute(0, 1, 3, 2, 4)
+    v = v.reshape(B, H // k, W // k, k * k)
+    return torch.sort(v, dim=-1).values[..., (k * k - 1) // 2]
+
+
+class NMRF(nn.Module):
+    """Neural Markov Random Field stereo model, resnet backbone."""
+
+    def __init__(self, backbone_out_channels=256, num_proposals=4,
+                 max_disp=320, cost_group=4, context_dim=64,
+                 prop_embed_dim=128, infer_embed_dim=128, mlp_ratio=4.0,
+                 split_size=1, window_size=6, refine_window_size=4,
+                 prop_n_heads=4, infer_n_heads=4, num_prop_layers=5,
+                 num_infer_layers=5, num_refine_layers=5,
+                 with_refinement=True, normalize_before=True,
+                 gelu_approx=False, use_kernels=False, dtype=None):
+        super().__init__()
+        self.num_proposals = num_proposals
+        self.max_disp = max_disp
+        self.cost_group = cost_group
+        self.with_refinement = with_refinement
+        common = dict(gelu_approx=gelu_approx, normalize_before=normalize_before,
+                      use_kernels=use_kernels, dtype=dtype)
+        self.backbone = Backbone(backbone_out_channels, dtype=dtype)
+        self.concatconv = ConvINReluConv(backbone_out_channels, 128, 64,
+                                         dtype=dtype)
+        self.gw = ConvINReluConv(backbone_out_channels, 128, 256, dtype=dtype)
+        self.dpn = DPN(cost_group, num_proposals, backbone_out_channels,
+                       context_dim, num_prop_layers, prop_embed_dim,
+                       mlp_ratio, split_size, prop_n_heads, **common)
+        self.inference = Inference(64, 32, infer_embed_dim, num_infer_layers,
+                                   mlp_ratio, window_size, infer_n_heads,
+                                   **common)
+        self.infer_head = MLPBlock(infer_embed_dim, infer_embed_dim, 8 * 8, 3)
+        self.infer_score_head = Linear(infer_embed_dim, 8 * 8)
+        if with_refinement:
+            self.refinement = Refinement(64, 32, infer_embed_dim,
+                                         num_refine_layers, mlp_ratio,
+                                         refine_window_size, infer_n_heads,
+                                         **common)
+            self.refine_head = MLPBlock(infer_embed_dim, infer_embed_dim,
+                                        4 * 4, 3)
+
+    def forward(self, img1, img2):
+        """img1/img2: [B, H, W, 3] float (0..255), H and W divisible by 8.
+
+        Returns dict: disp [B, H, W]; prob [B*H/8*W/8, D]; proposal and
+        initial_proposal [B, H/8*W/8, N]; disp_pred [B, H, W] with
+        refinement.
+        """
+        B = img1.shape[0]
+        feats = self.backbone(torch.cat([img1, img2], dim=0))[::-1]
+        f1 = [f[:B] for f in feats]  # [1/8, 1/4]
+        f2 = [f[B:] for f in feats]
+        return self.decode(f1, f2)
+
+    def decode(self, f1_list, f2_list):
+        B = f1_list[0].shape[0]
+        cost_volume = correlation_volume(f1_list[0], f2_list[0],
+                                         self.max_disp // 8, self.cost_group)
+        prob, label_seeds, labels = self.dpn(cost_volume, f1_list[0])
+
+        fmap1 = self.concatconv(f1_list[0])
+        fmap2 = self.concatconv(f2_list[0])
+        fmap1_gw = self.gw(f1_list[0])
+        fmap2_gw = self.gw(f2_list[0])
+        h8, w8 = fmap1.shape[1:3]
+        labels_curr = labels[-1].reshape(B, h8, w8, self.num_proposals)
+
+        tgt = self.inference(labels_curr, fmap1, fmap2, fmap1_gw, fmap2_gw)
+        coarse = torch.relu(labels_curr[None, ..., None] + self.infer_head(tgt))
+        logits = 0.25 * self.infer_score_head(tgt)
+        coarse = _subpatch_to_full(coarse, 8)[-1]  # [B, H, W, N]
+        logits = _subpatch_to_full(logits, 8)[-1]
+
+        out = {}
+        if self.with_refinement:
+            disp_curr = _select_argmax(coarse, logits) * 2
+            disp_curr = _lower_median_pool(disp_curr, 4)  # [B, H/4, W/4]
+            rf1 = self.concatconv(f1_list[1])
+            rf2 = self.concatconv(f2_list[1])
+            rf1_gw = self.gw(f1_list[1])
+            rf2_gw = self.gw(f2_list[1])
+            tgt_r = self.refinement(disp_curr, rf1, rf2, rf1_gw, rf2_gw)
+            disp_pred = torch.relu(disp_curr[None, ..., None]
+                                   + self.refine_head(tgt_r))
+            disp_pred = _subpatch_to_full(disp_pred[..., None, :], 4)
+            disp_pred = disp_pred.squeeze(-1)[-1]  # [B, H, W]
+            out["disp"] = disp_pred * 4
+            out["disp_pred"] = disp_pred
+        else:
+            out["disp"] = _select_argmax(coarse, logits) * 8
+        out["prob"] = prob
+        out["proposal"] = labels[-1].reshape(B, -1, self.num_proposals)
+        out["initial_proposal"] = label_seeds.reshape(B, -1,
+                                                      self.num_proposals)
+        return out

@@ -1,0 +1,202 @@
+"""NMRF processing stages: seed Propagation, Inference NMP, Refinement NMP
+(``nmrf_tpu/models/stages.py``; reference ``nmrf/models/NMP.py:603-981``).
+
+Token layout is [B, H, W, N, C] throughout.  The JAX package runs each
+layer stack under ``nn.scan``; here it is a Python loop over an
+``nn.ModuleList`` (torch names ``<stage>.layers.<i>.…``).  Inference only:
+the stages return the last layer's normalized output with a leading axis
+of 1, as the JAX package does in eval mode.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.encodings import fourier_coord_embed
+from ..ops.sampling import disp_warp, sample_cost
+from .layers import GELU, LayerNorm, Linear, Mlp
+from .nmp import BasicAttention, CSWinNMP, SwinNMP
+
+ABS_ENCODING_DIM = 31  # fourier_coord_embed of one coordinate, 15 bands
+
+
+class PropagationLayer(nn.Module):
+    """CSWin NMP with context-augmented qk (reference ``NMP.py:903-929``)."""
+
+    def __init__(self, embed_dim, mlp_ratio, context_dim, split_size, n_heads,
+                 gelu_approx=False, normalize_before=False, use_kernels=False,
+                 dtype=None):
+        super().__init__()
+        self.nmp = CSWinNMP(embed_dim, embed_dim + context_dim, embed_dim,
+                            n_heads, split_size=split_size, mlp_ratio=mlp_ratio,
+                            gelu_approx=gelu_approx,
+                            normalize_before=normalize_before,
+                            use_kernels=use_kernels, dtype=dtype)
+
+    def forward(self, tgt, context):
+        return self.nmp(tgt, context)
+
+
+class Propagation(nn.Module):
+    """Label-seed propagation (reference ``NMP.py:603-667``): embed each seed
+    from its local cost profile and a Fourier disparity encoding, then run
+    CSWin propagation layers conditioned on the visual context."""
+
+    def __init__(self, embed_dim, cost_group, num_layers, mlp_ratio,
+                 context_dim, split_size, n_heads, gelu_approx=False,
+                 normalize_before=False, use_kernels=False, dtype=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.cost_encoder = nn.Sequential(
+            Linear(cost_group * 9, embed_dim, dtype=dtype),
+            GELU(),  # exact erf form in the reference and the JAX package
+            Linear(embed_dim, embed_dim, dtype=dtype))
+        self.proj = Linear(embed_dim + ABS_ENCODING_DIM, embed_dim, bias=False,
+                           dtype=dtype)
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            PropagationLayer(embed_dim, mlp_ratio, context_dim, split_size,
+                             n_heads, gelu_approx, normalize_before,
+                             use_kernels, dtype)
+            for _ in range(num_layers))
+        self.norm = LayerNorm(embed_dim)
+
+    def forward(self, cost_volume, label_seed, context):
+        """cost_volume: [M, G, D] (M = B*H*W); label_seed: [M, N] int;
+        context: [B, H, W, C_ctx].  Returns ([1, B, H, W, N, C] f32
+        embeddings, [M, N] float seeds)."""
+        B, H, W, _ = context.shape
+        N = label_seed.shape[-1]
+        cost_feat = self.cost_encoder(sample_cost(cost_volume, label_seed))
+        seeds_f = label_seed.float()
+        disp_enc = fourier_coord_embed(seeds_f[..., None], 15,
+                                       normalizer=3.14 / 64)
+        if self.dtype is None:
+            feat = torch.cat([cost_feat.float(), disp_enc], dim=-1)
+        else:
+            feat = torch.cat([cost_feat, disp_enc.to(self.dtype)], dim=-1)
+        x = self.proj(feat).reshape(B, H, W, N, self.embed_dim)
+        ctx = context[:, :, :, None, :].expand(B, H, W, N, context.shape[-1])
+        for layer in self.layers:
+            x = layer(x, ctx)
+        return self.norm(x)[None], seeds_f
+
+
+class InferenceLayer(nn.Module):
+    """Self-edge attention + Swin spatial NMP (reference ``NMP.py:932-958``)."""
+
+    def __init__(self, embed_dim, mlp_ratio, window_size, n_heads,
+                 gelu_approx=False, normalize_before=False, use_kernels=False,
+                 dtype=None):
+        super().__init__()
+        self.self_nmp = BasicAttention(embed_dim, ABS_ENCODING_DIM, n_heads,
+                                       normalize_before, dtype=dtype)
+        self.nmp = SwinNMP(embed_dim, ABS_ENCODING_DIM, n_heads, window_size,
+                           mlp_ratio, gelu_approx, normalize_before,
+                           candidate_mask=True, use_kernels=use_kernels,
+                           dtype=dtype)
+
+    def forward(self, tgt, abs_encoding, shift):
+        B, H, W, N, C = tgt.shape
+        x = self.self_nmp(tgt.reshape(B * H * W, N, C),
+                          abs_encoding.reshape(B * H * W, N, -1))
+        return self.nmp(x.reshape(B, H, W, N, C), abs_encoding, shift)
+
+
+class RefinementLayer(nn.Module):
+    """Swin spatial NMP only, N = 1 (reference ``NMP.py:961-981``)."""
+
+    def __init__(self, embed_dim, mlp_ratio, window_size, n_heads,
+                 gelu_approx=False, normalize_before=False, use_kernels=False,
+                 dtype=None):
+        super().__init__()
+        self.nmp = SwinNMP(embed_dim, ABS_ENCODING_DIM, n_heads, window_size,
+                           mlp_ratio, gelu_approx, normalize_before,
+                           candidate_mask=False, use_kernels=use_kernels,
+                           dtype=dtype)
+
+    def forward(self, tgt, abs_encoding, shift):
+        return self.nmp(tgt, abs_encoding, shift)
+
+
+class _NMPStage(nn.Module):
+    """Shared embedding, window padding and layer loop of Inference and
+    Refinement (``stages.py:_NMPStage``)."""
+
+    layer_cls = None
+
+    def __init__(self, feat_dim, cost_group, dim, num_layers, mlp_ratio,
+                 window_size, n_heads, gelu_approx=False,
+                 normalize_before=False, use_kernels=False, dtype=None):
+        super().__init__()
+        self.cost_group = cost_group
+        self.window_size = window_size
+        self.ffn = Mlp(2 * feat_dim + cost_group, dim, dim,
+                       act=GELU(gelu_approx), dtype=dtype)
+        self.layers = nn.ModuleList(
+            self.layer_cls(dim, mlp_ratio, window_size, n_heads, gelu_approx,
+                           normalize_before, use_kernels, dtype)
+            for _ in range(num_layers))
+        self.norm = LayerNorm(dim)
+
+    def _embed(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw):
+        """Candidate-label embedding: warped-feature concat + group
+        correlation (reference ``NMP.py:722-741``).  -> [B, H, W, N, dim]."""
+        B, H, W, N = labels.shape
+        G = self.cost_group
+        warped_gw = disp_warp(fmap2_gw, labels)
+        Cgw = fmap1_gw.shape[-1]
+        f1g = fmap1_gw.reshape(B, H, W, 1, G, Cgw // G)
+        wg = warped_gw.reshape(B, H, W, N, G, Cgw // G)
+        corr = (f1g * wg).mean(dim=-1)
+        warped = disp_warp(fmap2, labels)
+        f1 = fmap1[:, :, :, None, :].expand(B, H, W, N, fmap1.shape[-1])
+        feat = torch.cat([f1, warped, corr.to(f1.dtype)], dim=-1)
+        return self.ffn(feat)
+
+    def _run_layers(self, label_rep, abs_encoding):
+        """Centered window padding, layers with shifts 0 and ws//2
+        alternating, crop, norm.  -> [1, B, H, W, N, C] f32."""
+        B, H, W, N, C = label_rep.shape
+        ws = self.window_size
+        H_pad = (ws - H % ws) % ws
+        W_pad = (ws - W % ws) % ws
+        tp, lp = H_pad // 2, W_pad // 2
+        if H_pad or W_pad:
+            pad = (0, 0, 0, 0, lp, W_pad - lp, tp, H_pad - tp)
+            label_rep = F.pad(label_rep, pad)
+            abs_encoding = F.pad(abs_encoding, pad)
+        x = label_rep
+        for i, layer in enumerate(self.layers):
+            x = layer(x, abs_encoding, 0 if i % 2 == 0 else ws // 2)
+        return self.norm(x[:, tp:tp + H, lp:lp + W])[None]
+
+
+class Inference(_NMPStage):
+    """Neural MRF inference over candidate labels (reference
+    ``NMP.py:670-798``)."""
+
+    layer_cls = InferenceLayer
+
+    def forward(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw):
+        """labels: [B, H, W, N] candidate disparities -> [1, B, H, W, N, C]."""
+        labels = labels.float()
+        label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
+        abs_enc = fourier_coord_embed(labels[..., None], 15,
+                                      normalizer=3.14 / 64)
+        return self._run_layers(label_rep, abs_enc)
+
+
+class Refinement(_NMPStage):
+    """Disparity refinement at 1/4 resolution, one candidate (reference
+    ``NMP.py:801-900``)."""
+
+    layer_cls = RefinementLayer
+
+    def forward(self, disp, fmap1, fmap2, fmap1_gw, fmap2_gw):
+        """disp: [B, H, W] -> [1, B, H, W, C]."""
+        labels = disp.float()[..., None]
+        label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
+        abs_enc = fourier_coord_embed(labels[..., None], 15,
+                                      normalizer=3.14 / 128)
+        return self._run_layers(label_rep, abs_enc).squeeze(-2)
