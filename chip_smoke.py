@@ -8,15 +8,26 @@ Phases (any failure exits non-zero before the last line is printed):
 1. build every hand-written kernel from ``nmrf_tpu_torch/csrc`` (one nvcc per
    source, in parallel) into ``nmrf_tpu_torch/_build``;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, in float32 (TF32 off) and bfloat16;
-3. drive the main path: the default-config resnet model at full width and
+   main paths' shapes, in float32 (TF32 off) and bfloat16: the forward
+   kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b
+   and K2b at the training shapes and the KITTI shapes;
+3. drive the serving path: the default-config resnet model at full width and
    depth (bf16, tanh GELU, random seeded weights) answers KITTI-size
    375x1242 requests through ``predict``, with every launch counter read
    around the requests; then one float32 full-size forward through the
    kernels is held against the same forward on the kernels' plain versions;
-4. time each kernel beside its plain version, its bound and one PyTorch
-   library call (``scaled_dot_product_attention``) at the same shapes, and
-   break a request down by device kernel with ``torch.profiler``.
+4. hold the float32 gradients of the Propagation, Inference and Refinement
+   stages (full width, training shape, batch 1) through the kernels against
+   the same stages on the plain versions;
+5. drive the training path: the default-config model at full width and
+   depth (bf16) takes one warm-up and 10 timed training steps at crop
+   384x768, batch 8, on a fixed batch of synthetic pairs (disparities up to
+   192 on whole 1/8-resolution bins), with every launch counter read around
+   the timed steps, and its loss must fall;
+6. time each kernel beside its plain version, its bound and one PyTorch
+   library call (``scaled_dot_product_attention``, its backward for K1b and
+   K2b) at the same shapes, and break a request and a training step down by
+   device kernel with ``torch.profiler``.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -31,15 +42,22 @@ import numpy as np
 
 H_KITTI, W_KITTI = 375, 1242
 REQUESTS = 4
+TRAIN_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 # kernel vs plain version on identical inputs: f32 differs only by summation
-# order; bf16 adds one rounding of the output to bf16 (8 significant bits)
+# order; bf16 adds one rounding of the output to bf16 (8 significant bits).
+# The backward kernels' bf16 d(q, k, v) sum up to T (at most 624) products
+# of bf16-rounded inputs of magnitude about 1 before that rounding, where
+# the plain version sums the same products in another order: atol 5e-2.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}  # (atol, rtol)
+TOL_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 
 REPLACES = {
     "window_attention": "nmrf_tpu/ops/pallas/attention.py:674",
     "stripe_attention": "nmrf_tpu/ops/pallas/attention.py:202",
+    "window_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:1258",
+    "stripe_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:329",
 }
 
 
@@ -75,49 +93,74 @@ def cuda_ms(fn, iters, warmup=3):
 
 
 # --------------------------------------------------------------------------- #
-# kernel cases at the main path's shapes (KITTI 375x1242 padded to 376x1248)
+# kernel cases at the main paths' shapes
 # --------------------------------------------------------------------------- #
 
-# (label, Hp, Wp, N, ws, shift, candidate_mask, layers per frame)
+# serving (KITTI 375x1242 padded to 376x1248), batch 1:
+# (label, Hp, Wp, N, ws, shift, candidate_mask, launches per frame)
 WINDOW_CASES = [
     ("inference/shift0", 48, 156, 4, 6, 0, True, 3),
     ("inference/shift3", 48, 156, 4, 6, 3, True, 2),
     ("refinement/shift0", 96, 312, 1, 4, 0, False, 3),
     ("refinement/shift2", 96, 312, 1, 4, 2, False, 2),
 ]
-# (label, Hp, Wp, N, H_sp, W_sp, layers per frame); CSWin half: 64 ch, 2 heads
+# (label, Hp, Wp, N, H_sp, W_sp, launches per frame); CSWin half: 64 ch, 2 heads
 STRIPE_CASES = [
     ("vertical/T188", 47, 156, 4, 47, 1, 5),
     ("horizontal/T624", 47, 156, 4, 1, 156, 5),
 ]
+# training (crop 384x768: 48x96 at 1/8, 96x192 at 1/4), timed at batch
+# TRAIN_BATCH, checked at batch 1; the last field is launches per step
+TRAIN_BATCH = 8
+TRAIN_WINDOW_CASES = [
+    ("train inference/shift0", 48, 96, 4, 6, 0, True, 3),
+    ("train inference/shift3", 48, 96, 4, 6, 3, True, 2),
+    ("train refinement/shift0", 96, 192, 1, 4, 0, False, 3),
+    ("train refinement/shift2", 96, 192, 1, 4, 2, False, 2),
+]
+TRAIN_STRIPE_CASES = [
+    ("train vertical/T192", 48, 96, 4, 48, 1, 5),
+    ("train horizontal/T384", 48, 96, 4, 1, 96, 5),
+]
 
 
-def window_bound(Hp, Wp, N, ws, C, heads):
-    """(bytes ms, ops ms) of one bf16 launch: qkv read and output written
-    once, the f32 table read once; q.k, a.v, the two positional terms and
-    the value-table term."""
+def window_bound(B, Hp, Wp, N, ws, C, heads, backward=False):
+    """(bytes ms, ops ms) of one bf16 launch.  Forward: qkv read and the
+    output written once, the f32 table read once; q.k, a.v, the two
+    positional terms and the value-table term.  Backward: qkv and g read,
+    d(qkv) written, the f32 table read and d(table) written once; the five
+    T x T products (q.k and g.v recomputed, dq, dk, dv: 2.5x the forward's
+    two) and eight T x P products (qr, kr and g.ve recomputed, the
+    positional halves of dq and dk, the q, k and v table gradients)."""
     T, P = ws * ws * N, ws * ws
-    nwin = (Hp // ws) * (Wp // ws)
+    nwin = B * (Hp // ws) * (Wp // ws)
     hd = C // heads
-    nbytes = Hp * Wp * N * (3 * C + C) * 2 + (2 * ws - 1) ** 2 * 3 * C * 4
-    ops = nwin * heads * (4 * T * T * hd + 6 * T * P * hd)
+    tokens = B * Hp * Wp * N
+    table = (2 * ws - 1) ** 2 * 3 * C * 4
+    if backward:
+        nbytes = tokens * (3 * C + C + 3 * C) * 2 + 2 * table
+        ops = nwin * heads * (10 * T * T * hd + 16 * T * P * hd)
+    else:
+        nbytes = tokens * (3 * C + C) * 2 + table
+        ops = nwin * heads * (4 * T * T * hd + 6 * T * P * hd)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
 
 
-def stripe_bound(Hp, Wp, N, H_sp, W_sp, C, heads):
-    """(bytes ms, ops ms) of one bf16 launch: q, k, v read and the output
-    written once; q.k and a.v of every stripe."""
+def stripe_bound(B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=False):
+    """(bytes ms, ops ms) of one bf16 launch: q, k, v (and g) read and the
+    output (dq, dk, dv) written once; q.k and a.v of every stripe (the
+    backward: five T x T products, 2.5x the forward's two)."""
     T = H_sp * W_sp * N
-    nstripes = (Hp // H_sp) * (Wp // W_sp)
-    nbytes = Hp * Wp * N * 4 * C * 2
-    ops = nstripes * heads * 4 * T * T * (C // heads)
+    nstripes = B * (Hp // H_sp) * (Wp // W_sp)
+    nbytes = B * Hp * Wp * N * (7 if backward else 4) * C * 2
+    ops = nstripes * heads * (10 if backward else 4) * T * T * (C // heads)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
 
 
-def check_close(name, got, want, dtype_name):
+def check_close(name, got, want, dtype_name, tol=TOL):
     import torch
 
-    atol, rtol = TOL[dtype_name]
+    atol, rtol = tol[dtype_name]
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite kernel output")
@@ -130,7 +173,7 @@ def check_close(name, got, want, dtype_name):
 
 
 def kernel_phase(gen):
-    """Phase 2 and the kernel timings of phase 4."""
+    """Phase 2 (forward kernels) and their timings of phase 6."""
     import torch
     import torch.nn.functional as F
 
@@ -143,7 +186,7 @@ def kernel_phase(gen):
         qkv32 = torch.randn(1, Hp, Wp, N, 3 * C, generator=gen, device=dev)
         table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
                                   device=dev)
-        entry = {"shape": label, "per_frame": per_frame}
+        entry = {"shape": label, "count": per_frame}
         for dtype_name, dt in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16)):
             qkv = qkv32.to(dt)
@@ -169,8 +212,8 @@ def kernel_phase(gen):
                            dtype=torch.bfloat16)
         entry["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias), 20)
-        bytes_ms, ops_ms = window_bound(Hp, Wp, N, ws, C, heads)
-        entry["bytes_ms"], entry["ops_ms"] = bytes_ms, ops_ms
+        entry["bytes_ms"], entry["ops_ms"] = window_bound(1, Hp, Wp, N, ws, C,
+                                                          heads)
         results["window_attention"].append(entry)
         log(f"kernel window_attention {label}: " + json.dumps(entry))
 
@@ -178,7 +221,7 @@ def kernel_phase(gen):
     for label, Hp, Wp, N, H_sp, W_sp, per_frame in STRIPE_CASES:
         qkv32 = [torch.randn(1, Hp, Wp, N, C, generator=gen, device=dev)
                  for _ in range(3)]
-        entry = {"shape": label, "per_frame": per_frame}
+        entry = {"shape": label, "count": per_frame}
         for dtype_name, dt in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16)):
             q, k, v = (t.to(dt) for t in qkv32)
@@ -199,15 +242,117 @@ def kernel_phase(gen):
         mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(torch.bfloat16)
         entry["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 20)
-        bytes_ms, ops_ms = stripe_bound(Hp, Wp, N, H_sp, W_sp, C, heads)
-        entry["bytes_ms"], entry["ops_ms"] = bytes_ms, ops_ms
+        entry["bytes_ms"], entry["ops_ms"] = stripe_bound(1, Hp, Wp, N, H_sp,
+                                                          W_sp, C, heads)
         results["stripe_attention"].append(entry)
         log(f"kernel stripe_attention {label}: " + json.dumps(entry))
     return results
 
 
+def sdpa_backward_ms(gen, G, heads, T, hd, mask):
+    """Device ms of the backward of one bf16 SDPA with an additive mask,
+    through torch.autograd.grad (the forward is run once, outside)."""
+    import torch
+    import torch.nn.functional as F
+
+    qs, ks, vs = (torch.randn(G, heads, T, hd, generator=gen, device="cuda",
+                              dtype=torch.bfloat16).requires_grad_()
+                  for _ in range(3))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    g = torch.randn(out.shape, generator=gen, device="cuda", dtype=out.dtype)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g,
+                                               retain_graph=True), 10)
+
+
+def bwd_kernel_phase(gen):
+    """Phase 2 (backward kernels, checked at batch 1 on the training and the
+    KITTI shapes) and their timings of phase 6 (training shapes, batch
+    TRAIN_BATCH, bf16)."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    results = {"window_attention_bwd": [], "stripe_attention_bwd": []}
+    C, heads = 128, 4
+    cases = [c + (True,) for c in TRAIN_WINDOW_CASES] \
+        + [c + (False,) for c in WINDOW_CASES]
+    for label, Hp, Wp, N, ws, shift, cand, count, timed in cases:
+        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                  device=dev)
+        qkv32 = torch.randn(1, Hp, Wp, N, 3 * C, generator=gen, device=dev)
+        g32 = torch.randn(1, Hp, Wp, N, C, generator=gen, device=dev)
+        entry = {"shape": label, "count": count if timed else 0}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            args = (g32.to(dt), qkv32.to(dt), table, shift, (ws, ws), heads,
+                    cand)
+            got = A.window_attention_bwd(*args)
+            torch.cuda.synchronize()
+            want = A.window_attention_bwd_plain(*args)
+            entry[f"max_abs_err_{dtype_name}"] = max(
+                check_close(f"window_attention_bwd {label} d{name}", a, b,
+                            dtype_name, TOL_BWD)
+                for name, a, b in zip(("qkv", "table"), got, want))
+        if timed:
+            B = TRAIN_BATCH
+            qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
+                              dtype=torch.bfloat16)
+            g = torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            args = (g, qkv, table, shift, (ws, ws), heads, cand)
+            entry["ms"] = cuda_ms(lambda: A.window_attention_bwd(*args), 10)
+            entry["plain_ms"] = cuda_ms(
+                lambda: A.window_attention_bwd_plain(*args), 3, warmup=1)
+            T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
+            bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+            entry["library_ms"] = sdpa_backward_ms(gen, G, heads, T, C // heads,
+                                                   bias)
+            entry["bytes_ms"], entry["ops_ms"] = window_bound(
+                B, Hp, Wp, N, ws, C, heads, backward=True)
+        results["window_attention_bwd"].append(entry)
+        log(f"kernel window_attention_bwd {label}: " + json.dumps(entry))
+
+    C, heads = 64, 2
+    cases = [c + (True,) for c in TRAIN_STRIPE_CASES] \
+        + [c + (False,) for c in STRIPE_CASES]
+    for label, Hp, Wp, N, H_sp, W_sp, count, timed in cases:
+        ts32 = [torch.randn(1, Hp, Wp, N, C, generator=gen, device=dev)
+                for _ in range(4)]
+        entry = {"shape": label, "count": count if timed else 0}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            args = tuple(t.to(dt) for t in ts32) + (H_sp, W_sp, heads)
+            got = A.stripe_attention_bwd(*args)
+            torch.cuda.synchronize()
+            want = A.stripe_attention_bwd_plain(*args)
+            entry[f"max_abs_err_{dtype_name}"] = max(
+                check_close(f"stripe_attention_bwd {label} d{name}", a, b,
+                            dtype_name, TOL_BWD)
+                for name, a, b in zip("qkv", got, want))
+        if timed:
+            B = TRAIN_BATCH
+            args = tuple(torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
+                                     dtype=torch.bfloat16) for _ in range(4))
+            args += (H_sp, W_sp, heads)
+            entry["ms"] = cuda_ms(lambda: A.stripe_attention_bwd(*args), 10)
+            entry["plain_ms"] = cuda_ms(
+                lambda: A.stripe_attention_bwd_plain(*args), 3, warmup=1)
+            T, G = H_sp * W_sp * N, B * (Hp // H_sp) * (Wp // W_sp)
+            mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(
+                torch.bfloat16)
+            entry["library_ms"] = sdpa_backward_ms(gen, G, heads, T, C // heads,
+                                                   mask)
+            entry["bytes_ms"], entry["ops_ms"] = stripe_bound(
+                B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=True)
+        results["stripe_attention_bwd"].append(entry)
+        log(f"kernel stripe_attention_bwd {label}: " + json.dumps(entry))
+    return results
+
+
 # --------------------------------------------------------------------------- #
-# main path
+# main paths
 # --------------------------------------------------------------------------- #
 
 def main_path_cfg(dtype, gelu_approx, use_kernels):
@@ -257,10 +402,10 @@ def serve_phase():
             fail(f"disparity shape {d.shape}")
         if not np.isfinite(d).all() or (d < 0).any():
             fail("disparity not finite and non-negative")
-    for name, n in counts.items():
-        if n != 10 * REQUESTS:
-            fail(f"{name}: {n} launches over {REQUESTS} requests, "
-                 f"expected {10 * REQUESTS}")
+    want = {"window_attention": 10 * REQUESTS, "stripe_attention": 10 * REQUESTS,
+            "window_attention_bwd": 0, "stripe_attention_bwd": 0}
+    if counts != want:
+        fail(f"launches over {REQUESTS} requests: {counts}, expected {want}")
     return model, pairs[1], {
         "requests": REQUESTS, "frame_ms": frame_ms, "host_request_ms": host_ms,
         "warmup_s": warmup_s, "launches": counts,
@@ -268,31 +413,104 @@ def serve_phase():
         "disp_mean": float(np.mean([d.mean() for d in disps]))}
 
 
+def train_phase():
+    """Phase 5: training steps of the full-width default model, bf16, crop
+    384x768, batch 8, on a fixed synthetic batch."""
+    import torch
+
+    from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
+                                make_train_step)
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.ops import attention as A
+
+    cfg = main_path_cfg("bfloat16", False, True)
+    model = build_model(cfg)
+    optimizer, scheduler = build_optimizer(model, cfg)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg.SOLVER.ACCUM_STEPS, cfg.SOLVER.GRAD_CLIP)
+    B = cfg.SOLVER.IMS_PER_BATCH
+    H, W = cfg.DATASETS.CROP_SIZE
+    # disparities on whole 1/8-resolution cost-volume bins, as the JAX
+    # package's convergence gate draws them: with unaligned ones the loss
+    # sits on a plateau at random init (the integer proposal seeds
+    # reshuffle and move the coarse losses while epe_train falls)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        B, H, W, max_disp=cfg.SOLVER.MAX_DISP, seed=0, disp_quantum=8).items()}
+    t0 = time.perf_counter()
+    history = [step(batch)]  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    history += [step(batch) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    counts = A.launch_counts()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+
+    rows = [{k: float(v) for k, v in h.items()} for h in history]
+    for i, row in enumerate(rows):
+        log(f"train step {i}: total {row['total']:.4f} epe_train "
+            f"{row['epe_train']:.4f} loss_prop {row['loss_prop']:.4f} "
+            f"init {row['init']:.4f} loss_coarse_disp_4 "
+            f"{row['loss_coarse_disp_4']:.4f} grad_norm {row['grad_norm']:.4f}")
+        if not all(np.isfinite(v) for v in row.values()):
+            fail(f"train step {i}: non-finite loss or gradient norm {row}")
+    fwd = (2 if cfg.TPU.REMAT else 1) * 10 * TRAIN_STEPS
+    want = {"window_attention": fwd, "stripe_attention": fwd,
+            "window_attention_bwd": 10 * TRAIN_STEPS,
+            "stripe_attention_bwd": 10 * TRAIN_STEPS}
+    if counts != want:
+        fail(f"launches over {TRAIN_STEPS} steps: {counts}, expected {want}")
+    timed = [r["total"] for r in rows[1:]]
+    first, last = float(np.mean(timed[:3])), float(np.mean(timed[-3:]))
+    if not last < first:
+        fail(f"loss did not fall: mean total {first:.4f} over the first 3 "
+             f"timed steps, {last:.4f} over the last 3")
+    return step, batch, {
+        "batch": B, "crop": [H, W], "steps": TRAIN_STEPS, "step_ms": step_ms,
+        "frames_per_s": B / step_ms * 1e3, "warmup_s": warmup_s,
+        "remat": bool(cfg.TPU.REMAT), "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "total_first3": first, "total_last3": last,
+        "disp_quantum": 8,
+        "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm")}
+                   for r in rows]}
+
+
 KERNEL_GROUPS = (
+    ("window_attention_bwd (K1b)", ("window_attention_bwd_kernel",
+                                    "window_dve_kernel")),
+    ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq_kernel",
+                                    "stripe_bwd_dkv_kernel")),
     ("window_attention (K1)", ("window_attention_kernel",)),
     ("stripe_attention (K2)", ("stripe_attention_kernel",)),
-    ("convolution", ("conv", "fprop", "cudnn", "implicit", "winograd")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
+                     "winograd")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
     ("memcpy", ("Memcpy", "Memset")),
     ("layer_norm", ("layer_norm",)),
+    ("optimizer", ("multi_tensor", "adam", "foreach")),
     ("reduction", ("reduce_kernel",)),
     ("copy/cast", ("copy", "cast")),
-    ("sort/index", ("sort", "gather", "index", "scatter", "argmax")),
+    ("sort/index", ("sort", "gather", "index", "scatter", "argmax", "argmin")),
 )
 
 
-def profile_phase(model, pair):
-    """Phase 4b: one request under torch.profiler; device time by kernel
-    group, and the device's busy share of the request's wall time."""
+def profile_phase(name, fn):
+    """Phase 6b: one call of fn under torch.profiler; device time by kernel
+    group, and the device's busy share of the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nmrf_tpu_torch import predict
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict(model, *pair)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, spans = {}, []
@@ -312,9 +530,9 @@ def profile_phase(model, pair):
             end = b
     rows = sorted(((t / 1e3, c, g) for g, (t, c) in groups.items()), reverse=True)
     for ms, count, group in rows:
-        log(f"profile: {ms:9.3f} ms  x{count:<5d} {group}")
+        log(f"profile {name}: {ms:9.3f} ms  x{count:<5d} {group}")
     if not spans:
-        fail("profiler recorded no device activity")
+        fail(f"profiler recorded no device activity ({name})")
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
             "groups": [{"group": g, "ms": ms, "launches": c} for ms, c, g in rows]}
@@ -327,8 +545,6 @@ def parity_phase():
 
     from nmrf_tpu_torch import build_model
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     kern = build_model(main_path_cfg("float32", False, True))
     plain = build_model(main_path_cfg("float32", False, False))
     plain.load_state_dict(kern.state_dict())
@@ -382,10 +598,87 @@ def parity_phase():
             "near_tie_px": int(near_tie.sum().item())}
 
 
+def stage_grad_phase():
+    """Phase 4: float32 gradients of the three stages (train mode, full
+    width, training shape 48x96 / 96x192, batch 1) through the kernels
+    against the same stages on the plain versions, identical weights and
+    inputs.  No argmax lies inside a stage, so every parameter gradient and
+    every input gradient is held at atol = rtol = 1e-4.  The cotangent is
+    N(0, 1) / sqrt(output rows), so every gradient is of order one."""
+    import torch
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.ops import attention as A
+
+    kern = build_model(main_path_cfg("float32", False, True))
+    plain = build_model(main_path_cfg("float32", False, False))
+    plain.load_state_dict(kern.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    h8, w8, h4, w4 = 48, 96, 96, 192
+    M = h8 * w8
+    cases = {
+        "propagation": (lambda m: m.dpn.propagation, (
+            rand(M, 4, 40),
+            torch.randint(0, 40, (M, 4), generator=gen, device="cuda"),
+            rand(1, h8, w8, 64))),
+        "inference": (lambda m: m.inference, (
+            6 + 4 * rand(1, h8, w8, 4).abs(), rand(1, h8, w8, 64),
+            rand(1, h8, w8, 64), rand(1, h8, w8, 256), rand(1, h8, w8, 256))),
+        "refinement": (lambda m: m.refinement, (
+            12 + 8 * rand(1, h4, w4).abs(), rand(1, h4, w4, 64),
+            rand(1, h4, w4, 64), rand(1, h4, w4, 256), rand(1, h4, w4, 256))),
+    }
+    report = {}
+    for name, (get, args) in cases.items():
+        grads, R = {}, None
+        for tag, model in (("kernels", kern), ("plain", plain)):
+            stage = get(model).train()
+            stage.zero_grad(set_to_none=True)
+            inputs = [a.clone().requires_grad_(a.is_floating_point())
+                      for a in args]
+            if tag == "kernels":
+                A.reset_launch_counts()
+            out = stage(*inputs)
+            out = out[0] if isinstance(out, tuple) else out
+            if R is None:
+                R = rand(*out.shape, scale=(out.numel() / out.shape[-1]) ** -0.5)
+            (out * R).sum().backward()
+            torch.cuda.synchronize()
+            grads[tag] = {f"{name}.{k}": p.grad for k, p in stage.named_parameters()}
+            grads[tag].update({f"{name}.input{i}": x.grad
+                               for i, x in enumerate(inputs) if x.grad is not None})
+            if tag == "kernels":
+                launches = A.launch_counts()
+        if not any(launches.values()):
+            fail(f"{name}: the stage gradient ran no kernel")
+        worst = max(check_close(f"{name} gradient {k}", grads["kernels"][k], g,
+                                "float32")
+                    for k, g in grads["plain"].items())
+        report[name] = {"max_abs_err": worst, "leaves": len(grads["plain"]),
+                        "launches": {k: v for k, v in launches.items() if v}}
+        kern.zero_grad(set_to_none=True)
+        plain.zero_grad(set_to_none=True)
+    return report
+
+
 def kernels_line(kernel_results, counts):
+    """The kernels JSON line.  Times are per unit of each kernel's main
+    path: per KITTI frame for K1/K2 (serving), per training step for
+    K1b/K2b."""
+    units = {
+        "window_attention": "per frame: the 10 launches of one KITTI request, bf16",
+        "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
+        "window_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
+        "stripe_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
+    }
     line = []
     for name, entries in kernel_results.items():
-        agg = {k: sum(e[k] * e["per_frame"] for e in entries)
+        timed = [e for e in entries if e["count"]]
+        agg = {k: sum(e[k] * e["count"] for e in timed)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
         line.append({
             "name": name, "route": "cuda",
@@ -395,11 +688,11 @@ def kernels_line(kernel_results, counts):
             "max_abs_err": max(e["max_abs_err_bfloat16"] for e in entries),
             "max_abs_err_f32": max(e["max_abs_err_float32"] for e in entries),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-            "bound_ms": sum(max(e["bytes_ms"], e["ops_ms"]) * e["per_frame"]
-                            for e in entries),
+            "bound_ms": sum(max(e["bytes_ms"], e["ops_ms"]) * e["count"]
+                            for e in timed),
             "bound_by": "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations",
             "library_ms": agg["library_ms"],
-            "unit": "per frame: the 10 launches of one KITTI request, bf16",
+            "unit": units[name],
             "shapes": entries,
         })
     return {"kernels": line}
@@ -411,13 +704,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from nmrf_tpu_torch import predict
     from nmrf_tpu_torch.ops import _native
 
+    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
     report = _native.build_all()
-    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s for "
+    log(f"phase 1 build: {time.perf_counter() - t_start:.1f} s for "
         f"{len(report)} kernels (nvcc in parallel)")
     for name, (secs, text) in report.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
@@ -428,18 +722,33 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         kernel_results = kernel_phase(gen)
+    kernel_results.update(bwd_kernel_phase(gen))
     log("phase 2 kernels: every kernel matches its plain version "
         "(f32 and bf16)")
 
     model, pair, serve = serve_phase()
-    log("phase 3 main path: " + json.dumps(serve))
+    log("phase 3 serving path: " + json.dumps(serve))
     parity = parity_phase()
     log("phase 3 f32 kernels vs plain versions: " + json.dumps(parity))
-    breakdown = profile_phase(model, pair)
-    log("phase 4 breakdown: " + json.dumps(breakdown))
+    request_profile = profile_phase("request", lambda: predict(model, *pair))
+    log("phase 6 request breakdown: " + json.dumps(request_profile))
+    del model
 
+    stages = stage_grad_phase()
+    log("phase 4 stage gradients, kernels vs plain versions (f32): "
+        + json.dumps(stages))
+
+    step, batch, train = train_phase()
+    log("phase 5 training path: " + json.dumps(train))
+    step_profile = profile_phase("train step", lambda: step(batch))
+    log("phase 6 training-step breakdown: " + json.dumps(step_profile))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+
+    counts = dict(serve["launches"])
+    counts.update({k: train["launches"][k]
+                   for k in ("window_attention_bwd", "stripe_attention_bwd")})
     log(gpu_identity())
-    log(json.dumps(kernels_line(kernel_results, serve["launches"])))
+    log(json.dumps(kernels_line(kernel_results, counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

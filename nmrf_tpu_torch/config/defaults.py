@@ -134,8 +134,8 @@ def get_cfg() -> CN:
     _C.TPU.GELU_APPROX = False
     # Eval-time padding bucket (kept for config compatibility).
     _C.TPU.EVAL_BUCKET = 64
-    # Per-layer activation checkpointing in training (training is not ported
-    # yet; kept for config compatibility).
+    # Per-layer activation checkpointing in training: every propagation,
+    # inference and refinement layer runs under torch.utils.checkpoint.
     _C.TPU.REMAT = False
 
     return _C

@@ -4,6 +4,7 @@ import torch
 from torch import nn
 
 from .layers import Conv1d, Conv2d, LayerNorm, Linear
+from .losses import Criterion
 from .nmp import WindowAttention
 from .nmrf import NMRF
 
@@ -53,16 +54,26 @@ def init_weights(model, seed):
     return model
 
 
+_DROPOUT_KEYS = ("NMP.ATTN_DROP", "NMP.PROJ_DROP", "NMP.DROP_PATH",
+                 "NMP.DROPOUT", "BACKBONE.DROP_PATH")
+
+
 def build_model(cfg, device=None):
-    """The NMRF inference model of a config tree, in eval mode, on
-    ``device`` (CUDA unless given; raises when CUDA is absent).  Weights
-    are random from ``cfg.SEED``; load trained ones with
+    """The NMRF model of a config tree, in eval mode (``model.train()`` for
+    training), on ``device`` (CUDA unless given; raises when CUDA is
+    absent).  Weights are random from ``cfg.SEED``; load trained ones with
     ``load_state_dict``."""
     device = resolve_device(device)
     if cfg.BACKBONE.MODEL_TYPE != "resnet":
         raise NotImplementedError(
             f"backbone {cfg.BACKBONE.MODEL_TYPE!r}: the port has the resnet "
             "variant only so far")
+    for key in _DROPOUT_KEYS:
+        node, name = key.split(".")
+        if getattr(cfg, node)[name] != 0:
+            raise ValueError(f"{key} = {getattr(cfg, node)[name]}: the port "
+                             "has no dropout or drop-path yet (every resnet "
+                             "recipe sets 0)")
     model = NMRF(
         backbone_out_channels=cfg.BACKBONE.OUT_CHANNELS,
         num_proposals=cfg.DPN.NUM_PROPOSALS,
@@ -85,9 +96,27 @@ def build_model(cfg, device=None):
         gelu_approx=cfg.TPU.GELU_APPROX,
         use_kernels=cfg.TPU.USE_PALLAS,
         dtype=_DTYPES[cfg.TPU.COMPUTE_DTYPE],
+        remat=cfg.TPU.REMAT,
+        aux_loss=cfg.SOLVER.AUX_LOSS,
+        return_intermediate=cfg.NMP.RETURN_INTERMEDIATE,
     )
     init_weights(model, cfg.SEED)
     return model.to(device).eval()
 
 
-__all__ = ["NMRF", "build_model", "init_weights", "resolve_device"]
+def build_criterion(cfg):
+    """The training criterion of a config tree
+    (``nmrf_tpu/models/__init__.py:build_model``'s second result)."""
+    return Criterion(
+        max_disp=cfg.SOLVER.MAX_DISP,
+        loss_type=cfg.SOLVER.LOSS_TYPE,
+        loss_weights=cfg.SOLVER.LOSS_WEIGHTS,
+        aux_loss=cfg.SOLVER.AUX_LOSS,
+        fix_proposal_weight=cfg.SOLVER.FIX_PROPOSAL_LOSS_WEIGHT,
+        num_infer_layers=cfg.NMP.NUM_INFER_LAYERS,
+        num_refine_layers=cfg.NMP.NUM_REFINE_LAYERS,
+    )
+
+
+__all__ = ["NMRF", "Criterion", "build_criterion", "build_model",
+           "init_weights", "resolve_device"]

@@ -5,6 +5,10 @@
    disparity -> softmax -> 3-tap NMS -> top-k integer label seeds;
 2. seed propagation: context projection + CSWin propagation layers +
    MLP head -> residual offsets; labels = relu(offsets + seeds).
+
+Gradients reach the Conv1d stack only through ``prob`` (the seeds are
+integers) and the propagation and its head only through the labels, as in
+the JAX package.
 """
 
 import torch
@@ -19,7 +23,7 @@ class DPN(nn.Module):
     def __init__(self, cost_group, num_proposals, feat_dim, context_dim,
                  num_prop_layers, prop_embed_dim, mlp_ratio, split_size,
                  prop_n_heads, gelu_approx=False, normalize_before=False,
-                 use_kernels=False, dtype=None):
+                 use_kernels=False, dtype=None, remat=False):
         super().__init__()
         self.num_proposals = num_proposals
         self.mlp = nn.Sequential(
@@ -30,7 +34,7 @@ class DPN(nn.Module):
         self.propagation = Propagation(
             prop_embed_dim, cost_group, num_prop_layers, mlp_ratio,
             context_dim, split_size, prop_n_heads, gelu_approx,
-            normalize_before, use_kernels, dtype)
+            normalize_before, use_kernels, dtype, remat)
         self.prop_head = MLPBlock(prop_embed_dim, prop_embed_dim, 1, 3)
 
     def forward(self, cost_volume, fmap1):

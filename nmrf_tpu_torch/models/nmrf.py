@@ -1,7 +1,9 @@
-"""NMRF top-level model, inference forward (``nmrf_tpu/models/nmrf.py``;
-reference ``nmrf/models/NMRF.py:21-273``): backbone -> group-wise cost
-volume -> DPN -> NMRF inference (8x8 sub-patch decode + selection) ->
-refinement (4x4 sub-patch residual decode).  Channel-last throughout."""
+"""NMRF top-level model (``nmrf_tpu/models/nmrf.py``; reference
+``nmrf/models/NMRF.py:21-273``): backbone -> group-wise cost volume -> DPN
+-> NMRF inference (8x8 sub-patch decode + selection) -> refinement (4x4
+sub-patch residual decode).  Channel-last throughout.  In train mode with
+``aux_loss`` the output also holds every layer's predictions for the
+per-layer losses."""
 
 import torch
 from torch import nn
@@ -47,14 +49,17 @@ class NMRF(nn.Module):
                  prop_n_heads=4, infer_n_heads=4, num_prop_layers=5,
                  num_infer_layers=5, num_refine_layers=5,
                  with_refinement=True, normalize_before=True,
-                 gelu_approx=False, use_kernels=False, dtype=None):
+                 gelu_approx=False, use_kernels=False, dtype=None,
+                 remat=False, aux_loss=True, return_intermediate=True):
         super().__init__()
+        self.aux_loss = aux_loss
         self.num_proposals = num_proposals
         self.max_disp = max_disp
         self.cost_group = cost_group
         self.with_refinement = with_refinement
         common = dict(gelu_approx=gelu_approx, normalize_before=normalize_before,
-                      use_kernels=use_kernels, dtype=dtype)
+                      use_kernels=use_kernels, dtype=dtype, remat=remat)
+        stage = dict(common, return_intermediate=return_intermediate)
         self.backbone = Backbone(backbone_out_channels, dtype=dtype)
         self.concatconv = ConvINReluConv(backbone_out_channels, 128, 64,
                                          dtype=dtype)
@@ -64,14 +69,14 @@ class NMRF(nn.Module):
                        mlp_ratio, split_size, prop_n_heads, **common)
         self.inference = Inference(64, 32, infer_embed_dim, num_infer_layers,
                                    mlp_ratio, window_size, infer_n_heads,
-                                   **common)
+                                   **stage)
         self.infer_head = MLPBlock(infer_embed_dim, infer_embed_dim, 8 * 8, 3)
         self.infer_score_head = Linear(infer_embed_dim, 8 * 8)
         if with_refinement:
             self.refinement = Refinement(64, 32, infer_embed_dim,
                                          num_refine_layers, mlp_ratio,
                                          refine_window_size, infer_n_heads,
-                                         **common)
+                                         **stage)
             self.refine_head = MLPBlock(infer_embed_dim, infer_embed_dim,
                                         4 * 4, 3)
 
@@ -80,7 +85,9 @@ class NMRF(nn.Module):
 
         Returns dict: disp [B, H, W]; prob [B*H/8*W/8, D]; proposal and
         initial_proposal [B, H/8*W/8, N]; disp_pred [B, H, W] with
-        refinement.
+        refinement.  In train mode with ``aux_loss`` also
+        coarse_disp_layers and logits_layers [L_i, B, H, W, N] and, with
+        refinement, disp_pred_layers [L_r, B, H, W].
         """
         B = img1.shape[0]
         feats = self.backbone(torch.cat([img1, img2], dim=0))[::-1]
@@ -99,18 +106,20 @@ class NMRF(nn.Module):
         fmap1_gw = self.gw(f1_list[0])
         fmap2_gw = self.gw(f2_list[0])
         h8, w8 = fmap1.shape[1:3]
-        labels_curr = labels[-1].reshape(B, h8, w8, self.num_proposals)
+        # the labels reach the NMP stages without gradient (the proposals
+        # learn through the proposal loss only)
+        labels_curr = labels[-1].reshape(B, h8, w8, self.num_proposals).detach()
 
         tgt = self.inference(labels_curr, fmap1, fmap2, fmap1_gw, fmap2_gw)
         coarse = torch.relu(labels_curr[None, ..., None] + self.infer_head(tgt))
         logits = 0.25 * self.infer_score_head(tgt)
-        coarse = _subpatch_to_full(coarse, 8)[-1]  # [B, H, W, N]
-        logits = _subpatch_to_full(logits, 8)[-1]
+        coarse = _subpatch_to_full(coarse, 8)  # [L, B, H, W, N]
+        logits = _subpatch_to_full(logits, 8)
 
         out = {}
         if self.with_refinement:
-            disp_curr = _select_argmax(coarse, logits) * 2
-            disp_curr = _lower_median_pool(disp_curr, 4)  # [B, H/4, W/4]
+            disp_curr = _select_argmax(coarse[-1], logits[-1]) * 2
+            disp_curr = _lower_median_pool(disp_curr, 4).detach()  # [B, H/4, W/4]
             rf1 = self.concatconv(f1_list[1])
             rf2 = self.concatconv(f2_list[1])
             rf1_gw = self.gw(f1_list[1])
@@ -119,13 +128,18 @@ class NMRF(nn.Module):
             disp_pred = torch.relu(disp_curr[None, ..., None]
                                    + self.refine_head(tgt_r))
             disp_pred = _subpatch_to_full(disp_pred[..., None, :], 4)
-            disp_pred = disp_pred.squeeze(-1)[-1]  # [B, H, W]
-            out["disp"] = disp_pred * 4
-            out["disp_pred"] = disp_pred
+            disp_pred = disp_pred.squeeze(-1)  # [L, B, H, W]
+            out["disp"] = disp_pred[-1] * 4
+            out["disp_pred"] = disp_pred[-1]
         else:
-            out["disp"] = _select_argmax(coarse, logits) * 8
+            out["disp"] = _select_argmax(coarse[-1], logits[-1]) * 8
         out["prob"] = prob
         out["proposal"] = labels[-1].reshape(B, -1, self.num_proposals)
         out["initial_proposal"] = label_seeds.reshape(B, -1,
                                                       self.num_proposals)
+        if self.training and self.aux_loss:
+            out["coarse_disp_layers"] = coarse
+            out["logits_layers"] = logits
+            if self.with_refinement:
+                out["disp_pred_layers"] = disp_pred
         return out

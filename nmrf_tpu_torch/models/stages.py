@@ -3,14 +3,19 @@
 
 Token layout is [B, H, W, N, C] throughout.  The JAX package runs each
 layer stack under ``nn.scan``; here it is a Python loop over an
-``nn.ModuleList`` (torch names ``<stage>.layers.<i>.…``).  Inference only:
+``nn.ModuleList`` (torch names ``<stage>.layers.<i>.…``).  In eval mode
 the stages return the last layer's normalized output with a leading axis
-of 1, as the JAX package does in eval mode.
+of 1; in train mode Inference and Refinement return every layer's
+normalized output, [L, ...], for the per-layer losses (with
+``return_intermediate``, as the JAX package does).  With ``remat`` each
+layer runs under ``torch.utils.checkpoint`` (the JAX package's
+``TPU.REMAT``): its activations are recomputed in the backward pass.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.encodings import fourier_coord_embed
 from ..ops.sampling import disp_warp, sample_cost
@@ -18,6 +23,13 @@ from .layers import GELU, LayerNorm, Linear, Mlp
 from .nmp import BasicAttention, CSWinNMP, SwinNMP
 
 ABS_ENCODING_DIM = 31  # fourier_coord_embed of one coordinate, 15 bands
+
+
+def _run(layer, remat, *args):
+    """One layer, rematerialized in the backward pass with ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
 
 
 class PropagationLayer(nn.Module):
@@ -44,9 +56,11 @@ class Propagation(nn.Module):
 
     def __init__(self, embed_dim, cost_group, num_layers, mlp_ratio,
                  context_dim, split_size, n_heads, gelu_approx=False,
-                 normalize_before=False, use_kernels=False, dtype=None):
+                 normalize_before=False, use_kernels=False, dtype=None,
+                 remat=False):
         super().__init__()
         self.embed_dim = embed_dim
+        self.remat = remat
         self.cost_encoder = nn.Sequential(
             Linear(cost_group * 9, embed_dim, dtype=dtype),
             GELU(),  # exact erf form in the reference and the JAX package
@@ -78,7 +92,7 @@ class Propagation(nn.Module):
         x = self.proj(feat).reshape(B, H, W, N, self.embed_dim)
         ctx = context[:, :, :, None, :].expand(B, H, W, N, context.shape[-1])
         for layer in self.layers:
-            x = layer(x, ctx)
+            x = _run(layer, self.remat, x, ctx)
         return self.norm(x)[None], seeds_f
 
 
@@ -127,10 +141,13 @@ class _NMPStage(nn.Module):
 
     def __init__(self, feat_dim, cost_group, dim, num_layers, mlp_ratio,
                  window_size, n_heads, gelu_approx=False,
-                 normalize_before=False, use_kernels=False, dtype=None):
+                 normalize_before=False, use_kernels=False, dtype=None,
+                 remat=False, return_intermediate=False):
         super().__init__()
         self.cost_group = cost_group
         self.window_size = window_size
+        self.remat = remat
+        self.return_intermediate = return_intermediate
         self.ffn = Mlp(2 * feat_dim + cost_group, dim, dim,
                        act=GELU(gelu_approx), dtype=dtype)
         self.layers = nn.ModuleList(
@@ -156,7 +173,8 @@ class _NMPStage(nn.Module):
 
     def _run_layers(self, label_rep, abs_encoding):
         """Centered window padding, layers with shifts 0 and ws//2
-        alternating, crop, norm.  -> [1, B, H, W, N, C] f32."""
+        alternating, crop, norm.  -> [1, B, H, W, N, C] f32, or
+        [L, B, H, W, N, C] in train mode with ``return_intermediate``."""
         B, H, W, N, C = label_rep.shape
         ws = self.window_size
         H_pad = (ws - H % ws) % ws
@@ -166,10 +184,15 @@ class _NMPStage(nn.Module):
             pad = (0, 0, 0, 0, lp, W_pad - lp, tp, H_pad - tp)
             label_rep = F.pad(label_rep, pad)
             abs_encoding = F.pad(abs_encoding, pad)
-        x = label_rep
+        intermediate = self.training and self.return_intermediate
+        x, ys = label_rep, []
         for i, layer in enumerate(self.layers):
-            x = layer(x, abs_encoding, 0 if i % 2 == 0 else ws // 2)
-        return self.norm(x[:, tp:tp + H, lp:lp + W])[None]
+            x = _run(layer, self.remat, x, abs_encoding,
+                     0 if i % 2 == 0 else ws // 2)
+            if intermediate:
+                ys.append(x)
+        x = torch.stack(ys) if intermediate else x[None]
+        return self.norm(x[:, :, tp:tp + H, lp:lp + W])
 
 
 class Inference(_NMPStage):
@@ -179,7 +202,8 @@ class Inference(_NMPStage):
     layer_cls = InferenceLayer
 
     def forward(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw):
-        """labels: [B, H, W, N] candidate disparities -> [1, B, H, W, N, C]."""
+        """labels: [B, H, W, N] candidate disparities -> [L or 1, B, H, W,
+        N, C]."""
         labels = labels.float()
         label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
         abs_enc = fourier_coord_embed(labels[..., None], 15,
@@ -194,7 +218,7 @@ class Refinement(_NMPStage):
     layer_cls = RefinementLayer
 
     def forward(self, disp, fmap1, fmap2, fmap1_gw, fmap2_gw):
-        """disp: [B, H, W] -> [1, B, H, W, C]."""
+        """disp: [B, H, W] -> [L or 1, B, H, W, C]."""
         labels = disp.float()[..., None]
         label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
         abs_enc = fourier_coord_embed(labels[..., None], 15,

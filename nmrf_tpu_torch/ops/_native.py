@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("window_attention", "stripe_attention")
+KERNELS = ("window_attention", "stripe_attention", "window_attention_bwd",
+           "stripe_attention_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,10 @@ _SIGNATURES = {
     "stripe_attention": ("nmrf_stripe_attention",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P]),
+    "window_attention_bwd": ("nmrf_window_attention_bwd",
+                             [_P] * 8 + [_I] * 11 + [_F, _P]),
+    "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
+                             [_P] * 9 + [_I] * 9 + [_F, _P]),
 }
 
 _lock = threading.Lock()

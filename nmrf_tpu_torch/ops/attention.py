@@ -1,21 +1,26 @@
-"""NMP attention kernels: window attention (K1) and stripe attention (K2).
+"""NMP attention kernels: window attention (K1) and stripe attention (K2),
+and their backwards (K1b, K2b).
 
 Each function here has three parts:
 
-* the wrapper (``window_attention``, ``stripe_attention``), which checks its
-  inputs and, for CUDA tensors, launches the hand-written kernel from
+* the wrapper (``window_attention``, ``stripe_attention`` and the backward
+  wrappers ``window_attention_bwd``, ``stripe_attention_bwd``), which checks
+  its inputs and, for CUDA tensors, launches the hand-written kernel from
   ``nmrf_tpu_torch/csrc`` on the current stream, raising if the launch
   fails.  It counts its launches in ``<wrapper>.launches``;
 * the plain PyTorch version (``*_plain``) of the same function.  The wrapper
   takes it only for tensors on the CPU; the tests and ``chip_smoke.py``
-  hold the kernel against it;
+  hold the kernel against it.  The plain backward versions write the
+  softmax backward out by hand, as the TPU kernels do;
 * the source note in the ``.cu`` file: which TPU kernel it replaces, what
   bounds it on the H100 and what its design does about that.
 
 K1 replaces ``nmrf_tpu/ops/pallas/attention.py:_window_native_kernel_direct``
-(and the transposed ``_window_native_kernel``, the same function); K2
-replaces ``_stripe_attention_kernel``.  Both are inference-only in this
-package: a CUDA input that requires grad raises NotImplementedError.
+(and the transposed ``_window_native_kernel``, the same function), K2
+``_stripe_attention_kernel``, K1b ``_wan_bwd_kernel_direct`` and K2b
+``_stripe_bwd_kernel``.  On CUDA tensors the forward wrappers are
+``torch.autograd.Function``s whose backward is K1b or K2b; on the CPU
+autograd differentiates the plain forward versions.
 """
 
 import ctypes
@@ -44,14 +49,18 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     return rel.sum(-1)
 
 
+def _wrappers():
+    return (window_attention, stripe_attention, window_attention_bwd,
+            stripe_attention_bwd)
+
+
 def reset_launch_counts():
-    window_attention.launches = 0
-    stripe_attention.launches = 0
+    for fn in _wrappers():
+        fn.launches = 0
 
 
 def launch_counts():
-    return {"window_attention": window_attention.launches,
-            "stripe_attention": stripe_attention.launches}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def _check_tensor(name, t, ndim):
@@ -63,19 +72,17 @@ def _check_tensor(name, t, ndim):
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
 
 
-def _check_inference_only(kernel, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{kernel}: the CUDA kernel has no backward yet (the training "
-            "slice of the port adds it); call under torch.inference_mode()")
-
-
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _raise_on_error(kernel, err):
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
 # --------------------------------------------------------------------------- #
-# K1: shifted-window attention with relative-position terms
+# K1 / K1b: shifted-window attention with relative-position terms
 # --------------------------------------------------------------------------- #
 
 @lru_cache(maxsize=32)
@@ -115,25 +122,50 @@ def _window_shapes(qkv, rel_table, window, num_heads):
     return B, Hp, Wp, N, C
 
 
-def window_attention_plain(qkv, rel_table, shift, window, num_heads,
-                           candidate_mask):
-    """Plain PyTorch version of :func:`window_attention` (f32 math)."""
-    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+def _window_split(x, window, num_heads, comps):
+    """[B, Hp, Wp, N, comps*h*hd] -> [comps, G, h, T, hd] f32, windows in
+    (b, row, col) order and tokens in (pixel row, pixel col, n) order."""
+    B, Hp, Wp, N, CC = x.shape
     wh, ww = window
-    h = num_heads
-    hd = C // h
-    P, T = wh * ww, wh * ww * N
-    nwh, nww = Hp // wh, Wp // ww
-    G = B * nwh * nww
-    scale = hd ** -0.5
-    x = qkv.float().reshape(B, nwh, wh, nww, ww, N, 3, h, hd)
-    x = x.permute(6, 0, 1, 3, 7, 2, 4, 5, 8).reshape(3, G, h, T, hd)
-    q, k, v = x[0], x[1], x[2]
-    idx = torch.as_tensor(relative_position_index(wh, ww).reshape(-1),
-                          device=qkv.device)
-    rpe = rel_table.to(qkv.dtype).float()[idx].reshape(P, P, h, 3, hd)
-    qe, ke, ve = rpe[..., 0, :], rpe[..., 1, :], rpe[..., 2, :]
+    hd = CC // (comps * num_heads)
+    x = x.float().reshape(B, Hp // wh, wh, Wp // ww, ww, N, comps, num_heads, hd)
+    x = x.permute(6, 0, 1, 3, 7, 2, 4, 5, 8)
+    return x.reshape(comps, -1, num_heads, wh * ww * N, hd)
 
+
+def _window_merge(x, shape, window):
+    """Inverse of :func:`_window_split`: [comps, G, h, T, hd] ->
+    [B, Hp, Wp, N, comps*h*hd]."""
+    B, Hp, Wp, N = shape
+    comps, _, h, _, hd = x.shape
+    wh, ww = window
+    x = x.reshape(comps, B, Hp // wh, Wp // ww, h, wh, ww, N, hd)
+    return x.permute(1, 2, 5, 3, 6, 7, 0, 4, 8).reshape(B, Hp, Wp, N,
+                                                        comps * h * hd)
+
+
+def _window_index(window, device):
+    wh, ww = window
+    return torch.as_tensor(relative_position_index(wh, ww).reshape(-1),
+                           device=device)
+
+
+def _window_tables(table, window, num_heads):
+    """(qe, ke, ve), each [P, P, h, hd]: the table rows rel(p, s) of query
+    pixel p and key pixel s, columns in (head, component, hd) order."""
+    P = window[0] * window[1]
+    rpe = table[_window_index(window, table.device)]
+    rpe = rpe.reshape(P, P, num_heads, 3, -1)
+    return rpe[..., 0, :], rpe[..., 1, :], rpe[..., 2, :]
+
+
+def _window_probs(q, k, qe, ke, shape, window, shift, candidate_mask):
+    """Softmax of the logits [G, h, T, T]: scaled q.k, the positional terms
+    qr[i, pix(j)] + kr[j, pix(i)] and the masks."""
+    B, Hp, Wp, N = shape
+    G, h, T, hd = q.shape
+    P = T // N
+    scale = hd ** -0.5
     logits = torch.einsum("ghic,ghjc->ghij", q, k) * scale
     q5 = q.reshape(G, h, P, N, hd)
     k5 = k.reshape(G, h, P, N, hd)
@@ -141,16 +173,140 @@ def window_attention_plain(qkv, rel_table, shift, window, num_heads,
     kr = torch.einsum("ghsmc,pshc->ghpsm", k5, qe) * scale
     logits = logits.reshape(G, h, P, N, P, N) + qr[..., None] + kr[:, :, :, None]
     mask = torch.as_tensor(
-        _window_mask(Hp, Wp, wh, ww, N, int(shift), bool(candidate_mask)),
-        device=qkv.device)
-    logits = logits.reshape(B, nwh * nww, h, T, T) + mask[None, :, None]
-    attn = torch.softmax(logits.reshape(G, h, T, T), dim=-1)
+        _window_mask(Hp, Wp, *window, N, int(shift), bool(candidate_mask)),
+        device=q.device)
+    logits = logits.reshape(B, -1, h, T, T) + mask[None, :, None]
+    return torch.softmax(logits.reshape(G, h, T, T), dim=-1)
+
+
+def window_attention_plain(qkv, rel_table, shift, window, num_heads,
+                           candidate_mask):
+    """Plain PyTorch version of :func:`window_attention` (f32 math)."""
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    q, k, v = _window_split(qkv, window, num_heads, 3)
+    qe, ke, ve = _window_tables(rel_table.to(qkv.dtype).float(), window,
+                                num_heads)
+    attn = _window_probs(q, k, qe, ke, (B, Hp, Wp, N), window, shift,
+                         candidate_mask)
+    G, h, T, hd = q.shape
+    P = T // N
     out = torch.einsum("ghij,ghjc->ghic", attn, v)
     mass = attn.reshape(G, h, P, N, P, N).sum(-1)
     out = out + torch.einsum("ghpns,pshc->ghpnc", mass, ve).reshape(G, h, T, hd)
-    out = out.reshape(B, nwh, nww, h, wh, ww, N, hd)
-    out = out.permute(0, 1, 4, 2, 5, 6, 3, 7).reshape(B, Hp, Wp, N, C)
-    return out.to(qkv.dtype)
+    return _window_merge(out[None], (B, Hp, Wp, N), window).to(qkv.dtype)
+
+
+def _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, num_heads):
+    """From the content gradients (f32 d(qkv) [B, Hp, Wp, N, 3C]), dqr and
+    dkr ([G, h, T, P], the gradients of the pixel-granular positional
+    logits) and d(ve) ([h, P, P, hd]): add the positional halves dqr.ke and
+    dkr.qe to d(q) and d(k), form the q/k table gradients and scatter all
+    three into the rows of the table.  Plain tensor products, the part the
+    JAX package leaves to XLA.  Returns (d(qkv) in qkv's dtype, d(table)
+    f32)."""
+    B, Hp, Wp, N, C3 = qkv.shape
+    C = C3 // 3
+    h = num_heads
+    hd = C // h
+    P = window[0] * window[1]
+    scale = hd ** -0.5
+    q, k = _window_split(qkv[..., :2 * C], window, h, 2)
+    G = q.shape[0]
+    qe, ke, _ = _window_tables(table, window, h)
+    dqr5 = dqr.reshape(G, h, P, N, P)
+    dkr5 = dkr.reshape(G, h, P, N, P)
+    q5 = q.reshape(G, h, P, N, hd)
+    k5 = k.reshape(G, h, P, N, hd)
+    dq_pos = torch.einsum("ghpns,pshc->ghpnc", dqr5, ke) * scale
+    dk_pos = torch.einsum("ghsmp,pshc->ghsmc", dkr5, qe) * scale
+    d_ke = torch.einsum("ghpns,ghpnc->pshc", dqr5, q5) * scale
+    d_qe = torch.einsum("ghsmp,ghsmc->pshc", dkr5, k5) * scale
+    pos = torch.stack([dq_pos, dk_pos]).reshape(2, G, h, P * N, hd)
+    dqkv[..., :2 * C] += _window_merge(pos, (B, Hp, Wp, N), window)
+    d_rpe = torch.stack([d_qe, d_ke, dve.permute(1, 2, 0, 3)], dim=3)
+    d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    d_table.index_add_(0, _window_index(window, table.device),
+                       d_rpe.reshape(P * P, C3))
+    return dqkv.to(qkv.dtype), d_table
+
+
+def window_attention_bwd_plain(g, qkv, rel_table, shift, window, num_heads,
+                               candidate_mask):
+    """Plain PyTorch version of :func:`window_attention_bwd` (f32 math, the
+    softmax backward written out as in ``_bwd_head_core``)."""
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    h = num_heads
+    q, k, v = _window_split(qkv, window, h, 3)
+    (gw,) = _window_split(g, window, h, 1)
+    table = rel_table.detach().to(qkv.dtype).float()
+    qe, ke, ve = _window_tables(table, window, h)
+    attn = _window_probs(q, k, qe, ke, (B, Hp, Wp, N), window, shift,
+                         candidate_mask)
+    G, _, T, hd = q.shape
+    P = T // N
+    # dP = g.v^T + gve[i, pix(j)], gve[i, s] = g_i . ve[pix(i), s]
+    gve = torch.einsum("ghpnc,pshc->ghpns", gw.reshape(G, h, P, N, hd), ve)
+    dattn = gw @ v.transpose(-1, -2) \
+        + gve.reshape(G, h, T, P).repeat_interleave(N, dim=-1)
+    dS = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    dq = dS @ k * hd ** -0.5
+    dk = dS.transpose(-1, -2) @ q * hd ** -0.5
+    dv = attn.transpose(-1, -2) @ gw
+    dqr = dS.reshape(G, h, T, P, N).sum(-1)
+    dkr = dS.transpose(-1, -2).reshape(G, h, T, P, N).sum(-1)
+    mass = attn.reshape(G, h, P, N, P, N).sum(-1)
+    dve = torch.einsum("ghpns,ghpnc->hpsc", mass, gw.reshape(G, h, P, N, hd))
+    dqkv = _window_merge(torch.stack([dq, dk, dv]), (B, Hp, Wp, N), window)
+    return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
+
+
+def _window_kernel_checks(kernel, qkv, rel_table, shift, window, num_heads):
+    if qkv.device.type != "cuda" or rel_table.device != qkv.device:
+        raise ValueError(f"{kernel}: qkv and rel_table must both be on one "
+                         f"CUDA device, got {qkv.device}, {rel_table.device}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{kernel}: qkv must be contiguous")
+    wh, ww = window
+    if not 0 <= int(shift) < min(wh, ww):
+        raise ValueError(f"shift {shift} outside [0, {min(wh, ww)})")
+    C = qkv.shape[-1] // 3
+    if C // num_heads not in _KERNEL_HEAD_DIMS or wh * ww > 64:
+        raise ValueError(f"{kernel} kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS} and windows of at most 64 "
+                         f"pixels, got {C // num_heads} and {wh}x{ww}")
+
+
+def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
+                             candidate_mask):
+    B, Hp, Wp, N, C = qkv.shape[:4] + (qkv.shape[4] // 3,)
+    wh, ww = window
+    table = rel_table.detach().to(qkv.dtype).float().contiguous()
+    out = torch.empty((B, Hp, Wp, N, C), dtype=qkv.dtype, device=qkv.device)
+    err = _native.library("window_attention")(
+        qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
+        int(shift), int(bool(candidate_mask)), (C // num_heads) ** -0.5,
+        _stream())
+    _raise_on_error("window_attention", err)
+    window_attention.launches += 1
+    return out
+
+
+class _WindowAttentionFn(torch.autograd.Function):
+    """K1 forward, K1b backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_table, shift, window, num_heads, candidate_mask):
+        ctx.save_for_backward(qkv, rel_table)
+        ctx.args = (shift, window, num_heads, candidate_mask)
+        return _window_attention_launch(qkv, rel_table, shift, window,
+                                        num_heads, candidate_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rel_table = ctx.saved_tensors
+        dqkv, d_table = window_attention_bwd(g, qkv, rel_table, *ctx.args)
+        return dqkv, d_table.to(rel_table.dtype), None, None, None, None
 
 
 def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask):
@@ -162,45 +318,66 @@ def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask):
       package rounds it, then used in f32.
     shift: the layer's cyclic shift (0 or wh//2); > 0 adds the shifted-
       region mask.  candidate_mask: block other candidates of a pixel.
-    Returns [B, Hp, Wp, N, C] in qkv's dtype.
+    Returns [B, Hp, Wp, N, C] in qkv's dtype.  Differentiable in qkv and
+    rel_table (on CUDA through :func:`window_attention_bwd`).
     """
-    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    _window_shapes(qkv, rel_table, window, num_heads)
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, rel_table, shift, window,
                                       num_heads, candidate_mask)
-    if qkv.device.type != "cuda" or rel_table.device != qkv.device:
-        raise ValueError("window_attention: qkv and rel_table must both be "
-                         f"on one CUDA device, got {qkv.device}, "
-                         f"{rel_table.device}")
-    if not qkv.is_contiguous():
-        raise ValueError("window_attention: qkv must be contiguous")
-    _check_inference_only("window_attention", qkv, rel_table)
+    _window_kernel_checks("window_attention", qkv, rel_table, shift, window,
+                          num_heads)
+    return _WindowAttentionFn.apply(qkv, rel_table, shift, window, num_heads,
+                                    candidate_mask)
+
+
+def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
+                         candidate_mask):
+    """Gradients of :func:`window_attention` given g = dL/dout
+    [B, Hp, Wp, N, C]: (d(qkv) in qkv's dtype, d(rel_table) f32).
+
+    On CUDA tensors one launch of K1b (the softmax backward, dqr/dkr and
+    the d(ve) reduction, ``csrc/window_attention_bwd.cu``), then the
+    positional products of :func:`_window_bwd_finish`."""
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    if tuple(g.shape) != (B, Hp, Wp, N, C):
+        raise ValueError(f"g shape {tuple(g.shape)}, expected "
+                         f"{(B, Hp, Wp, N, C)}")
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_plain(g, qkv, rel_table, shift, window,
+                                          num_heads, candidate_mask)
+    _window_kernel_checks("window_attention_bwd", qkv, rel_table, shift,
+                          window, num_heads)
+    if g.device != qkv.device:
+        raise ValueError(f"window_attention_bwd: g on {g.device}, qkv on "
+                         f"{qkv.device}")
     wh, ww = window
-    if not 0 <= int(shift) < min(wh, ww):
-        raise ValueError(f"shift {shift} outside [0, {min(wh, ww)})")
-    if C // num_heads not in _KERNEL_HEAD_DIMS or wh * ww > 64:
-        raise ValueError(f"window_attention kernel takes head dims "
-                         f"{_KERNEL_HEAD_DIMS} and windows of at most 64 "
-                         f"pixels, got {C // num_heads} and {wh}x{ww}")
+    h = num_heads
+    P = wh * ww
+    T = P * N
+    G = B * (Hp // wh) * (Wp // ww)
+    g = g.to(qkv.dtype).contiguous()
     table = rel_table.detach().to(qkv.dtype).float().contiguous()
-    out = torch.empty((B, Hp, Wp, N, C), dtype=qkv.dtype, device=qkv.device)
-    err = _native.library("window_attention")(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
-        int(shift), int(bool(candidate_mask)), (C // num_heads) ** -0.5,
-        _stream())
-    if err != 0:
-        raise RuntimeError(f"window_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    window_attention.launches += 1
-    return out
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty((B, Hp, Wp, N, 3 * C), **f32)
+    dqr, dkr, mass = (torch.empty((G, h, T, P), **f32) for _ in range(3))
+    dve = torch.empty((h, P, P, C // h), **f32)
+    err = _native.library("window_attention_bwd")(
+        qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        dqr.data_ptr(), dkr.data_ptr(), mass.data_ptr(), dve.data_ptr(),
+        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h, wh, ww, int(shift),
+        int(bool(candidate_mask)), (C // h) ** -0.5, _stream())
+    _raise_on_error("window_attention_bwd", err)
+    window_attention_bwd.launches += 1
+    return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
 
 
 window_attention.launches = 0
+window_attention_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------- #
-# K2: CSWin stripe attention
+# K2 / K2b: CSWin stripe attention
 # --------------------------------------------------------------------------- #
 
 @lru_cache(maxsize=16)
@@ -229,25 +406,94 @@ def _stripe_shapes(q, k, v, H_sp, W_sp, num_heads):
     return B, Hp, Wp, N, C
 
 
+def _stripe_split(t, H_sp, W_sp, num_heads):
+    """[B, Hp, Wp, N, C] -> [stripes, h, T, hd] f32."""
+    B, Hp, Wp, N, C = t.shape
+    hd = C // num_heads
+    t = t.float().reshape(B, Hp // H_sp, H_sp, Wp // W_sp, W_sp, N,
+                          num_heads, hd)
+    return t.permute(0, 1, 3, 6, 2, 4, 5, 7).reshape(-1, num_heads,
+                                                     H_sp * W_sp * N, hd)
+
+
+def _stripe_merge(t, shape, H_sp, W_sp):
+    B, Hp, Wp, N = shape
+    _, h, _, hd = t.shape
+    t = t.reshape(B, Hp // H_sp, Wp // W_sp, h, H_sp, W_sp, N, hd)
+    return t.permute(0, 1, 4, 2, 5, 6, 3, 7).reshape(B, Hp, Wp, N, h * hd)
+
+
+def _stripe_probs(qs, ks, N):
+    """Softmax of scale q.k + the anti-same-pixel mask, q pre-scaled."""
+    T = qs.shape[2]
+    mask = torch.as_tensor(stripe_mask(T, N), device=qs.device)
+    return torch.softmax(qs @ ks.transpose(-1, -2) + mask, dim=-1)
+
+
 def stripe_attention_plain(q, k, v, H_sp, W_sp, num_heads):
     """Plain PyTorch version of :func:`stripe_attention` (f32 math)."""
     B, Hp, Wp, N, C = _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
-    h = num_heads
-    hd = C // h
-    ni, nj = Hp // H_sp, Wp // W_sp
-    T = H_sp * W_sp * N
+    scale = (C // num_heads) ** -0.5
+    qs, ks, vs = (_stripe_split(t, H_sp, W_sp, num_heads) for t in (q, k, v))
+    out = _stripe_probs(qs * scale, ks, N) @ vs
+    return _stripe_merge(out, (B, Hp, Wp, N), H_sp, W_sp).to(q.dtype)
 
-    def st(t):  # [B, Hp, Wp, N, C] -> [B*ni*nj, h, T, hd]
-        t = t.float().reshape(B, ni, H_sp, nj, W_sp, N, h, hd)
-        return t.permute(0, 1, 3, 6, 2, 4, 5, 7).reshape(B * ni * nj, h, T, hd)
 
-    mask = torch.as_tensor(stripe_mask(T, N), device=q.device)
-    logits = torch.einsum("ghic,ghjc->ghij", st(q) * hd ** -0.5, st(k))
-    attn = torch.softmax(logits + mask, dim=-1)
-    out = torch.einsum("ghij,ghjc->ghic", attn, st(v))
-    out = out.reshape(B, ni, nj, h, H_sp, W_sp, N, hd)
-    out = out.permute(0, 1, 4, 2, 5, 6, 3, 7).reshape(B, Hp, Wp, N, C)
-    return out.to(q.dtype)
+def stripe_attention_bwd_plain(g, q, k, v, H_sp, W_sp, num_heads):
+    """Plain PyTorch version of :func:`stripe_attention_bwd` (f32 math, the
+    softmax backward written out as in ``_stripe_bwd_kernel``)."""
+    B, Hp, Wp, N, C = _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
+    scale = (C // num_heads) ** -0.5
+    qs, ks, vs, gs = (_stripe_split(t, H_sp, W_sp, num_heads)
+                      for t in (q, k, v, g))
+    qs = qs * scale
+    attn = _stripe_probs(qs, ks, N)
+    dattn = gs @ vs.transpose(-1, -2)
+    dS = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    grads = (dS @ ks * scale, dS.transpose(-1, -2) @ qs,
+             attn.transpose(-1, -2) @ gs)
+    return tuple(_stripe_merge(t, (B, Hp, Wp, N), H_sp, W_sp).to(q.dtype)
+                 for t in grads)
+
+
+def _stripe_kernel_checks(kernel, tensors, num_heads):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel}: inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel}: inputs must be contiguous")
+    hd = tensors[0].shape[-1] // num_heads
+    if hd not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {hd}")
+
+
+def _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads):
+    B, Hp, Wp, N, C = q.shape
+    out = torch.empty_like(q)
+    err = _native.library("stripe_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
+        (C // num_heads) ** -0.5, _stream())
+    _raise_on_error("stripe_attention", err)
+    stripe_attention.launches += 1
+    return out
+
+
+class _StripeAttentionFn(torch.autograd.Function):
+    """K2 forward, K2b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, H_sp, W_sp, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (H_sp, W_sp, num_heads)
+        return _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return stripe_attention_bwd(g, q, k, v, *ctx.args) + (None,) * 3
 
 
 def stripe_attention(q, k, v, H_sp, W_sp, num_heads):
@@ -256,31 +502,40 @@ def stripe_attention(q, k, v, H_sp, W_sp, num_heads):
     q/k/v: [B, Hp, Wp, N, C] (already padded to stripe multiples), channels
     in (head, hd) order.  Each H_sp x W_sp stripe of tokens attends within
     itself under the anti-same-pixel mask.  Returns [B, Hp, Wp, N, C].
+    Differentiable (on CUDA through :func:`stripe_attention_bwd`).
     """
-    B, Hp, Wp, N, C = _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
+    _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return stripe_attention_plain(q, k, v, H_sp, W_sp, num_heads)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("stripe_attention: q, k and v must be on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("stripe_attention: q, k and v must be contiguous")
-    _check_inference_only("stripe_attention", q, k, v)
-    hd = C // num_heads
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"stripe_attention kernel takes head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {hd}")
-    out = torch.empty_like(q)
-    err = _native.library("stripe_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    _stripe_kernel_checks("stripe_attention", (q, k, v), num_heads)
+    return _StripeAttentionFn.apply(q, k, v, H_sp, W_sp, num_heads)
+
+
+def stripe_attention_bwd(g, q, k, v, H_sp, W_sp, num_heads):
+    """Gradients (dq, dk, dv) of :func:`stripe_attention` given g = dL/dout,
+    in q's dtype.  On CUDA tensors one launch of K2b
+    (``csrc/stripe_attention_bwd.cu``)."""
+    B, Hp, Wp, N, C = _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
+    if g.shape != q.shape:
+        raise ValueError(f"g shape {tuple(g.shape)}, expected {tuple(q.shape)}")
+    if all(t.device.type == "cpu" for t in (g, q, k, v)):
+        return stripe_attention_bwd_plain(g, q, k, v, H_sp, W_sp, num_heads)
+    g = g.to(q.dtype).contiguous()
+    _stripe_kernel_checks("stripe_attention_bwd", (q, k, v, g), num_heads)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    rows = (B * (Hp // H_sp) * (Wp // W_sp), num_heads, H_sp * W_sp * N)
+    lse, dsum = (torch.empty(rows, dtype=torch.float32, device=q.device)
+                 for _ in range(2))
+    err = _native.library("stripe_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
-        hd ** -0.5, _stream())
-    if err != 0:
-        raise RuntimeError(f"stripe_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    stripe_attention.launches += 1
-    return out
+        (C // num_heads) ** -0.5, _stream())
+    _raise_on_error("stripe_attention_bwd", err)
+    stripe_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 stripe_attention.launches = 0
+stripe_attention_bwd.launches = 0

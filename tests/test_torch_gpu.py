@@ -6,12 +6,18 @@ that has only PyTorch; there, skip the JAX-pinning conftest:
 ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``.
 Tolerance against the plain version on identical inputs: f32 atol = rtol
 = 1e-4 (summation order); bf16 atol 2e-2, rtol 1e-2 (one bf16 rounding of
-the output).
+the output).  The backward kernels are held against autograd through the
+plain forward versions; their bf16 d(qkv) is one bf16 rounding of sums of
+up to T products of magnitude about 1 and gets atol 5e-2, rtol 2e-2.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
+                            get_cfg, make_train_step)
+from nmrf_tpu_torch.data import synthetic_batch
 from nmrf_tpu_torch.ops import attention as A
 
 
@@ -25,6 +31,7 @@ def cuda():
 
 
 _GPU_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+_GPU_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
 
 
 @pytest.mark.gpu
@@ -61,12 +68,106 @@ def test_stripe_kernel_matches_plain(cuda, dtype, H_sp, W_sp):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# training shapes (384x768 crop, 1/8 and 1/4 grids) and KITTI shapes
+_WINDOW_BWD_CASES = [(48, 96, 4, 6, 0, True), (48, 96, 4, 6, 3, True),
+                     (96, 192, 1, 4, 0, False), (96, 192, 1, 4, 2, False),
+                     (48, 156, 4, 6, 3, True), (96, 312, 1, 4, 2, False)]
+
+
 @pytest.mark.gpu
-def test_cuda_input_requiring_grad_raises(cuda):
-    q = torch.zeros(1, 4, 6, 2, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        A.stripe_attention(q, q, q, 4, 1, 2)
-    qkv = torch.zeros(1, 8, 8, 1, 384, device=cuda)
-    table = torch.zeros(49, 384, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        A.window_attention(qkv, table, 0, (4, 4), 4, False)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _WINDOW_BWD_CASES)
+def test_window_bwd_kernel_matches_autograd_of_plain(cuda, dtype, case):
+    Hp, Wp, N, ws, shift, cand = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(1, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(1, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
+    qkv.requires_grad_()
+    table.requires_grad_()
+    before = A.window_attention_bwd.launches
+    got = A.window_attention_bwd(gout, qkv.detach(), table.detach(), shift,
+                                 (ws, ws), 4, cand)
+    assert A.window_attention_bwd.launches == before + 1
+    out = A.window_attention_plain(qkv, table, shift, (ws, ws), 4, cand)
+    want = torch.autograd.grad(out, (qkv, table), gout)
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    # d(table) is f32 on both sides; autograd's passes a bf16 rounding
+    torch.testing.assert_close(got[1], want[1].float(), atol=atol * 10,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(48, 96, 48, 1), (48, 96, 1, 96),
+                                   (47, 156, 47, 1), (47, 156, 1, 156)])
+def test_stripe_bwd_kernel_matches_autograd_of_plain(cuda, dtype, shape):
+    H, W, H_sp, W_sp = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, gout = (torch.randn(1, H, W, 4, 64, generator=g, device=cuda)
+                     .to(dtype) for _ in range(4))
+    before = A.stripe_attention_bwd.launches
+    got = A.stripe_attention_bwd(gout, q, k, v, H_sp, W_sp, 2)
+    assert A.stripe_attention_bwd.launches == before + 1
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.stripe_attention_plain(*qkv, H_sp, W_sp, 2)
+    want = torch.autograd.grad(out, qkv, gout)
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
+    """A CUDA input that requires grad runs the forward and backward kernels
+    (once each) and gets the plain versions' gradients."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 4, 6, 2, 64, generator=g, device=cuda, requires_grad=True)
+    counts = A.launch_counts()
+    A.stripe_attention(q, q, q, 4, 1, 2).square().sum().backward()
+    qkv = torch.randn(1, 8, 8, 1, 384, generator=g, device=cuda,
+                      requires_grad=True)
+    table = torch.randn(49, 384, generator=g, device=cuda, requires_grad=True)
+    A.window_attention(qkv, table, 0, (4, 4), 4, False).square().sum().backward()
+    after = A.launch_counts()
+    assert {k: after[k] - counts[k] for k in after} == dict.fromkeys(after, 1)
+    q2 = q.detach().clone().requires_grad_()
+    A.stripe_attention_plain(q2, q2, q2, 4, 1, 2).square().sum().backward()
+    torch.testing.assert_close(q.grad, q2.grad, atol=1e-4, rtol=1e-4)
+    qkv2 = qkv.detach().clone().requires_grad_()
+    table2 = table.detach().clone().requires_grad_()
+    A.window_attention_plain(qkv2, table2, 0, (4, 4), 4, False).square().sum() \
+        .backward()
+    torch.testing.assert_close(qkv.grad, qkv2.grad, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(table.grad, table2.grad, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_train_steps_through_kernels_match_plain(cuda):
+    """Two training steps of a 2-layer model on a 64x128 batch of 2, f32:
+    through the kernels (4 launches of each of the four per step: 2 + 2
+    window layers, 2 x 2 stripe halves, forward and backward) and on the
+    plain versions, from the same weights, give the same losses."""
+    cfg = get_cfg()
+    cfg.NMP.NUM_PROP_LAYERS = cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    cfg.SOLVER.LOSS_WEIGHTS = [1.0, 1.2, 1.4, 2.0]
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in synthetic_batch(2, 64, 128, 48, seed=0).items()}
+    losses = {}
+    for use_kernels in (True, False):
+        cfg.TPU.USE_PALLAS = use_kernels
+        model = build_model(cfg, device=cuda)
+        optimizer, scheduler = build_optimizer(model, cfg)
+        step = make_train_step(model, build_criterion(cfg), optimizer, scheduler)
+        A.reset_launch_counts()
+        losses[use_kernels] = [step(batch) for _ in range(2)]
+        want = 2 * 4 if use_kernels else 0
+        assert set(A.launch_counts().values()) == {want}
+    for got, ref in zip(losses[True], losses[False]):
+        for key, value in ref.items():
+            assert torch.isfinite(got[key])
+            np.testing.assert_allclose(got[key].item(), value.item(),
+                                       rtol=1e-3, atol=1e-4, err_msg=key)

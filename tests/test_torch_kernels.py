@@ -1,8 +1,8 @@
 """The port's kernel wrappers (``nmrf_tpu_torch/ops/attention.py``).
 
 On the CPU: input checks, the plain versions against the JAX package's
-Pallas stripe kernel (interpret mode) and the stage masks, and the
-inference-only guard.  The kernels themselves are tested on the card by
+Pallas stripe kernel (interpret mode) and the stage masks, and that the
+wrappers no longer refuse inputs that require grad.  The kernels themselves are tested on the card by
 ``tests/test_torch_gpu.py``.  Tolerance: float32 atol = rtol = 1e-5
 against JAX (same math, another summation order).
 """
@@ -69,8 +69,16 @@ def test_wrappers_check_inputs():
 
 
 def test_inference_only_guard():
-    x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        A._check_inference_only("window_attention", x)
-    with torch.inference_mode():
-        A._check_inference_only("window_attention", torch.zeros(2))
+    """The inference-only guard is gone: the wrappers take inputs that
+    require grad and are differentiable (on the CPU through their plain
+    versions; the backward wrappers give the same gradients)."""
+    assert not hasattr(A, "_check_inference_only")
+    rng = np.random.RandomState(1)
+    qkv = torch.from_numpy(_rand(rng, 1, 8, 8, 1, 24)).requires_grad_()
+    table = torch.from_numpy(_rand(rng, 49, 24)).requires_grad_()
+    g = torch.from_numpy(_rand(rng, 1, 8, 8, 1, 8))
+    A.window_attention(qkv, table, 2, (4, 4), 2, False).backward(g)
+    dqkv, dtable = A.window_attention_bwd(g, qkv.detach(), table.detach(), 2,
+                                          (4, 4), 2, False)
+    torch.testing.assert_close(qkv.grad, dqkv, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(table.grad, dtable, atol=1e-5, rtol=1e-5)

@@ -138,4 +138,6 @@ def test_cpu_wrappers_do_not_count_launches():
     q = torch.from_numpy(_rand(rng, 1, 4, 6, 2, 8))
     attn_ops.stripe_attention(q, q, q, 4, 1, 2)
     assert attn_ops.launch_counts() == {"window_attention": 0,
-                                        "stripe_attention": 0}
+                                        "stripe_attention": 0,
+                                        "window_attention_bwd": 0,
+                                        "stripe_attention_bwd": 0}
