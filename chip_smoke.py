@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the last line is printed):
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, in float32 (TF32 off) and bfloat16: the forward
    kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b
-   and K2b at the training shapes and the KITTI shapes;
+   and K2b at the training shapes (batch 1, and bf16 at the training batch
+   of 8) and the KITTI shapes;
 3. drive the serving path: the default-config resnet model at full width and
    depth (bf16, tanh GELU, random seeded weights) answers KITTI-size
    375x1242 requests through ``predict``, with every launch counter read
@@ -109,8 +110,9 @@ STRIPE_CASES = [
     ("vertical/T188", 47, 156, 4, 47, 1, 5),
     ("horizontal/T624", 47, 156, 4, 1, 156, 5),
 ]
-# training (crop 384x768: 48x96 at 1/8, 96x192 at 1/4), timed at batch
-# TRAIN_BATCH, checked at batch 1; the last field is launches per step
+# training (crop 384x768: 48x96 at 1/8, 96x192 at 1/4), checked at batch 1
+# and at batch TRAIN_BATCH, timed at TRAIN_BATCH; the last field is
+# launches per step
 TRAIN_BATCH = 8
 TRAIN_WINDOW_CASES = [
     ("train inference/shift0", 48, 96, 4, 6, 0, True, 3),
@@ -265,9 +267,10 @@ def sdpa_backward_ms(gen, G, heads, T, hd, mask):
 
 
 def bwd_kernel_phase(gen):
-    """Phase 2 (backward kernels, checked at batch 1 on the training and the
-    KITTI shapes) and their timings of phase 6 (training shapes, batch
-    TRAIN_BATCH, bf16)."""
+    """Phase 2 (backward kernels, checked in f32 and bf16 at batch 1 on the
+    training and the KITTI shapes, and in bf16 at batch TRAIN_BATCH on the
+    training shapes, as the training path launches them) and their timings
+    of phase 6 (the same batch-TRAIN_BATCH inputs)."""
     import torch
 
     from nmrf_tpu_torch.ops import attention as A
@@ -301,6 +304,14 @@ def bwd_kernel_phase(gen):
             g = torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
                             dtype=torch.bfloat16)
             args = (g, qkv, table, shift, (ws, ws), heads, cand)
+            got = A.window_attention_bwd(*args)
+            torch.cuda.synchronize()
+            want = A.window_attention_bwd_plain(*args)
+            entry["max_abs_err_bfloat16_batch8"] = max(
+                check_close(f"window_attention_bwd {label} batch {B} d{name}",
+                            a, b, "bfloat16", TOL_BWD)
+                for name, a, b in zip(("qkv", "table"), got, want))
+            del got, want
             entry["ms"] = cuda_ms(lambda: A.window_attention_bwd(*args), 10)
             entry["plain_ms"] = cuda_ms(
                 lambda: A.window_attention_bwd_plain(*args), 3, warmup=1)
@@ -336,6 +347,14 @@ def bwd_kernel_phase(gen):
             args = tuple(torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
                                      dtype=torch.bfloat16) for _ in range(4))
             args += (H_sp, W_sp, heads)
+            got = A.stripe_attention_bwd(*args)
+            torch.cuda.synchronize()
+            want = A.stripe_attention_bwd_plain(*args)
+            entry["max_abs_err_bfloat16_batch8"] = max(
+                check_close(f"stripe_attention_bwd {label} batch {B} d{name}",
+                            a, b, "bfloat16", TOL_BWD)
+                for name, a, b in zip("qkv", got, want))
+            del got, want
             entry["ms"] = cuda_ms(lambda: A.stripe_attention_bwd(*args), 10)
             entry["plain_ms"] = cuda_ms(
                 lambda: A.stripe_attention_bwd_plain(*args), 3, warmup=1)
@@ -427,7 +446,8 @@ def train_phase():
     model = build_model(cfg)
     optimizer, scheduler = build_optimizer(model, cfg)
     step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
-                           cfg.SOLVER.ACCUM_STEPS, cfg.SOLVER.GRAD_CLIP)
+                           cfg.SOLVER.ACCUM_STEPS,
+                           grad_clip=cfg.SOLVER.GRAD_CLIP)
     B = cfg.SOLVER.IMS_PER_BATCH
     H, W = cfg.DATASETS.CROP_SIZE
     # disparities on whole 1/8-resolution cost-volume bins, as the JAX
@@ -685,7 +705,8 @@ def kernels_line(kernel_results, counts):
             "source": f"nmrf_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": counts[name],
-            "max_abs_err": max(e["max_abs_err_bfloat16"] for e in entries),
+            "max_abs_err": max(e.get(k, 0.0) for e in entries for k in (
+                "max_abs_err_bfloat16", "max_abs_err_bfloat16_batch8")),
             "max_abs_err_f32": max(e["max_abs_err_float32"] for e in entries),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": sum(max(e["bytes_ms"], e["ops_ms"]) * e["count"]

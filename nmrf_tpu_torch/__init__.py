@@ -3,7 +3,7 @@
 Entry points: ``build_model(cfg, device=None)`` and
 ``predict(model, img1, img2)`` for inference; ``build_criterion(cfg)``,
 ``build_optimizer(model, cfg)`` and ``make_train_step(model, criterion,
-optimizer, scheduler, accum_steps)`` for training.  They run on CUDA unless
+optimizer, scheduler, accum_steps, grad_clip=...)`` for training.  They run on CUDA unless
 the caller passes ``device="cpu"`` to ``build_model``.
 """
 

@@ -1,5 +1,4 @@
-from .optimizer import build_optimizer, onecycle_cosine, param_group
+from .optimizer import build_optimizer, param_group
 from .step import make_train_step
 
-__all__ = ["build_optimizer", "make_train_step", "onecycle_cosine",
-           "param_group"]
+__all__ = ["build_optimizer", "make_train_step", "param_group"]

@@ -9,35 +9,10 @@ Six parameter groups keyed on the port's torch names, AdamW (betas 0.9,
 norm of ``SOLVER.GRAD_CLIP`` first (``make_train_step``).
 """
 
-import math
-
 import torch
 
 # group name -> (lr multiplier, weight decay); see build_optimizer
 GROUPS = ("default", "offset", "norm", "backbone", "backbone_rpb", "rpe")
-
-
-def onecycle_cosine(max_lr, total_steps, pct_start=0.05, div_factor=25.0,
-                    final_div_factor=1e4):
-    """torch OneCycleLR(anneal_strategy='cos', cycle_momentum=False) as a
-    function of the update count."""
-    initial_lr = max_lr / div_factor
-    min_lr = initial_lr / final_div_factor
-    up_end = float(pct_start * total_steps) - 1.0
-    down_end = float(total_steps) - 1.0
-
-    def _cos(start, end, pct):
-        return end + (start - end) / 2.0 * (1.0 + math.cos(math.pi * pct))
-
-    def schedule(step):
-        step = float(step)
-        if step <= up_end:
-            return _cos(initial_lr, max_lr,
-                        min(max(step / max(up_end, 1e-8), 0.0), 1.0))
-        pct = (step - up_end) / max(down_end - up_end, 1e-8)
-        return _cos(max_lr, min_lr, min(max(pct, 0.0), 1.0))
-
-    return schedule
 
 
 def param_group(name):
@@ -59,8 +34,9 @@ def param_group(name):
 
 
 def build_optimizer(model, cfg):
-    """(torch.optim.AdamW over the six groups, LambdaLR of the OneCycle
-    cosine schedule).  Call ``scheduler.step()`` after every update."""
+    """(torch.optim.AdamW over the six groups, torch's OneCycleLR with the
+    cosine anneal over ``MAX_ITER + 100`` updates, each group peaking at its
+    own lr).  Call ``scheduler.step()`` after every update."""
     base_lr = cfg.SOLVER.BASE_LR
     wd = cfg.SOLVER.WEIGHT_DECAY
     spec = {
@@ -81,7 +57,9 @@ def build_optimizer(model, cfg):
               for g in GROUPS if params[g]]
     optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999),
                                   eps=1e-8)
-    schedule = onecycle_cosine(base_lr, cfg.SOLVER.MAX_ITER + 100)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda step: schedule(step) / base_lr)
+    scheduler = torch.optim.lr_scheduler.OneCycleLR(
+        optimizer, max_lr=[g["lr"] for g in groups],
+        total_steps=cfg.SOLVER.MAX_ITER + 100, anneal_strategy="cos",
+        cycle_momentum=False, pct_start=0.05, div_factor=25.0,
+        final_div_factor=1e4)
     return optimizer, scheduler

@@ -6,8 +6,8 @@ per update as ``optax.MultiSteps`` takes them."""
 import torch
 
 
-def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1,
-                    grad_clip=1.0):
+def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
+                    grad_clip):
     """Returns ``step(batch) -> losses``.
 
     batch: dict of tensors on the model's device, ``img1``/``img2``
@@ -17,7 +17,8 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1,
     ``grad_norm``, the global gradient norm before clipping.
 
     Gradients are averaged over ``accum_steps`` calls; every
-    ``accum_steps``-th call clips them to ``grad_clip``, updates the
+    ``accum_steps``-th call clips them to ``grad_clip`` (the config's
+    ``SOLVER.GRAD_CLIP``; it has no default), updates the
     parameters and advances the schedule, so the other calls leave the
     parameters as they are.
     """

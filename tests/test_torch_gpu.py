@@ -161,7 +161,8 @@ def test_train_steps_through_kernels_match_plain(cuda):
         cfg.TPU.USE_PALLAS = use_kernels
         model = build_model(cfg, device=cuda)
         optimizer, scheduler = build_optimizer(model, cfg)
-        step = make_train_step(model, build_criterion(cfg), optimizer, scheduler)
+        step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                               grad_clip=cfg.SOLVER.GRAD_CLIP)
         A.reset_launch_counts()
         losses[use_kernels] = [step(batch) for _ in range(2)]
         want = 2 * 4 if use_kernels else 0

@@ -34,7 +34,7 @@ from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
 from nmrf_tpu_torch.data import make_stereo_pair, synthetic_batch
 from nmrf_tpu_torch.models.losses import Criterion
 from nmrf_tpu_torch.ops.histogram import soft_histogram
-from nmrf_tpu_torch.solver import onecycle_cosine, param_group
+from nmrf_tpu_torch.solver import param_group
 from nmrf_tpu_torch.utils.convert import params_from_jax
 
 H, W, B = 64, 128, 2
@@ -238,27 +238,25 @@ def test_schedule_and_groups_match_jax(jax_params):
     cfg_j = get_cfg_jax()
     _, schedule_j = build_optimizer_jax(jax_params, cfg_j)
     total = cfg_j.SOLVER.MAX_ITER + 100
-    schedule = onecycle_cosine(cfg_j.SOLVER.BASE_LR, total)
     up_end = int(0.05 * total) - 1
     steps = (0, 1, up_end, total // 2, total - 1)
-    # torch's own OneCycleLR, which the JAX schedule replicates, exactly
-    opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)],
-                          lr=cfg_j.SOLVER.BASE_LR)
-    ref = torch.optim.lr_scheduler.OneCycleLR(
-        opt, cfg_j.SOLVER.BASE_LR, total_steps=total, anneal_strategy="cos",
-        cycle_momentum=False, pct_start=0.05, div_factor=25.0,
-        final_div_factor=1e4)
-    want = {}
+    # the port's scheduler on a default and an offset (lr x 0.1) group
+    tiny = torch.nn.ModuleDict({"proj": torch.nn.Linear(1, 1),
+                                "sampling_offsets": torch.nn.Linear(1, 1)})
+    opt, scheduler = build_optimizer(tiny, get_cfg())
+    names = [g["name"] for g in opt.param_groups]
+    got = {}
     for step in range(total):
         if step in steps:
-            want[step] = ref.get_last_lr()[0]
+            got[step] = dict(zip(names, scheduler.get_last_lr()))
         opt.step()
-        ref.step()
+        scheduler.step()
     for step in steps:
-        assert schedule(step) == pytest.approx(want[step], rel=1e-12), step
         # the JAX schedule is float32: atol is about one ulp at the peak lr
-        np.testing.assert_allclose(schedule(step), float(schedule_j(step)),
+        np.testing.assert_allclose(got[step]["default"], float(schedule_j(step)),
                                    rtol=1e-6, atol=1e-10, err_msg=str(step))
+        assert got[step]["offset"] == pytest.approx(
+            0.1 * got[step]["default"], rel=1e-12), step
 
     model = _port_model(jax_params)
     codes = {n: torch.full_like(p, float(GROUPS.index(param_group(n))))
@@ -354,7 +352,8 @@ def test_train_step_lowers_loss_on_a_fixed_batch(jax_params, batch):
     cfg.SOLVER.MAX_ITER = 20
     model = _port_model(jax_params)
     optimizer, scheduler = build_optimizer(model, cfg)
-    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                               grad_clip=cfg.SOLVER.GRAD_CLIP)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     totals = []
     for _ in range(3):
