@@ -12,11 +12,16 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b
    and K2b at the training shapes (batch 1, and bf16 at the training batch
    of 8) and the KITTI shapes;
-3. drive the serving path: the default-config resnet model at full width and
-   depth (bf16, tanh GELU, random seeded weights) answers KITTI-size
-   375x1242 requests through ``predict``, with every launch counter read
-   around the requests; then one float32 full-size forward through the
-   kernels is held against the same forward on the kernels' plain versions;
+   The tap-MSDA kernel B5 is held against its plain version at the four
+   extractor shapes of a swin KITTI request, and once with samples beyond
+   its radius and past the borders;
+3. drive the serving paths: the default-config resnet model and the swin
+   model (``configs/sceneflow_swint.yaml``: Swin-T and the deformable neck),
+   each at full width and depth (bf16, tanh GELU, random seeded weights),
+   answer KITTI-size 375x1242 requests through ``predict``, with every
+   launch counter read around each model's requests; then, for each model,
+   one float32 full-size forward through the kernels is held against the
+   same forward on the kernels' plain versions;
 4. hold the float32 gradients of the Propagation, Inference and Refinement
    stages (full width, training shape, batch 1) through the kernels against
    the same stages on the plain versions;
@@ -27,8 +32,9 @@ Phases (any failure exits non-zero before the last line is printed):
    the timed steps, and its loss must fall;
 6. time each kernel beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, its backward for K1b and
-   K2b) at the same shapes, and break a request and a training step down by
-   device kernel with ``torch.profiler``.
+   K2b; ``grid_sample`` for B5) at the same shapes, and break a request of
+   each model and a training step down by device kernel with
+   ``torch.profiler``.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +52,7 @@ REQUESTS = 4
 TRAIN_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # kernel vs plain version on identical inputs: f32 differs only by summation
 # order; bf16 adds one rounding of the output to bf16 (8 significant bits).
 # The backward kernels' bf16 d(q, k, v) sum up to T (at most 624) products
@@ -59,6 +66,7 @@ REPLACES = {
     "stripe_attention": "nmrf_tpu/ops/pallas/attention.py:202",
     "window_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:1258",
     "stripe_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:329",
+    "msda_taps": "nmrf_tpu/ops/pallas/msda.py:93",
 }
 
 
@@ -124,6 +132,33 @@ TRAIN_STRIPE_CASES = [
     ("train vertical/T192", 48, 96, 4, 48, 1, 5),
     ("train horizontal/T384", 48, 96, 4, 1, 96, 5),
 ]
+
+
+# swin serving (KITTI 375x1242 padded to 384x1248 by DIVIS_BY 32): the
+# DeformNeck's query grid is 96 x 312 at batch 2 (left and right images);
+# one B5 launch per extractor, over its level at factor f.
+# (label, f, launches per frame, sample spread in level pixels)
+MSDA_R, MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM = 5, 8, 4, 8
+MSDA_Q = (96, 312)
+MSDA_CASES = [
+    ("extractor0/f1", 1, 1, MSDA_R),
+    ("extractor1/f2", 2, 1, MSDA_R),
+    ("extractor2/f4", 4, 1, MSDA_R),
+    ("extractor3/f8", 8, 1, MSDA_R),
+    ("f8, beyond r and past the borders", 8, 0, MSDA_R + 3),
+    ("f1, beyond r and past the borders", 1, 0, MSDA_R + 3),
+]
+
+
+def msda_bound(B, Hq, Wq, f, M, P, D, esize):
+    """(bytes ms, ops ms) of one B5 launch: dx, dy and aw (f32) and the
+    level map read once, the output written once; per sample and corner one
+    weight and D multiply-adds, in f32 on the CUDA cores."""
+    samples = B * Hq * Wq * M * P
+    nbytes = (3 * samples * 4 + B * (Hq // f) * (Wq // f) * M * D * esize
+              + B * Hq * Wq * M * D * esize)
+    ops = samples * 4 * (2 * D + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
 def window_bound(B, Hp, Wp, N, ws, C, heads, backward=False):
@@ -370,14 +405,82 @@ def bwd_kernel_phase(gen):
     return results
 
 
+def msda_phase(gen):
+    """Phase 2 (B5 against its plain version in f32 and bf16 at the four
+    extractor shapes of a swin KITTI request, batch 2, displacements within
+    r; and two cases reaching beyond r and past the borders) and its
+    timings of phase 6 (bf16, as the serving path runs it).  The library
+    yardstick is the exact path's ``F.grid_sample`` with the heads folded
+    into the batch, and the weighted sum over the points: the same function
+    while every sample lies within r."""
+    import torch
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch.ops import msda
+
+    dev = "cuda"
+    M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
+    Hq, Wq = MSDA_Q
+    B = 2
+    entries = []
+    for label, f, per_frame, spread in MSDA_CASES:
+        Hl, Wl = Hq // f, Wq // f
+        v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
+        dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=gen, device=dev)
+                   * 2 - 1) * spread for _ in range(2))
+        aw = torch.softmax(torch.randn(B, Hq, Wq, M, P, generator=gen,
+                                       device=dev), -1).reshape(B, Hq, Wq, M * P)
+        entry = {"shape": label, "count": per_frame,
+                 "beyond_r_share": ((dx.abs() > r) | (dy.abs() > r)).float()
+                 .mean().item()}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            v = v32.to(dt)
+            got = msda.msda_taps(v, dx, dy, aw, M, r)
+            torch.cuda.synchronize()
+            want = msda.msda_taps_plain(v, dx, dy, aw, M, r)
+            entry[f"max_abs_err_{dtype_name}"] = check_close(
+                f"msda_taps {label}", got, want, dtype_name)
+        if per_frame:
+            v = v32.to(torch.bfloat16)
+            entry["ms"] = cuda_ms(lambda: msda.msda_taps(v, dx, dy, aw, M, r), 50)
+            entry["plain_ms"] = cuda_ms(
+                lambda: msda.msda_taps_plain(v, dx, dy, aw, M, r), 3, warmup=1)
+            # exact path at the same samples: level pixel base + d
+            base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
+            base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
+            gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
+            gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
+            grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
+            grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
+            vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
+            vh = vh.reshape(B * M, D, Hl, Wl)
+            w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
+            w = w.reshape(B * M, 1, Hq * Wq, P)
+            entry["library_ms"] = cuda_ms(lambda: (F.grid_sample(
+                vh, grid, align_corners=False) * w).sum(-1), 20)
+            entry["bytes_ms"], entry["ops_ms"] = msda_bound(
+                B, Hq, Wq, f, M, P, D, 2)
+        entries.append(entry)
+        log(f"kernel msda_taps {label}: " + json.dumps(entry))
+    return {"msda_taps": entries}
+
+
 # --------------------------------------------------------------------------- #
 # main paths
 # --------------------------------------------------------------------------- #
 
-def main_path_cfg(dtype, gelu_approx, use_kernels):
+def main_path_cfg(dtype, gelu_approx, use_kernels, swin=False):
+    """The default config (resnet, 5 + 5 + 5 NMP layers), or with ``swin``
+    the swin variant's (Swin-T, deformable neck, tap radius 5, DIVIS_BY 32)."""
+    from pathlib import Path
+
     from nmrf_tpu_torch.config import get_cfg
 
-    cfg = get_cfg()  # default config: resnet, 5 + 5 + 5 NMP layers
+    cfg = get_cfg()
+    if swin:
+        cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs"
+                                / "sceneflow_swint.yaml"))
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.TPU.GELU_APPROX = gelu_approx
     cfg.TPU.USE_PALLAS = use_kernels
@@ -385,14 +488,43 @@ def main_path_cfg(dtype, gelu_approx, use_kernels):
     return cfg
 
 
-def serve_phase():
+def tap_oob_fractions(model, pair):
+    """Phase 3a (swin): one request with a hook on every extractor's
+    deformable attention; returns, per extractor, whether it took the tap
+    path and the share of its samples beyond the tap radius
+    (``tap_out_of_range_fraction``: 0.0 means the tap path was exact)."""
+    from nmrf_tpu_torch import predict
+    from nmrf_tpu_torch.ops.msda import tap_out_of_range_fraction
+
+    report = []
+
+    def hook(module, args, _output):
+        query, ref, flat, shapes, query_shape = args
+        locations, _ = module.sampling(query, ref, shapes)
+        report.append({
+            "taps": module.uses_taps(query.shape[1], shapes, query_shape),
+            "level": list(shapes[0]),
+            "oob_fraction": tap_out_of_range_fraction(
+                locations, shapes, query_shape, module.tap_radius).item()})
+
+    handles = [e.attn.register_forward_hook(hook)
+               for e in model.backbone.neck.extractors]
+    try:
+        predict(model, *pair)
+    finally:
+        for h in handles:
+            h.remove()
+    return report
+
+
+def serve_phase(swin=False):
     """Phase 3a: requests through predict; returns timings and counts."""
     import torch
 
     from nmrf_tpu_torch import build_model, predict
     from nmrf_tpu_torch.ops import attention as A
 
-    model = build_model(main_path_cfg("bfloat16", True, True))
+    model = build_model(main_path_cfg("bfloat16", True, True, swin))
     rng = np.random.RandomState(0)
     pairs = [((rng.rand(H_KITTI, W_KITTI, 3) * 255).astype(np.float32),
               (rng.rand(H_KITTI, W_KITTI, 3) * 255).astype(np.float32))
@@ -422,10 +554,12 @@ def serve_phase():
         if not np.isfinite(d).all() or (d < 0).any():
             fail("disparity not finite and non-negative")
     want = {"window_attention": 10 * REQUESTS, "stripe_attention": 10 * REQUESTS,
-            "window_attention_bwd": 0, "stripe_attention_bwd": 0}
+            "window_attention_bwd": 0, "stripe_attention_bwd": 0,
+            "msda_taps": (4 if swin else 0) * REQUESTS}
     if counts != want:
         fail(f"launches over {REQUESTS} requests: {counts}, expected {want}")
     return model, pairs[1], {
+        "model": "swin" if swin else "resnet",
         "requests": REQUESTS, "frame_ms": frame_ms, "host_request_ms": host_ms,
         "warmup_s": warmup_s, "launches": counts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -483,7 +617,7 @@ def train_phase():
     fwd = (2 if cfg.TPU.REMAT else 1) * 10 * TRAIN_STEPS
     want = {"window_attention": fwd, "stripe_attention": fwd,
             "window_attention_bwd": 10 * TRAIN_STEPS,
-            "stripe_attention_bwd": 10 * TRAIN_STEPS}
+            "stripe_attention_bwd": 10 * TRAIN_STEPS, "msda_taps": 0}
     if counts != want:
         fail(f"launches over {TRAIN_STEPS} steps: {counts}, expected {want}")
     timed = [r["total"] for r in rows[1:]]
@@ -503,6 +637,7 @@ def train_phase():
 
 
 KERNEL_GROUPS = (
+    ("msda_taps (B5)", ("msda_taps_kernel",)),
     ("window_attention_bwd (K1b)", ("window_attention_bwd_kernel",
                                     "window_dve_kernel")),
     ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq_kernel",
@@ -558,18 +693,20 @@ def profile_phase(name, fn):
             "groups": [{"group": g, "ms": ms, "launches": c} for ms, c, g in rows]}
 
 
-def parity_phase():
+def parity_phase(swin=False):
     """Phase 3b: float32 full-size forward, kernels vs plain versions."""
     import torch
     import torch.nn.functional as F
 
     from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.ops import attention as A
 
-    kern = build_model(main_path_cfg("float32", False, True))
-    plain = build_model(main_path_cfg("float32", False, False))
+    kern = build_model(main_path_cfg("float32", False, True, swin))
+    plain = build_model(main_path_cfg("float32", False, False, swin))
     plain.load_state_dict(kern.state_dict())
     rng = np.random.RandomState(1)
-    Hp, Wp = 376, 1248  # InputPadder "proposal" size of 375x1242
+    # InputPadder "proposal" size of 375x1242 at DIVIS_BY 8 (resnet), 32 (swin)
+    Hp, Wp = (384, 1248) if swin else (376, 1248)
     img1, img2 = (torch.from_numpy((rng.rand(1, Hp, Wp, 3) * 255).astype(
         np.float32)).cuda() for _ in range(2))
     scores = {}
@@ -579,14 +716,21 @@ def parity_phase():
             scores[name] = output
         return hook
 
-    outs = {}
+    outs, launches = {}, {}
     for name, model in (("kernels", kern), ("plain", plain)):
         handle = model.infer_score_head.register_forward_hook(grab(name))
+        A.reset_launch_counts()
         with torch.inference_mode():
             outs[name] = model(img1, img2)
+        torch.cuda.synchronize()
+        launches[name] = A.launch_counts()
         handle.remove()
     got, ref = outs["kernels"], outs["plain"]
-    torch.cuda.synchronize()
+    if any(launches["plain"].values()) or not all(
+            launches["kernels"][k] for k in (
+                "window_attention", "stripe_attention")
+            + (("msda_taps",) if swin else ())):
+        fail(f"parity forward launches: {launches}")
 
     def err(k):
         return (got[k].float() - ref[k].float()).abs().max().item()
@@ -612,7 +756,8 @@ def parity_phase():
              "near-tie region (kernels vs plain versions, f32)")
     if bad.float().mean().item() >= 0.10:
         fail(f"disparity mismatch fraction {bad.float().mean().item():.3f}")
-    return {"prob_err": err("prob"), "proposal_err": err("proposal"),
+    return {"model": "swin" if swin else "resnet",
+            "prob_err": err("prob"), "proposal_err": err("proposal"),
             "initial_proposal_err": err("initial_proposal"),
             "disp_err": err("disp"), "disp_mismatch_frac": bad.float().mean().item(),
             "near_tie_px": int(near_tie.sum().item())}
@@ -694,6 +839,7 @@ def kernels_line(kernel_results, counts):
         "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "window_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
         "stripe_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
+        "msda_taps": "per frame: the 4 launches of one swin KITTI request, bf16",
     }
     line = []
     for name, entries in kernel_results.items():
@@ -743,6 +889,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         kernel_results = kernel_phase(gen)
+        kernel_results.update(msda_phase(gen))
     kernel_results.update(bwd_kernel_phase(gen))
     log("phase 2 kernels: every kernel matches its plain version "
         "(f32 and bf16)")
@@ -753,6 +900,18 @@ def main():
     log("phase 3 f32 kernels vs plain versions: " + json.dumps(parity))
     request_profile = profile_phase("request", lambda: predict(model, *pair))
     log("phase 6 request breakdown: " + json.dumps(request_profile))
+    del model
+
+    model, pair, swin_serve = serve_phase(swin=True)
+    log("phase 3 swin serving path: " + json.dumps(swin_serve))
+    taps = tap_oob_fractions(model, pair)
+    log("phase 3 swin tap-path extractors: " + json.dumps(taps))
+    if not all(t["taps"] for t in taps) or len(taps) != 4:
+        fail(f"a swin extractor missed the tap path: {taps}")
+    swin_parity = parity_phase(swin=True)
+    log("phase 3 swin f32 kernels vs plain versions: " + json.dumps(swin_parity))
+    swin_profile = profile_phase("swin request", lambda: predict(model, *pair))
+    log("phase 6 swin request breakdown: " + json.dumps(swin_profile))
     del model
 
     stages = stage_grad_phase()
@@ -768,6 +927,7 @@ def main():
     counts = dict(serve["launches"])
     counts.update({k: train["launches"][k]
                    for k in ("window_attention_bwd", "stripe_attention_bwd")})
+    counts["msda_taps"] = swin_serve["launches"]["msda_taps"]
     log(gpu_identity())
     log(json.dumps(kernels_line(kernel_results, counts)))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@
 import torch
 from torch import nn
 
+from . import swin
+from .adaptor import ConvFFN, MSDeformAttn, offset_bias_init
 from .layers import Conv1d, Conv2d, LayerNorm, Linear
 from .losses import Criterion
 from .nmp import WindowAttention
@@ -27,7 +29,11 @@ def init_weights(model, seed):
     trunc_normal(0.02) and zero bias, convolutions kaiming_normal(fan_out),
     depthwise positional convs torch's default uniform, LayerNorm ones and
     zeros, relative-position tables trunc_normal(0.02), zero last layer of
-    the DPN head."""
+    the DPN head.  The swin variant's: the patch embedding trunc_normal(0.02);
+    ``sampling_offsets`` a zero kernel and the directional grid bias (every
+    sample within 4 level pixels at init), ``attention_weights`` zeros,
+    ``value_proj``/``output_proj`` Xavier uniform, the ConvFFN depthwise
+    kernel variance_scaling(2, fan_out, truncated normal)."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -50,32 +56,58 @@ def init_weights(model, seed):
             elif isinstance(m, WindowAttention):
                 nn.init.trunc_normal_(m.relative_position_enc_table, std=0.02,
                                       a=-0.04, b=0.04, generator=g)
+        # the swin variant's own initializers, over the generic ones above
+        for m in model.modules():
+            if isinstance(m, swin.WindowAttention):
+                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
+                                      a=-0.04, b=0.04, generator=g)
+            elif isinstance(m, swin.PatchEmbed):
+                nn.init.trunc_normal_(m.proj.weight, std=0.02, a=-0.04,
+                                      b=0.04, generator=g)
+            elif isinstance(m, MSDeformAttn):
+                m.sampling_offsets.weight.zero_()
+                m.sampling_offsets.bias.copy_(torch.from_numpy(offset_bias_init(
+                    m.n_heads, m.n_levels, m.n_points)))
+                m.attention_weights.weight.zero_()
+                m.attention_weights.bias.zero_()
+                for proj in (m.value_proj, m.output_proj):
+                    bound = (6.0 / sum(proj.weight.shape)) ** 0.5
+                    proj.weight.uniform_(-bound, bound, generator=g)
+                    proj.bias.zero_()
+            elif isinstance(m, ConvFFN):
+                w = m.dwconv.dwconv.weight  # [C, 1, 3, 3]
+                std = (2.0 / (w.shape[0] * w[0, 0].numel())) ** 0.5 \
+                    / 0.87962566103423978
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=g)
         model.dpn.prop_head.layers[-1].weight.zero_()
     return model
 
 
 _DROPOUT_KEYS = ("NMP.ATTN_DROP", "NMP.PROJ_DROP", "NMP.DROP_PATH",
-                 "NMP.DROPOUT", "BACKBONE.DROP_PATH")
+                 "NMP.DROPOUT")
 
 
 def build_model(cfg, device=None):
     """The NMRF model of a config tree, in eval mode (``model.train()`` for
     training), on ``device`` (CUDA unless given; raises when CUDA is
     absent).  Weights are random from ``cfg.SEED``; load trained ones with
-    ``load_state_dict``."""
+    ``load_state_dict``.  ``BACKBONE.DROP_PATH`` (the swin backbone's
+    stochastic depth) is accepted; it acts only in training, which the port
+    does not have for the swin variant yet (``models/layers.py:DropPath``)."""
     device = resolve_device(device)
-    if cfg.BACKBONE.MODEL_TYPE != "resnet":
-        raise NotImplementedError(
-            f"backbone {cfg.BACKBONE.MODEL_TYPE!r}: the port has the resnet "
-            "variant only so far")
     for key in _DROPOUT_KEYS:
         node, name = key.split(".")
         if getattr(cfg, node)[name] != 0:
             raise ValueError(f"{key} = {getattr(cfg, node)[name]}: the port "
-                             "has no dropout or drop-path yet (every resnet "
+                             "has no dropout in the NMP stages yet (every "
                              "recipe sets 0)")
     model = NMRF(
+        backbone_type=cfg.BACKBONE.MODEL_TYPE,
         backbone_out_channels=cfg.BACKBONE.OUT_CHANNELS,
+        backbone_drop_path=cfg.BACKBONE.DROP_PATH,
+        msda_tap_radius=cfg.TPU.MSDA_TAP_RADIUS,
+        divis_by=cfg.DATASETS.DIVIS_BY,
         num_proposals=cfg.DPN.NUM_PROPOSALS,
         max_disp=cfg.DPN.MAX_DISP,
         cost_group=cfg.DPN.COST_GROUP,

@@ -7,7 +7,8 @@ bf16, and a layer with ``dtype=None`` computes in the promotion of its input
 and float32 (so float32 for a bf16 input).  Norms compute in float32.
 
 Numerical-parity notes:
-  * LayerNorm eps = 1e-5 (torch default).
+  * LayerNorm eps = 1e-5 (torch default) unless given (the swin adaptor's
+    norms use 1e-6).
   * GELU is the exact erf form; ``GELU(approximate=True)`` lowers it to the
     tanh form for bf16 inputs only (``TPU.GELU_APPROX``), as a per-module
     attribute.
@@ -21,6 +22,11 @@ from torch import nn
 
 def _dt(dtype, x):
     return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+def to_dtype(x, dtype):
+    """x cast to a layer's compute dtype; unchanged when it is None."""
+    return x.to(dtype) if dtype is not None else x
 
 
 class Linear(nn.Linear):
@@ -38,19 +44,20 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on channel-last [B, H, W, C] tensors with the compute-
-    dtype convention above."""
+    dtype convention above (``groups=in_ch`` for a depthwise convolution)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
-                 dilation=1, bias=True, dtype=None):
+                 dilation=1, bias=True, groups=1, dtype=None):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
-                         padding=padding, dilation=dilation, bias=bias)
+                         padding=padding, dilation=dilation, groups=groups,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = _dt(self.compute_dtype, x)
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
-                     self.stride, self.padding, self.dilation)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -69,10 +76,10 @@ class Conv1d(nn.Conv1d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm (eps 1e-5) computed and returned in float32."""
+    """LayerNorm (eps 1e-5 unless given) computed and returned in float32."""
 
-    def __init__(self, dim):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim, eps=1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
@@ -89,6 +96,24 @@ class GELU(nn.Module):
     def forward(self, x):
         tanh = self.approximate and x.dtype == torch.bfloat16
         return F.gelu(x, approximate="tanh" if tanh else "none")
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (``nmrf_tpu/models/layers.py:DropPath``):
+    the identity in eval mode or at rate 0.  Training with a positive rate
+    is not ported yet: it raises rather than draw random numbers that no
+    test holds against the JAX package."""
+
+    def __init__(self, rate=0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        raise NotImplementedError(
+            f"drop-path at rate {self.rate} in training: the port's swin "
+            "training slice adds it; serving (eval mode) does not need it")
 
 
 def instance_norm_2d(x, eps=1e-5):

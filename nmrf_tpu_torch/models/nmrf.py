@@ -1,5 +1,6 @@
 """NMRF top-level model (``nmrf_tpu/models/nmrf.py``; reference
-``nmrf/models/NMRF.py:21-273``): backbone -> group-wise cost volume -> DPN
+``nmrf/models/NMRF.py:21-273``): backbone (resnet, or swin with the
+deformable neck) -> group-wise cost volume -> DPN
 -> NMRF inference (8x8 sub-patch decode + selection) -> refinement (4x4
 sub-patch residual decode).  Channel-last throughout.  In train mode with
 ``aux_loss`` the output also holds every layer's predictions for the
@@ -9,6 +10,7 @@ import torch
 from torch import nn
 
 from ..ops.correlation import correlation_volume
+from .adaptor import SwinAdaptor
 from .backbone import Backbone
 from .dpn import DPN
 from .layers import ConvINReluConv, Linear, MLPBlock
@@ -40,9 +42,13 @@ def _lower_median_pool(x, k):
 
 
 class NMRF(nn.Module):
-    """Neural Markov Random Field stereo model, resnet backbone."""
+    """Neural Markov Random Field stereo model.  ``divis_by`` is the input
+    divisibility the config asks for (``DATASETS.DIVIS_BY``), which
+    :func:`~nmrf_tpu_torch.inference.predict` pads to."""
 
-    def __init__(self, backbone_out_channels=256, num_proposals=4,
+    def __init__(self, backbone_type="resnet", backbone_out_channels=256,
+                 backbone_drop_path=0.0, msda_tap_radius=0, divis_by=8,
+                 num_proposals=4,
                  max_disp=320, cost_group=4, context_dim=64,
                  prop_embed_dim=128, infer_embed_dim=128, mlp_ratio=4.0,
                  split_size=1, window_size=6, refine_window_size=4,
@@ -57,10 +63,19 @@ class NMRF(nn.Module):
         self.max_disp = max_disp
         self.cost_group = cost_group
         self.with_refinement = with_refinement
+        self.divis_by = divis_by
         common = dict(gelu_approx=gelu_approx, normalize_before=normalize_before,
                       use_kernels=use_kernels, dtype=dtype, remat=remat)
         stage = dict(common, return_intermediate=return_intermediate)
-        self.backbone = Backbone(backbone_out_channels, dtype=dtype)
+        if backbone_type == "resnet":
+            self.backbone = Backbone(backbone_out_channels, dtype=dtype)
+        elif backbone_type == "swin":
+            self.backbone = SwinAdaptor(
+                backbone_out_channels, drop_path_rate=backbone_drop_path,
+                tap_radius=msda_tap_radius, use_kernels=use_kernels,
+                gelu_approx=gelu_approx, dtype=dtype)
+        else:
+            raise ValueError(f"unknown backbone {backbone_type!r}")
         self.concatconv = ConvINReluConv(backbone_out_channels, 128, 64,
                                          dtype=dtype)
         self.gw = ConvINReluConv(backbone_out_channels, 128, 256, dtype=dtype)
@@ -81,7 +96,8 @@ class NMRF(nn.Module):
                                         4 * 4, 3)
 
     def forward(self, img1, img2):
-        """img1/img2: [B, H, W, 3] float (0..255), H and W divisible by 8.
+        """img1/img2: [B, H, W, 3] float (0..255), H and W divisible by
+        ``divis_by``.
 
         Returns dict: disp [B, H, W]; prob [B*H/8*W/8, D]; proposal and
         initial_proposal [B, H/8*W/8, N]; disp_pred [B, H, W] with

@@ -18,11 +18,13 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("window_attention", "stripe_attention", "window_attention_bwd",
-           "stripe_attention_bwd")
+           "stripe_attention_bwd", "msda_taps")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +42,10 @@ _SIGNATURES = {
                              [_P] * 8 + [_I] * 11 + [_F, _P]),
     "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
                              [_P] * 9 + [_I] * 9 + [_F, _P]),
+    "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P]),
 }
+# dtype codes of the kernels' ``dtype`` argument (``csrc/common.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -113,3 +118,14 @@ def library(name):
         fn.restype = ctypes.c_int
         _loaded[name] = fn
         return fn
+
+
+def stream():
+    """PyTorch's current CUDA stream, as a kernel's ``stream`` argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check_launch(kernel, err):
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

@@ -23,16 +23,16 @@ K1 replaces ``nmrf_tpu/ops/pallas/attention.py:_window_native_kernel_direct``
 autograd differentiates the plain forward versions.
 """
 
-import ctypes
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import _native
+from .msda import msda_taps
 
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = _native.DTYPE_CODES
 _KERNEL_HEAD_DIMS = (16, 32, 64)
 
 
@@ -51,15 +51,18 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
 
 def _wrappers():
     return (window_attention, stripe_attention, window_attention_bwd,
-            stripe_attention_bwd)
+            stripe_attention_bwd, msda_taps)
 
 
 def reset_launch_counts():
+    """Set the launch count of every kernel wrapper of the port to 0 (K1,
+    K2, K1b, K2b here and B5, ``ops/msda.py:msda_taps``)."""
     for fn in _wrappers():
         fn.launches = 0
 
 
 def launch_counts():
+    """{wrapper name: kernel launches since the last reset}."""
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
@@ -70,15 +73,6 @@ def _check_tensor(name, t, ndim):
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on_error(kernel, err):
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 # --------------------------------------------------------------------------- #
@@ -286,8 +280,8 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
         int(shift), int(bool(candidate_mask)), (C // num_heads) ** -0.5,
-        _stream())
-    _raise_on_error("window_attention", err)
+        _native.stream())
+    _native.check_launch("window_attention", err)
     window_attention.launches += 1
     return out
 
@@ -366,8 +360,8 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
         qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         dqr.data_ptr(), dkr.data_ptr(), mass.data_ptr(), dve.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h, wh, ww, int(shift),
-        int(bool(candidate_mask)), (C // h) ** -0.5, _stream())
-    _raise_on_error("window_attention_bwd", err)
+        int(bool(candidate_mask)), (C // h) ** -0.5, _native.stream())
+    _native.check_launch("window_attention_bwd", err)
     window_attention_bwd.launches += 1
     return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
 
@@ -475,8 +469,8 @@ def _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads):
     err = _native.library("stripe_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
-        (C // num_heads) ** -0.5, _stream())
-    _raise_on_error("stripe_attention", err)
+        (C // num_heads) ** -0.5, _native.stream())
+    _native.check_launch("stripe_attention", err)
     stripe_attention.launches += 1
     return out
 
@@ -531,8 +525,8 @@ def stripe_attention_bwd(g, q, k, v, H_sp, W_sp, num_heads):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
-        (C // num_heads) ** -0.5, _stream())
-    _raise_on_error("stripe_attention_bwd", err)
+        (C // num_heads) ** -0.5, _native.stream())
+    _native.check_launch("stripe_attention_bwd", err)
     stripe_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -1,0 +1,235 @@
+"""Multi-scale deformable attention (``nmrf_tpu/ops/msda.py``) and the
+tap-MSDA kernel B5.
+
+* ``ms_deform_attn``: the exact gather path (``TPU.MSDA_TAP_RADIUS 0``),
+  bilinear sampling with zeros padding (``grid_sample`` semantics,
+  align_corners=False) per level, weighted over the points.
+* ``ms_deform_attn_taps``: the tap path, for queries on a regular grid over
+  levels that are f times coarser (the swin DeformNeck's case).  Per level
+  :func:`tap_level_inputs` gives every sample's displacement (dx, dy) in
+  level pixels from its query's base cell, and :func:`msda_taps` sums the
+  bilinear corners that lie within ``radius`` of that cell, dropping the
+  rest.  It equals ``ms_deform_attn`` while every sample stays within the
+  radius; :func:`tap_out_of_range_fraction` measures that precondition.
+* ``msda_taps`` is the wrapper of kernel B5 (``csrc/msda_taps.cu``, which
+  replaces ``nmrf_tpu/ops/pallas/msda.py:_msda_tap_kernel``): for CUDA
+  tensors it launches the kernel or raises, counting launches in
+  ``msda_taps.launches``; for CPU tensors it takes ``msda_taps_plain``, the
+  port's copy of the JAX package's dense (2r+1)^2-tap hat sum
+  (``_tap_level_reference``).  The kernel gathers the 4 corners of each
+  sample instead, so holding one against the other checks one formulation
+  against the other.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _native
+from .sampling import grid_sample_2d
+
+
+def ms_deform_attn(value, spatial_shapes, sampling_locations,
+                   attention_weights):
+    """Multi-scale deformable attention core (exact gather path).
+
+    value: [B, S, M, D], S = sum of H_l * W_l; spatial_shapes: [(H_l, W_l)];
+    sampling_locations: [B, Lq, M, L, P, 2] in [0, 1] (x, y);
+    attention_weights: [B, Lq, M, L, P].  Returns [B, Lq, M*D].
+    """
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    assert L == len(spatial_shapes)
+    grids = 2.0 * sampling_locations - 1.0
+    out = value.new_zeros((B, Lq, M, D))
+    start = 0
+    for lid, (H, W) in enumerate(spatial_shapes):
+        v = value[:, start:start + H * W]
+        start += H * W
+        v = v.reshape(B, H, W, M, D).permute(0, 3, 1, 2, 4).reshape(B * M, H, W, D)
+        g = grids[:, :, :, lid].permute(0, 2, 1, 3, 4).reshape(B * M, Lq, P, 2)
+        sampled = grid_sample_2d(v, g)  # [B*M, Lq, P, D]
+        w = attention_weights[:, :, :, lid].permute(0, 2, 1, 3).reshape(B * M, Lq, P)
+        out = out + (sampled * w[..., None]).sum(2).reshape(B, M, Lq, D) \
+            .permute(0, 2, 1, 3)
+    return out.reshape(B, Lq, M * D)
+
+
+def base_plus_one(n, f):
+    """base(q) + 1 = floor((2q + 1 + f) / (2f)) for q in [0, n) (int32)."""
+    q = np.arange(n, dtype=np.int64)
+    return ((2 * q + 1 + f) // (2 * f)).astype(np.int32)
+
+
+def tap_level_inputs(locations_l, weights_l, spatial_shape, query_shape):
+    """Displacements in level pixels relative to each query's base cell.
+
+    locations_l: [B, Lq, M, P, 2] (x, y in [0, 1]); weights_l: [B, Lq, M, P].
+    Returns dx, dy, aw as [B, Hq, Wq, M*P] float32, in the JAX package's
+    operation order.
+    """
+    Hl, Wl = spatial_shape
+    Hq, Wq = query_shape
+    B, Lq, M, P, _ = locations_l.shape
+    f = Hq // Hl
+    assert Hq == Hl * f and Wq == Wl * f, (query_shape, spatial_shape)
+    dev = locations_l.device
+    base_x = torch.as_tensor(base_plus_one(Wq, f) - 1, dtype=torch.float32,
+                             device=dev)
+    base_y = torch.as_tensor(base_plus_one(Hq, f) - 1, dtype=torch.float32,
+                             device=dev)
+    loc = locations_l.reshape(B, Hq, Wq, M * P, 2).float()
+    dx = loc[..., 0] * Wl - 0.5 - base_x[None, None, :, None]
+    dy = loc[..., 1] * Hl - 0.5 - base_y[None, :, None, None]
+    aw = weights_l.reshape(B, Hq, Wq, M * P).float()
+    return dx, dy, aw
+
+
+def _halo_index_maps(Hq, Wq, f, r):
+    """Row/column maps from the (r+1)-padded level map into the query-grid
+    halo map U: U[j] = vpad[i[j]] along each axis, j in [0, n + 2rf)."""
+    jy = np.arange(Hq + 2 * r * f, dtype=np.int64) - r * f
+    iy = ((2 * jy + 1 + f) // (2 * f)).astype(np.int64) + r
+    jx = np.arange(Wq + 2 * r * f, dtype=np.int64) - r * f
+    ix = ((2 * jx + 1 + f) // (2 * f)).astype(np.int64) + r
+    return iy, ix
+
+
+def _halo_map(value_map, f, r):
+    """The halo map U [B, Hq + 2rf, Wq + 2rf, MD]: U[y + (ty+r)f,
+    x + (tx+r)f] is level pixel base(y) + ty, base(x) + tx (zero outside)."""
+    B, Hl, Wl, MD = value_map.shape
+    vpad = F.pad(value_map, (0, 0, r + 1, r + 1, r + 1, r + 1))
+    iy, ix = _halo_index_maps(Hl * f, Wl * f, f, r)
+    dev = value_map.device
+    return vpad[:, torch.as_tensor(iy, device=dev)][:, :, torch.as_tensor(ix, device=dev)]
+
+
+def _msda_shapes(value_map, dx, dy, aw, num_heads):
+    for name, t in (("value_map", value_map), ("dx", dx), ("dy", dy), ("aw", aw)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name} must be a 4-dim tensor")
+    if value_map.dtype not in _native.DTYPE_CODES:
+        raise TypeError(f"value_map must be float32 or bfloat16, got {value_map.dtype}")
+    if any(t.dtype != torch.float32 for t in (dx, dy, aw)):
+        raise TypeError("dx, dy and aw must be float32")
+    if dy.shape != dx.shape or aw.shape != dx.shape:
+        raise ValueError("dx, dy and aw must have one shape")
+    B, Hl, Wl, MD = value_map.shape
+    Bq, Hq, Wq, MP = dx.shape
+    f = Hq // Hl if Hl else 0
+    if Bq != B or f < 1 or Hq != Hl * f or Wq != Wl * f:
+        raise ValueError(f"query grid {tuple(dx.shape[:3])} is not a whole "
+                         f"multiple of level map {tuple(value_map.shape[:3])}")
+    if MD % num_heads or MP % num_heads:
+        raise ValueError(f"channels {MD} / points {MP} not divisible by "
+                         f"{num_heads} heads")
+    return B, Hl, Wl, MD, Hq, Wq, MP
+
+
+def msda_taps_plain(value_map, dx, dy, aw, num_heads, radius):
+    """Plain PyTorch version of :func:`msda_taps`: the dense hat sum over
+    the (2r+1)^2 integer taps around each base cell (f32 math)."""
+    B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
+    M = num_heads
+    P, D = MP // M, MD // M
+    f = Hq // Hl
+    r = int(radius)
+    taps = 2 * r + 1
+    U = _halo_map(value_map, f, r)
+    dx5 = dx.reshape(B, Hq, Wq, M, P)
+    dy5 = dy.reshape(B, Hq, Wq, M, P)
+    aw5 = aw.reshape(B, Hq, Wq, M, P)
+    acc = torch.zeros((B, Hq, Wq, M, D), dtype=torch.float32, device=dx.device)
+    for t in range(taps * taps):
+        ty, tx = t // taps - r, t % taps - r
+        hy = (1.0 - (dy5 - ty).abs()).clamp_min(0.0)
+        hx = (1.0 - (dx5 - tx).abs()).clamp_min(0.0)
+        w = (aw5 * hy * hx).sum(-1)  # [B, Hq, Wq, M]
+        y0, x0 = (ty + r) * f, (tx + r) * f
+        u = U[:, y0:y0 + Hq, x0:x0 + Wq].reshape(B, Hq, Wq, M, D).float()
+        acc = acc + w[..., None] * u
+    return acc.reshape(B, Hq, Wq, MD).to(value_map.dtype)
+
+
+def msda_taps(value_map, dx, dy, aw, num_heads, radius):
+    """One level of tap-based MSDA.
+
+    value_map: [B, Hl, Wl, M*D] level map (f32 or bf16), channels in
+      (head, channel) order; dx, dy, aw: [B, Hq, Wq, M*P] float32 sample
+      displacements from the base cell (level pixels) and attention
+      weights, points in (head, point) order; Hq = f*Hl and Wq = f*Wl.
+    Every bilinear corner more than ``radius`` level pixels from the base
+    cell along either axis is dropped.  Returns [B, Hq, Wq, M*D] in
+    value_map's dtype, summed in f32.  Not differentiable (the swin
+    training slice adds the backward).
+    """
+    B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
+    tensors = (value_map, dx, dy, aw)
+    if all(t.device.type == "cpu" for t in tensors):
+        return msda_taps_plain(value_map, dx, dy, aw, num_heads, radius)
+    dev = value_map.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("msda_taps: inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("msda_taps: inputs must be contiguous")
+    if MD > 1024 or 3 * max(1, 256 // MD) * MP * 4 > 48 * 1024:
+        raise ValueError(f"msda_taps kernel takes at most 1024 channels and "
+                         f"a few thousand points per query, got {MD}, {MP}")
+    out = torch.empty((B, Hq, Wq, MD), dtype=value_map.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    M = num_heads
+    err = _native.library("msda_taps")(
+        value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
+        out.data_ptr(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq,
+        Wq, M, MD // M, MP // M, int(radius), _native.stream())
+    _native.check_launch("msda_taps", err)
+    msda_taps.launches += 1
+    return out
+
+
+msda_taps.launches = 0
+
+
+def ms_deform_attn_taps(value, spatial_shapes, sampling_locations,
+                        attention_weights, query_shape, radius,
+                        use_kernels=True):
+    """Tap-based MSDA for grid-aligned queries: the contract of
+    :func:`ms_deform_attn` plus the query grid (Hq, Wq), Lq = Hq * Wq.
+    Exact while every sample lies within ``radius`` level pixels of its
+    query's base cell per axis; contributions beyond it are dropped.
+    ``use_kernels`` False takes the plain version on every device."""
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    Hq, Wq = query_shape
+    assert Lq == Hq * Wq
+    level = msda_taps if use_kernels else msda_taps_plain
+    out = None
+    start = 0
+    for lid, (Hl, Wl) in enumerate(spatial_shapes):
+        vmap = value[:, start:start + Hl * Wl].reshape(B, Hl, Wl, M * D)
+        start += Hl * Wl
+        dx, dy, aw = tap_level_inputs(sampling_locations[:, :, :, lid],
+                                      attention_weights[:, :, :, lid],
+                                      (Hl, Wl), query_shape)
+        o = level(vmap.contiguous(), dx, dy, aw, M, radius)
+        out = o if out is None else out + o
+    return out.reshape(B, Lq, M * D).to(value.dtype)
+
+
+def tap_out_of_range_fraction(sampling_locations, spatial_shapes, query_shape,
+                              radius):
+    """Share of the sampling points whose displacement from their query's
+    base cell exceeds ``radius`` along either axis, i.e. whose contribution
+    the tap path drops (the largest share over the levels).  0.0 means the
+    tap path is exact for these inputs."""
+    fracs = []
+    for lid, (Hl, Wl) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lid]
+        dx, dy, _ = tap_level_inputs(loc, torch.zeros_like(loc[..., 0]),
+                                     (Hl, Wl), query_shape)
+        oob = (dx.abs() > radius) | (dy.abs() > radius)
+        fracs.append(oob.float().mean())
+    return torch.stack(fracs).max()

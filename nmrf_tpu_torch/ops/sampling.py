@@ -3,9 +3,13 @@
 * ``disp_warp``: reference ``Inference.sample_fmap`` (``NMP.py:682-707``),
   horizontal-only bilinear warp, align_corners=True, zeros padding.
 * ``sample_cost``: reference ``Propagation.sample_cost`` (``NMP.py:618-634``).
+* ``grid_sample_2d``: torch ``F.grid_sample`` on channel-last maps (the
+  exact deformable-attention path; the JAX package computes it outside any
+  Pallas kernel).
 """
 
 import torch
+import torch.nn.functional as F
 
 
 def disp_warp(fmap, disp, radius=0):
@@ -54,3 +58,17 @@ def sample_cost(cost_volume, label_seed, radius=4):
     idx = idx.reshape(M, 1, N * taps).expand(M, G, N * taps)
     out = torch.gather(cost_volume, 2, idx).reshape(M, G, N, taps)
     return out.permute(0, 2, 1, 3).reshape(M, N, G * taps)
+
+
+def grid_sample_2d(img, grid, align_corners=False):
+    """Bilinear sampling with zeros padding, ``F.grid_sample`` semantics.
+
+    img: [B, H, W, C]; grid: [B, ..., 2] normalized (x, y) in [-1, 1].
+    Samples in float32 and returns [B, ..., C] in img's dtype.
+    """
+    B, H, W, C = img.shape
+    lead = grid.shape[1:-1]
+    g = grid.reshape(B, 1, -1, 2).float()
+    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), g, mode="bilinear",
+                        padding_mode="zeros", align_corners=align_corners)
+    return out[:, :, 0].permute(0, 2, 1).reshape(B, *lead, C).to(img.dtype)

@@ -9,7 +9,11 @@ Tolerance against the plain version on identical inputs: f32 atol = rtol
 the output).  The backward kernels are held against autograd through the
 plain forward versions; their bf16 d(qkv) is one bf16 rounding of sums of
 up to T products of magnitude about 1 and gets atol 5e-2, rtol 2e-2.
+The tap-MSDA kernel (B5) is held against its plain version, the dense tap
+sum, at the forward tolerances.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                             get_cfg, make_train_step)
 from nmrf_tpu_torch.data import synthetic_batch
 from nmrf_tpu_torch.ops import attention as A
+from nmrf_tpu_torch.ops import msda
 
 
 @pytest.fixture
@@ -132,7 +137,8 @@ def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
     table = torch.randn(49, 384, generator=g, device=cuda, requires_grad=True)
     A.window_attention(qkv, table, 0, (4, 4), 4, False).square().sum().backward()
     after = A.launch_counts()
-    assert {k: after[k] - counts[k] for k in after} == dict.fromkeys(after, 1)
+    assert {k: after[k] - counts[k] for k in after} == dict(
+        dict.fromkeys(after, 1), msda_taps=0)
     q2 = q.detach().clone().requires_grad_()
     A.stripe_attention_plain(q2, q2, q2, 4, 1, 2).square().sum().backward()
     torch.testing.assert_close(q.grad, q2.grad, atol=1e-4, rtol=1e-4)
@@ -166,9 +172,65 @@ def test_train_steps_through_kernels_match_plain(cuda):
         A.reset_launch_counts()
         losses[use_kernels] = [step(batch) for _ in range(2)]
         want = 2 * 4 if use_kernels else 0
-        assert set(A.launch_counts().values()) == {want}
+        assert A.launch_counts() == dict(dict.fromkeys(A.launch_counts(), want),
+                                         msda_taps=0)
     for got, ref in zip(losses[True], losses[False]):
         for key, value in ref.items():
             assert torch.isfinite(got[key])
             np.testing.assert_allclose(got[key].item(), value.item(),
                                        rtol=1e-3, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 8])
+@pytest.mark.parametrize("spread", [4.0, 8.0], ids=["within_r", "beyond_r"])
+def test_msda_taps_kernel_matches_plain(cuda, dtype, f, spread):
+    """B5 at the swin neck's widths (M 8, D 8, P 4, r 5, batch 2) at level
+    factors 1 and 8; displacements up to ``spread`` level pixels, so the
+    second case has samples beyond the radius (dropped) and, at the
+    borders, outside the level map (zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    Hq, Wq = 48, 64
+    vmap = torch.randn(2, Hq // f, Wq // f, 64, generator=g, device=cuda).to(dtype)
+    dx, dy = ((torch.rand(2, Hq, Wq, 32, generator=g, device=cuda) * 2 - 1)
+              * spread for _ in range(2))
+    aw = torch.rand(2, Hq, Wq, 32, generator=g, device=cuda)
+    before = msda.msda_taps.launches
+    with torch.inference_mode():
+        got = msda.msda_taps(vmap, dx, dy, aw, 8, 5)
+        want = msda.msda_taps_plain(vmap, dx, dy, aw, 8, 5)
+    assert msda.msda_taps.launches == before + 1
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_swin_forward_through_kernels_matches_plain(cuda):
+    """The swin variant (2 layers per NMP stage, 64 x 128, f32) through the
+    kernels (4 B5 launches, one per extractor, and 4 of K1 and K2) and on
+    the plain versions, from the same weights."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parent.parent / "configs"
+                            / "sceneflow_swint.yaml"))
+    cfg.NMP.NUM_PROP_LAYERS = cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    rng = np.random.RandomState(0)
+    imgs = [torch.from_numpy((rng.rand(1, 64, 128, 3) * 255).astype(np.float32))
+            .to(cuda) for _ in range(2)]
+    outs = {}
+    for use_kernels in (True, False):
+        cfg.TPU.USE_PALLAS = use_kernels
+        model = build_model(cfg, device=cuda)
+        A.reset_launch_counts()
+        with torch.inference_mode():
+            outs[use_kernels] = model(*imgs)
+        want = 4 if use_kernels else 0
+        assert A.launch_counts() == {"window_attention": want,
+                                     "stripe_attention": want,
+                                     "window_attention_bwd": 0,
+                                     "stripe_attention_bwd": 0,
+                                     "msda_taps": want}
+    for key in ("prob", "proposal", "initial_proposal"):
+        torch.testing.assert_close(outs[True][key], outs[False][key],
+                                   atol=2e-4, rtol=1e-3)

@@ -35,7 +35,9 @@ def test_no_jax_import(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, nmrf_tpu_torch, nmrf_tpu_torch.models, "
             "nmrf_tpu_torch.ops, nmrf_tpu_torch.utils.convert, "
-            "nmrf_tpu_torch.solver, nmrf_tpu_torch.data; "
+            "nmrf_tpu_torch.solver, nmrf_tpu_torch.data, "
+            "nmrf_tpu_torch.ops.msda, nmrf_tpu_torch.models.swin, "
+            "nmrf_tpu_torch.models.adaptor; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'nmrf_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,

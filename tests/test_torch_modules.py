@@ -140,4 +140,5 @@ def test_cpu_wrappers_do_not_count_launches():
     assert attn_ops.launch_counts() == {"window_attention": 0,
                                         "stripe_attention": 0,
                                         "window_attention_bwd": 0,
-                                        "stripe_attention_bwd": 0}
+                                        "stripe_attention_bwd": 0,
+                                        "msda_taps": 0}
