@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch port (``nmrf_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -31,10 +32,21 @@ Phases (any failure exits non-zero before the last line is printed):
    192 on whole 1/8-resolution bins), with every launch counter read around
    the timed steps, and its loss must fall;
 6. time each kernel beside its plain version, its bound and one PyTorch
-   library call (``scaled_dot_product_attention``, its backward for K1b and
-   K2b; ``grid_sample`` for B5) at the same shapes, and break a request of
-   each model and a training step down by device kernel with
-   ``torch.profiler``.
+   library call (``scaled_dot_product_attention``, its backward for K1b,
+   K2b and B6b; ``grid_sample`` for B5) at the same shapes, and break a
+   request of each model and a training step down by device kernel with
+   ``torch.profiler``;
+7. drive the H-sharded path: two processes on the one card (a 1 x 2
+   (data, spatial) grid over gloo, ``nmrf_tpu_torch.parallel``) serve 4
+   KITTI pairs padded to 384x1248 through ``make_sharded_forward`` (bf16,
+   tanh GELU), hold the f32 sharded forward against the unsharded one, hold
+   the gradients of one f32 sharded step against the unsharded step's
+   (crop 384x768, batch 8), and take 1 + 1 + 5 sharded training steps
+   (warm-up, profiled, timed; bf16), with the launch counters of each rank
+   read around the timed requests and steps; rank 0 profiles a request
+   and a step.  Phase 2 also holds the rectangular masked attention B6
+   and its backward B6b, and K1/K1b at a tile's row offset, against their
+   plain versions.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +79,8 @@ REPLACES = {
     "window_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:1258",
     "stripe_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:329",
     "msda_taps": "nmrf_tpu/ops/pallas/msda.py:93",
+    "masked_attention": "nmrf_tpu/ops/pallas/attention.py:59",
+    "masked_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:135",
 }
 
 
@@ -466,13 +480,172 @@ def msda_phase(gen):
     return {"msda_taps": entries}
 
 
+# H-sharded path (1 x 2 grid): the CSWin vertical stripe of a tile attends
+# its 24 of 48 rows at 1/8 to the gathered stripe: Rq = 24 x 4 = 96 query
+# rows, Rk = 48 x 4 = 192 key rows, 2 heads of 32, G = batch x 1/8 width
+# (KITTI 384x1248, batch 1: 156; training 384x768, batch 8: 768).
+# (label, G, B6 launches per sharded frame, B6b launches per sharded step):
+# each kernel's unit is its main path's (serving for B6, training for B6b)
+MASKED_RQ, MASKED_RK, MASKED_HEADS, MASKED_HD, MASKED_N = 96, 192, 2, 32, 4
+MASKED_CASES = [
+    ("serve G156", 156, 5, 0),
+    ("train G768", 768, 0, 5),
+]
+# K1/K1b on a tile of the sharded training shapes (row0 > 0, hp_total > Hp):
+# (label, Hp, Wp, N, ws, shift, candidate_mask, row0, hp_total)
+ROW0_CASES = [
+    ("tile1 inference/shift3", 24, 96, 4, 6, 3, True, 24, 48),
+    ("tile0 inference/shift3", 24, 96, 4, 6, 3, True, 0, 48),
+    ("tile1 refinement/shift2", 48, 192, 1, 4, 2, False, 48, 96),
+]
+
+
+def masked_bound(G, Rq, Rk, heads, hd, Gm, backward=False):
+    """(bytes ms, ops ms) of one bf16 launch: q, k, v (and g) and the f32
+    mask read once, the output (dq, dk, dv) written once; q.k and a.v of
+    every (group, head) (the backward: five Rq x Rk products)."""
+    q_bytes, k_bytes = G * heads * Rq * hd * 2, G * heads * Rk * hd * 2
+    mask_bytes = Gm * Rq * Rk * 4
+    if backward:  # q, g, dq; k, v, dk, dv; the mask
+        nbytes = 3 * q_bytes + 4 * k_bytes + mask_bytes
+        ops = G * heads * 10 * Rq * Rk * hd
+    else:
+        nbytes = 2 * q_bytes + 2 * k_bytes + mask_bytes
+        ops = G * heads * 4 * Rq * Rk * hd
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+
+
+def tile_stripe_mask(tile):
+    """[Rq, Rk] rows of the global anti-same-pixel stripe mask for a tile."""
+    from nmrf_tpu_torch.ops import attention as A
+
+    return A.stripe_mask(MASKED_RK, MASKED_N)[tile * MASKED_RQ:(tile + 1) * MASKED_RQ]
+
+
+def masked_phase(gen):
+    """Phase 2 (B6 and B6b against their plain versions, f32 and bf16, at
+    the sharded path's shapes, with the tile-0 and tile-1 stripe masks
+    (Gm = 1) and a random mask per group (Gm = G)) and their timings of
+    phase 6 (bf16, tile-1 mask as the path runs it; SDPA with the same
+    additive mask, forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    h, Rq, Rk, hd = MASKED_HEADS, MASKED_RQ, MASKED_RK, MASKED_HD
+    scale = hd ** -0.5
+    fwd, bwd = [], []
+    for label, G, fwd_count, bwd_count in MASKED_CASES:
+        q32 = torch.randn(h, G, Rq, hd, generator=gen, device=dev)
+        k32, v32 = (torch.randn(h, G, Rk, hd, generator=gen, device=dev)
+                    for _ in range(2))
+        g32 = torch.randn(h, G, Rq, hd, generator=gen, device=dev)
+        masks = {f"tile{t}": torch.as_tensor(tile_stripe_mask(t), device=dev)[None]
+                 for t in (0, 1)}
+        masks["per-group"] = torch.where(
+            torch.rand(G, Rq, Rk, generator=gen, device=dev) < 0.2, -1e9,
+            torch.randn(G, Rq, Rk, generator=gen, device=dev))
+        ef = {"shape": label, "count": fwd_count}
+        eb = {"shape": label, "count": bwd_count}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+            errs_f, errs_b = [], []
+            for mname, mask in masks.items():
+                with torch.inference_mode():
+                    got = A.masked_attention(q, k, v, mask, scale)
+                    torch.cuda.synchronize()
+                    want = A.masked_attention_plain(q, k, v, mask, scale)
+                errs_f.append(check_close(f"masked_attention {label} {mname}",
+                                          got, want, dtype_name))
+                got = A.masked_attention_bwd(g, q, k, v, mask, scale)
+                torch.cuda.synchronize()
+                want = A.masked_attention_bwd_plain(g, q, k, v, mask, scale)
+                errs_b.extend(check_close(
+                    f"masked_attention_bwd {label} {mname} d{n}", a, b,
+                    dtype_name, TOL_BWD) for n, a, b in zip("qkv", got, want))
+            ef[f"max_abs_err_{dtype_name}"] = max(errs_f)
+            eb[f"max_abs_err_{dtype_name}"] = max(errs_b)
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q32, k32, v32, g32))
+        mask = masks["tile1"]
+        bmask = mask.to(torch.bfloat16)
+        with torch.inference_mode():
+            ef["ms"] = cuda_ms(lambda: A.masked_attention(q, k, v, mask, scale), 50)
+            ef["plain_ms"] = cuda_ms(
+                lambda: A.masked_attention_plain(q, k, v, mask, scale), 10)
+            ef["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bmask), 50)
+        ef["bytes_ms"], ef["ops_ms"] = masked_bound(G, Rq, Rk, h, hd, 1)
+        eb["ms"] = cuda_ms(lambda: A.masked_attention_bwd(g, q, k, v, mask, scale), 20)
+        eb["plain_ms"] = cuda_ms(
+            lambda: A.masked_attention_bwd_plain(g, q, k, v, mask, scale), 5)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)
+        eb["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), g, retain_graph=True), 20)
+        eb["bytes_ms"], eb["ops_ms"] = masked_bound(G, Rq, Rk, h, hd, 1,
+                                                    backward=True)
+        del out, qs, ks, vs
+        fwd.append(ef)
+        bwd.append(eb)
+        log(f"kernel masked_attention {label}: " + json.dumps(ef))
+        log(f"kernel masked_attention_bwd {label}: " + json.dumps(eb))
+    return {"masked_attention": fwd, "masked_attention_bwd": bwd}
+
+
+def row0_phase(gen):
+    """Phase 2: K1 and K1b on a tile of a taller image (row0 > 0 or
+    hp_total > Hp, the shifted-region mask in global rows) against their
+    plain versions, f32 and bf16, at the sharded training shapes; entries
+    with no timed launches, folded into K1's and K1b's rows."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    C, heads = 128, 4
+    fwd, bwd = [], []
+    for label, Hp, Wp, N, ws, shift, cand, row0, hp_total in ROW0_CASES:
+        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                  device=dev)
+        qkv32 = torch.randn(2, Hp, Wp, N, 3 * C, generator=gen, device=dev)
+        g32 = torch.randn(2, Hp, Wp, N, C, generator=gen, device=dev)
+        ef, eb = ({"shape": f"{label} row0 {row0} of {hp_total}", "count": 0}
+                  for _ in range(2))
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            args = (qkv32.to(dt), table, shift, (ws, ws), heads, cand, row0,
+                    hp_total)
+            with torch.inference_mode():
+                got = A.window_attention(*args)
+                torch.cuda.synchronize()
+                want = A.window_attention_plain(*args)
+            ef[f"max_abs_err_{dtype_name}"] = check_close(
+                f"window_attention {label}", got, want, dtype_name)
+            got = A.window_attention_bwd(g32.to(dt), *args)
+            torch.cuda.synchronize()
+            want = A.window_attention_bwd_plain(g32.to(dt), *args)
+            eb[f"max_abs_err_{dtype_name}"] = max(
+                check_close(f"window_attention_bwd {label} d{name}", a, b,
+                            dtype_name, TOL_BWD)
+                for name, a, b in zip(("qkv", "table"), got, want))
+        fwd.append(ef)
+        bwd.append(eb)
+        log(f"kernel window_attention {ef['shape']}: " + json.dumps(ef))
+        log(f"kernel window_attention_bwd {eb['shape']}: " + json.dumps(eb))
+    return fwd, bwd
+
+
 # --------------------------------------------------------------------------- #
 # main paths
 # --------------------------------------------------------------------------- #
 
-def main_path_cfg(dtype, gelu_approx, use_kernels, swin=False):
+def main_path_cfg(dtype, gelu_approx, use_kernels, swin=False, grid=None):
     """The default config (resnet, 5 + 5 + 5 NMP layers), or with ``swin``
-    the swin variant's (Swin-T, deformable neck, tap radius 5, DIVIS_BY 32)."""
+    the swin variant's (Swin-T, deformable neck, tap radius 5, DIVIS_BY 32);
+    ``grid`` (data, spatial) sets ``TPU.MESH_DATA``/``MESH_SPATIAL``."""
     from pathlib import Path
 
     from nmrf_tpu_torch.config import get_cfg
@@ -484,6 +657,8 @@ def main_path_cfg(dtype, gelu_approx, use_kernels, swin=False):
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.TPU.GELU_APPROX = gelu_approx
     cfg.TPU.USE_PALLAS = use_kernels
+    if grid is not None:
+        cfg.TPU.MESH_DATA, cfg.TPU.MESH_SPATIAL = grid
     cfg.freeze()
     return cfg
 
@@ -555,7 +730,8 @@ def serve_phase(swin=False):
             fail("disparity not finite and non-negative")
     want = {"window_attention": 10 * REQUESTS, "stripe_attention": 10 * REQUESTS,
             "window_attention_bwd": 0, "stripe_attention_bwd": 0,
-            "msda_taps": (4 if swin else 0) * REQUESTS}
+            "msda_taps": (4 if swin else 0) * REQUESTS,
+            "masked_attention": 0, "masked_attention_bwd": 0}
     if counts != want:
         fail(f"launches over {REQUESTS} requests: {counts}, expected {want}")
     return model, pairs[1], {
@@ -617,7 +793,8 @@ def train_phase():
     fwd = (2 if cfg.TPU.REMAT else 1) * 10 * TRAIN_STEPS
     want = {"window_attention": fwd, "stripe_attention": fwd,
             "window_attention_bwd": 10 * TRAIN_STEPS,
-            "stripe_attention_bwd": 10 * TRAIN_STEPS, "msda_taps": 0}
+            "stripe_attention_bwd": 10 * TRAIN_STEPS, "msda_taps": 0,
+            "masked_attention": 0, "masked_attention_bwd": 0}
     if counts != want:
         fail(f"launches over {TRAIN_STEPS} steps: {counts}, expected {want}")
     timed = [r["total"] for r in rows[1:]]
@@ -656,9 +833,25 @@ KERNEL_GROUPS = (
 )
 
 
+COLLECTIVE_KEYS = ("gloo", "nccl", "c10d", "all_gather", "allgather",
+                   "all_reduce", "allreduce")
+
+
+def _union_ms(spans):
+    """Length of the union of (start, end) intervals in us, as ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def profile_phase(name, fn):
     """Phase 6b: one call of fn under torch.profiler; device time by kernel
-    group, and the device's busy share of the call's wall time."""
+    group, the device's busy share of the call's wall time, and the host
+    time inside torch.distributed collectives (union of their host
+    intervals; 0 without a process group)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -668,9 +861,11 @@ def profile_phase(name, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, spans = {}, []
+    groups, spans, coll = {}, [], []
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
+            if any(k in evt.name.lower() for k in COLLECTIVE_KEYS):
+                coll.append((evt.time_range.start, evt.time_range.end))
             continue
         us = evt.time_range.elapsed_us()
         spans.append((evt.time_range.start, evt.time_range.end))
@@ -678,11 +873,7 @@ def profile_phase(name, fn):
                       if any(k in evt.name for k in keys)), "other elementwise")
         total, count = groups.get(group, (0.0, 0))
         groups[group] = (total + us, count + 1)
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _union_ms(spans) * 1e3  # union of device intervals, us
     rows = sorted(((t / 1e3, c, g) for g, (t, c) in groups.items()), reverse=True)
     for ms, count, group in rows:
         log(f"profile {name}: {ms:9.3f} ms  x{count:<5d} {group}")
@@ -690,13 +881,13 @@ def profile_phase(name, fn):
         fail(f"profiler recorded no device activity ({name})")
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "collective_host_ms": _union_ms(coll),
             "groups": [{"group": g, "ms": ms, "launches": c} for ms, c, g in rows]}
 
 
 def parity_phase(swin=False):
     """Phase 3b: float32 full-size forward, kernels vs plain versions."""
     import torch
-    import torch.nn.functional as F
 
     from nmrf_tpu_torch import build_model
     from nmrf_tpu_torch.ops import attention as A
@@ -731,6 +922,16 @@ def parity_phase(swin=False):
                 "window_attention", "stripe_attention")
             + (("msda_taps",) if swin else ())):
         fail(f"parity forward launches: {launches}")
+    return {"model": "swin" if swin else "resnet",
+            **check_forward(got, ref, scores["plain"][-1])}
+
+
+def check_forward(got, ref, logits):
+    """Hold one f32 forward's outputs against a reference forward's on the
+    same weights and inputs; logits: the reference's last proposal scores
+    [B, h8, w8, N, 64] (for the tie-aware disparity check)."""
+    import torch
+    import torch.nn.functional as F
 
     def err(k):
         return (got[k].float() - ref[k].float()).abs().max().item()
@@ -743,7 +944,6 @@ def parity_phase(swin=False):
                                    atol=atol, rtol=rtol)
     # selection-dependent disparity: every mismatch must lie within the
     # refinement receptive field (96 px) of a top-2 logit near-tie
-    logits = scores["plain"][-1]  # [B, h8, w8, N, 64]
     B, h8, w8, N, _ = logits.shape
     logits = logits.reshape(B, h8, w8, N, 8, 8).permute(0, 1, 4, 2, 5, 3)
     logits = logits.reshape(B, h8 * 8, w8 * 8, N)
@@ -756,8 +956,7 @@ def parity_phase(swin=False):
              "near-tie region (kernels vs plain versions, f32)")
     if bad.float().mean().item() >= 0.10:
         fail(f"disparity mismatch fraction {bad.float().mean().item():.3f}")
-    return {"model": "swin" if swin else "resnet",
-            "prob_err": err("prob"), "proposal_err": err("proposal"),
+    return {"prob_err": err("prob"), "proposal_err": err("proposal"),
             "initial_proposal_err": err("initial_proposal"),
             "disp_err": err("disp"), "disp_mismatch_frac": bad.float().mean().item(),
             "near_tie_px": int(near_tie.sum().item())}
@@ -830,16 +1029,342 @@ def stage_grad_phase():
     return report
 
 
+# --------------------------------------------------------------------------- #
+# the H-sharded path (phase 7): two ranks on the one card
+# --------------------------------------------------------------------------- #
+
+SHARD_GRID = (1, 2)   # (data, spatial)
+SHARD_DIVIS = 96      # each tile's 1/8 rows (24) hold whole 6-row windows
+SHARD_TRAIN_STEPS = 5
+
+
+def sharded_phase(grid=SHARD_GRID, backend="gloo"):
+    """Phase 7: spawn the ranks of a (data, spatial) grid, rank r on card
+    r % device count (the default: two ranks on the one card over gloo,
+    since NCCL refuses two ranks on one device), wait for them; returns
+    each rank's report.  A failing rank fails the run."""
+    import tempfile
+
+    from nmrf_tpu_torch.parallel import spawn
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    world = grid[0] * grid[1]
+    spawn(sharded_worker, world, backend, args=(out, tuple(grid), backend),
+          timeout_s=600)
+    reports = []
+    for rank in range(world):
+        with open(f"{out}/rank{rank}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def sharded_worker(rank, out_dir, grid, backend):
+    """One rank of phase 7 (its own process, torch.distributed initialised)."""
+    import torch
+
+    from nmrf_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*grid, backend=backend)
+    report = {"rank": rank, "device": str(mesh.device),
+              "device_name": torch.cuda.get_device_name(mesh.device)}
+    for name, fn in (("serve", sharded_serve), ("parity", sharded_parity),
+                     ("grad_check", sharded_grad_check),
+                     ("train", sharded_train)):
+        report[name] = fn(mesh)
+        torch.cuda.empty_cache()
+        if rank == 0:
+            log(f"phase 7 sharded {name} (rank 0): " + json.dumps(report[name]))
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def _expect_launches(counts, what, **want):
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    if counts != full:
+        fail(f"{what}: launches {counts}, expected {full}")
+
+
+def sharded_serve(mesh):
+    """KITTI requests through make_sharded_forward (bf16, tanh GELU), padded
+    to SHARD_DIVIS; per rank per frame 10 K1, 5 K2 and 5 B6 launches."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.data.frame_io import InputPadder
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import make_sharded_forward
+
+    model = build_model(main_path_cfg("bfloat16", True, True,
+                                      grid=(mesh.data, mesh.spatial)), mesh=mesh)
+    fwd = make_sharded_forward(model, mesh)
+    rng = np.random.RandomState(0)
+    pairs = [((rng.rand(H_KITTI, W_KITTI, 3) * 255).astype(np.float32),
+              (rng.rand(H_KITTI, W_KITTI, 3) * 255).astype(np.float32))
+             for _ in range(REQUESTS + 1)]
+
+    def request(img1, img2):
+        padder = InputPadder(img1.shape, mode="proposal", divis_by=SHARD_DIVIS)
+        a, b = (torch.from_numpy(p[None]).to(mesh.device)
+                for p in padder.pad(img1, img2))
+        return padder.unpad(fwd(a, b)["disp"].float().cpu().numpy())[0]
+
+    request(*pairs[0])  # warm-up
+    dist.barrier()
+    # one profiled request: rank 0 under torch.profiler, rank 1 alongside
+    if mesh.rank == 0:
+        profile = profile_phase("sharded request (rank 0)",
+                                lambda: request(*pairs[1]))
+    else:
+        request(*pairs[1])
+        profile = None
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_ms, disps = [], []
+    start.record()
+    for img1, img2 in pairs[1:]:
+        t = time.perf_counter()
+        disps.append(request(img1, img2))
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    end.record()
+    torch.cuda.synchronize()
+    counts = A.launch_counts()
+    for d in disps:
+        if d.shape != (H_KITTI, W_KITTI) or not np.isfinite(d).all() or (d < 0).any():
+            fail(f"sharded disparity: shape {d.shape}, not finite and non-negative")
+    _expect_launches(counts, f"rank {mesh.rank}, {REQUESTS} sharded requests",
+                     window_attention=10 * REQUESTS,
+                     stripe_attention=5 * REQUESTS,
+                     masked_attention=5 * REQUESTS)
+    return {"requests": REQUESTS, "padded": [384, 1248],
+            "frame_ms": start.elapsed_time(end) / REQUESTS, "profile": profile,
+            "host_request_ms": host_ms, "launches": counts,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "disp_mean": float(np.mean([d.mean() for d in disps]))}
+
+
+def sharded_parity(mesh):
+    """The f32 sharded forward (kernels) against the unsharded forward
+    (kernels) on the same weights and a 384x1248 pair, on rank 0: prob and
+    proposals strict, disparity tie-aware (``check_forward``)."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import make_sharded_forward
+
+    cfg = main_path_cfg("float32", False, True, grid=(mesh.data, mesh.spatial))
+    model = build_model(cfg, mesh=mesh)
+    rng = np.random.RandomState(1)
+    img1, img2 = (torch.from_numpy((rng.rand(1, 384, 1248, 3) * 255).astype(
+        np.float32)).to(mesh.device) for _ in range(2))
+    A.reset_launch_counts()
+    got = make_sharded_forward(model, mesh)(img1, img2)
+    torch.cuda.synchronize()
+    report = {"launches": A.launch_counts()}
+    _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded forward",
+                     window_attention=10, stripe_attention=5,
+                     masked_attention=5)
+    if mesh.rank == 0:
+        ref_model = build_model(cfg, device=mesh.device)
+        ref_model.load_state_dict(model.state_dict())
+        scores = {}
+        handle = ref_model.infer_score_head.register_forward_hook(
+            lambda _m, _i, out: scores.update(plain=out))
+        with torch.inference_mode():
+            ref = ref_model(img1, img2)
+        handle.remove()
+        report.update(check_forward(got, ref, scores["plain"][-1]))
+        del ref_model, ref, scores
+    dist.barrier()
+    return report
+
+
+# leaves whose gradient is zero in exact arithmetic (a key bias shifts a
+# softmax row by one value; the proposal score head's bias shifts every
+# candidate's logit of a sub-pixel alike): their error is normalised by the
+# gradient scale of their layer, as the backbone's by the backbone's
+ZERO_GRAD_LEAVES = ("k.bias", "infer_score_head.bias")
+
+
+def sharded_grad_check(mesh):
+    """One f32 step's losses and gradients, sharded (world-summed) against
+    unsharded (rank 0), same weights and batch (crop 384x768, batch 8):
+    losses at rtol 1e-4, every gradient leaf at the tolerances of
+    ``tests/test_spatial_model.py:95-119`` (backbone leaves: |d| / max |g|
+    over the backbone < 1e-2; the others |d| / (max |g_leaf| + 1e-6) <
+    5e-3)."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_criterion, build_model
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import (shard_batch, spatial_sharded_apply,
+                                         sum_gradients)
+
+    cfg = main_path_cfg("float32", False, True, grid=(mesh.data, mesh.spatial))
+    criterion = build_criterion(cfg)
+    H, W = cfg.DATASETS.CROP_SIZE
+    batch = synthetic_batch(TRAIN_BATCH, H, W, max_disp=cfg.SOLVER.MAX_DISP,
+                            seed=0, disp_quantum=8)
+    report = {"batch": TRAIN_BATCH, "crop": [H, W]}
+    if mesh.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        ref = build_model(cfg, device=mesh.device).train()
+        tb = {k: torch.from_numpy(v).to(mesh.device) for k, v in batch.items()}
+        losses = criterion(ref(tb["img1"], tb["img2"]), tb)
+        losses["total"].backward()
+        want_losses = {k: float(v.detach()) for k, v in losses.items()}
+        want = {n: p.grad.detach().clone() for n, p in ref.named_parameters()
+                if p.grad is not None}
+        report["unsharded_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del ref, tb, losses
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, mesh=mesh).train()
+    local = shard_batch(batch, mesh)
+    A.reset_launch_counts()
+    losses = criterion(spatial_sharded_apply(model, mesh, local["img1"],
+                                             local["img2"]), local)
+    losses["total"].backward()
+    sum_gradients(list(model.parameters()), mesh)
+    torch.cuda.synchronize()
+    report["launches"] = A.launch_counts()
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded step",
+                     window_attention=10, stripe_attention=5,
+                     masked_attention=5, window_attention_bwd=10,
+                     stripe_attention_bwd=5, masked_attention_bwd=5)
+    if mesh.rank == 0:
+        got_losses = {k: float(v.detach()) for k, v in losses.items()}
+        report["loss_rel_err"] = max(abs(got_losses[k] - v) / max(abs(v), 1e-12)
+                                     for k, v in want_losses.items())
+        if report["loss_rel_err"] > 1e-4:
+            fail(f"sharded losses {got_losses} vs unsharded {want_losses}")
+        got = {n: p.grad for n, p in model.named_parameters()
+               if p.grad is not None}
+        if got.keys() != want.keys():
+            fail("sharded and unsharded steps give gradients of other leaves")
+        bb = max(g.abs().max().item() for n, g in want.items()
+                 if n.startswith("backbone."))
+        worst = {"backbone": 0.0, "other": 0.0}
+        for n, g in want.items():
+            d = (got[n] - g).abs().max().item()
+            if n.startswith("backbone."):
+                err, kind, limit = d / bb, "backbone", 1e-2
+            elif n.endswith(ZERO_GRAD_LEAVES):
+                layer = n.rsplit(".", 1)[0] + "."
+                scale = max(v.abs().max().item() for k, v in want.items()
+                            if k.startswith(layer))
+                err, kind, limit = d / (scale + 1e-6), "other", 5e-3
+            else:
+                err = d / (g.abs().max().item() + 1e-6)
+                kind, limit = "other", 5e-3
+            worst[kind] = max(worst[kind], err)
+            if err >= limit:
+                fail(f"sharded gradient {n}: relative error {err:.3e} >= {limit}")
+        report["grad_rel_err"] = worst
+        report["losses"] = got_losses
+    dist.barrier()
+    return report
+
+
+def sharded_train(mesh):
+    """A warm-up, a profiled and SHARD_TRAIN_STEPS timed sharded training
+    steps (bf16, exact GELU, crop 384x768, batch 8) through
+    make_train_step(..., mesh=); per rank per
+    step 10 K1 + 10 K1b, 5 K2 + 5 K2b, 5 B6 + 5 B6b; the loss falls and the
+    ranks keep identical parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
+                                make_train_step)
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import shard_batch
+
+    cfg = main_path_cfg("bfloat16", False, True, grid=(mesh.data, mesh.spatial))
+    model = build_model(cfg, mesh=mesh)
+    optimizer, scheduler = build_optimizer(model, cfg)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg.SOLVER.ACCUM_STEPS, grad_clip=cfg.SOLVER.GRAD_CLIP,
+                           mesh=mesh)
+    H, W = cfg.DATASETS.CROP_SIZE
+    batch = shard_batch(synthetic_batch(TRAIN_BATCH, H, W,
+                                        max_disp=cfg.SOLVER.MAX_DISP, seed=0,
+                                        disp_quantum=8), mesh)
+    history = [step(batch)]  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    if mesh.rank == 0:  # one profiled step, rank 1 alongside
+        profile = profile_phase("sharded train step (rank 0)",
+                                lambda: history.append(step(batch)))
+    else:
+        history.append(step(batch))
+        profile = None
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    history += [step(batch) for _ in range(SHARD_TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    counts = A.launch_counts()
+    S = SHARD_TRAIN_STEPS
+    _expect_launches(counts, f"rank {mesh.rank}, {S} sharded steps",
+                     window_attention=10 * S, stripe_attention=5 * S,
+                     masked_attention=5 * S, window_attention_bwd=10 * S,
+                     stripe_attention_bwd=5 * S, masked_attention_bwd=5 * S)
+    rows = [{k: float(v) for k, v in h.items()} for h in history]
+    if not all(np.isfinite(v) for row in rows for v in row.values()):
+        fail(f"sharded training: non-finite loss or gradient norm {rows}")
+    first, last = rows[0]["total"], float(np.mean([r["total"] for r in rows[-2:]]))
+    if not last < first:
+        fail(f"sharded training: loss did not fall ({first:.4f} at the first "
+             f"step, {last:.4f} over the last 2)")
+    # the world-summed update keeps the ranks' parameters identical
+    checksum = torch.stack([p.detach().double().sum() for p in model.parameters()])
+    sums = mesh.world.all_gather(checksum)
+    if not all(torch.equal(sums[0], s) for s in sums[1:]):
+        fail("sharded training: the ranks' parameters diverged")
+    return {"batch": TRAIN_BATCH, "crop": [H, W], "steps": S,
+            "step_ms": start.elapsed_time(end) / S, "profile": profile,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "total_first": first, "total_last2": last,
+            "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm")}
+                       for r in rows]}
+
+
 def kernels_line(kernel_results, counts):
     """The kernels JSON line.  Times are per unit of each kernel's main
-    path: per KITTI frame for K1/K2 (serving), per training step for
-    K1b/K2b."""
+    path: per KITTI frame for K1/K2/B5 (serving) and B6 (sharded serving,
+    one rank), per training step for K1b/K2b and B6b (sharded, one
+    rank)."""
     units = {
         "window_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "window_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
         "stripe_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
         "msda_taps": "per frame: the 4 launches of one swin KITTI request, bf16",
+        "masked_attention": "per frame: the 5 launches of one rank of a 1 x 2 "
+                            "sharded KITTI request (384x1248), bf16; launches: "
+                            "rank 0's over the 4 requests",
+        "masked_attention_bwd": f"per training step: the 5 launches of one rank "
+                                f"of a 1 x 2 sharded step at batch {TRAIN_BATCH}, "
+                                f"384x768, bf16; launches: rank 0's over the "
+                                f"{SHARD_TRAIN_STEPS} timed steps",
     }
     line = []
     for name, entries in kernel_results.items():
@@ -865,9 +1390,21 @@ def kernels_line(kernel_results, counts):
     return {"kernels": line}
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="build the kernels and run phase 7 alone")
+    parser.add_argument("--grid", type=int, nargs=2, default=SHARD_GRID,
+                        metavar=("DATA", "SPATIAL"),
+                        help="phase 7's process grid (default 1 2)")
+    parser.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                        help="phase 7's backend: gloo (ranks may share a "
+                             "card) or nccl (a card per rank)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -886,11 +1423,26 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sharded_only:
+        sharded = sharded_phase(args.grid, args.backend)
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"sharded": [{k: r[k] for k in (
+            "rank", "device", "serve", "train")} for r in sharded],
+            "grid": args.grid, "backend": args.backend}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         kernel_results = kernel_phase(gen)
         kernel_results.update(msda_phase(gen))
     kernel_results.update(bwd_kernel_phase(gen))
+    kernel_results.update(masked_phase(gen))
+    row0_fwd, row0_bwd = row0_phase(gen)
+    kernel_results["window_attention"] += row0_fwd
+    kernel_results["window_attention_bwd"] += row0_bwd
     log("phase 2 kernels: every kernel matches its plain version "
         "(f32 and bf16)")
 
@@ -922,12 +1474,23 @@ def main():
     log("phase 5 training path: " + json.dumps(train))
     step_profile = profile_phase("train step", lambda: step(batch))
     log("phase 6 training-step breakdown: " + json.dumps(step_profile))
+    del step, batch
+    torch.cuda.empty_cache()
+
+    t_shard = time.perf_counter()
+    sharded = sharded_phase(args.grid, args.backend)
+    log(f"phase 7 sharded path: {time.perf_counter() - t_shard:.1f} s; "
+        + json.dumps([{k: r[k] for k in ("rank", "device", "serve", "train")}
+                      for r in sharded]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     counts = dict(serve["launches"])
     counts.update({k: train["launches"][k]
                    for k in ("window_attention_bwd", "stripe_attention_bwd")})
     counts["msda_taps"] = swin_serve["launches"]["msda_taps"]
+    counts["masked_attention"] = sharded[0]["serve"]["launches"]["masked_attention"]
+    counts["masked_attention_bwd"] = \
+        sharded[0]["train"]["launches"]["masked_attention_bwd"]
     log(gpu_identity())
     log(json.dumps(kernels_line(kernel_results, counts)))
     print(json.dumps({"ok": True, "device": {

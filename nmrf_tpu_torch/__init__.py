@@ -4,7 +4,10 @@ Entry points: ``build_model(cfg, device=None)`` and
 ``predict(model, img1, img2)`` for inference; ``build_criterion(cfg)``,
 ``build_optimizer(model, cfg)`` and ``make_train_step(model, criterion,
 optimizer, scheduler, accum_steps, grad_clip=...)`` for training.  They run on CUDA unless
-the caller passes ``device="cpu"`` to ``build_model``.
+the caller passes ``device="cpu"`` to ``build_model``.  The H-sharded
+(spatial-parallel) path over ``torch.distributed``: ``parallel.make_mesh``,
+then ``build_model(cfg, mesh=)``, ``parallel.make_sharded_forward`` and
+``make_train_step(..., mesh=)``.
 """
 
 from .config import get_cfg

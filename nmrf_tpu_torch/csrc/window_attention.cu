@@ -14,7 +14,9 @@
 // from token coordinates: a candidate never sees another candidate of its
 // own pixel (Inference), and with shift > 0 tokens of different regions of
 // the rolled image (boundaries at Hp-wh, Hp-shift, Wp-ww, Wp-shift) never
-// see each other.
+// see each other.  Under H-sharding the input is one tile of the image: the
+// region rows are then global, y = row0 + local y against the global padded
+// height hp_total (row0 = 0 and hp_total = Hp for an unsharded image).
 //
 // Design: one block of 8 warps per (group of windows, head).  A group is one
 // window at T = wh*ww*N >= 128 tokens (Inference: 6x6x4 = 144) and
@@ -47,6 +49,7 @@ namespace nmrf {
 
 struct WindowParams {
   int B, Hp, Wp, N, C, heads, wh, ww, shift, candidate_mask, wpb, nwin;
+  int row0, hp_total;  // global row of local row 0; global padded height
   float scale;
 };
 
@@ -159,8 +162,8 @@ window_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ tab
     const int rem = win % (nwh * nww);
     const int gy = (rem / nww) * p.wh, gx = (rem % nww) * p.ww;
     auto region = [&](int t) {
-      const int y = gy + (t / p.N) / p.ww, x = gx + (t / p.N) % p.ww;
-      const int ry = (y >= p.Hp - p.wh) + (y >= p.Hp - p.shift);
+      const int y = p.row0 + gy + (t / p.N) / p.ww, x = gx + (t / p.N) % p.ww;
+      const int ry = (y >= p.hp_total - p.wh) + (y >= p.hp_total - p.shift);
       const int rx = (x >= p.Wp - p.ww) + (x >= p.Wp - p.shift);
       return 3 * ry + rx;
     };
@@ -281,12 +284,14 @@ int dispatch_hd(int hd, const void* qkv, const float* table, void* out, WindowPa
 extern "C" int nmrf_window_attention(const void* qkv, const void* table, void* out,
                                      int dtype, int B, int Hp, int Wp, int N, int C,
                                      int heads, int wh, int ww, int shift,
-                                     int candidate_mask, float scale, void* stream) {
+                                     int candidate_mask, int row0, int hp_total,
+                                     float scale, void* stream) {
   using namespace nmrf;
   WindowParams p;
   p.B = B; p.Hp = Hp; p.Wp = Wp; p.N = N; p.C = C; p.heads = heads;
   p.wh = wh; p.ww = ww; p.shift = shift;
   p.candidate_mask = candidate_mask; p.scale = scale;
+  p.row0 = row0; p.hp_total = hp_total;
   const int Tw = wh * ww * N;
   if (wh * ww > 64) return static_cast<int>(cudaErrorInvalidValue);  // P <= 64
   p.wpb = Tw >= 128 ? 1 : 128 / Tw;

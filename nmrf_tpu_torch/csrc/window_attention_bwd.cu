@@ -16,6 +16,8 @@
 //   mass[i,s] = sum_{j: pix(j)=s} P_ij
 //   d(ve)[h,p,s,c] = sum over every window and sample of
 //                    sum_{i: pix(i)=p} mass(i,s) g_i[c]
+// The shifted-region mask takes global rows, y = row0 + local y against the
+// global padded height hp_total, as in the forward.
 // dq/dk here are the content halves; the caller (ops/attention.py) adds the
 // positional halves dqr.ke and dkr.qe and turns dqr/dkr into the q/k table
 // rows with plain tensor products, as the JAX package leaves that einsum
@@ -58,6 +60,7 @@ namespace nmrf {
 
 struct WindowBwdParams {
   int B, Hp, Wp, N, C, heads, wh, ww, shift, candidate_mask, wpb, nwin;
+  int row0, hp_total;  // global row of local row 0; global padded height
   float scale;
 };
 
@@ -177,9 +180,9 @@ window_attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__
 
   auto region_of = [&](int win, int t) {
     const int rem = win % (nwh * nww);
-    const int y = (rem / nww) * p.wh + (t / p.N) / p.ww;
+    const int y = p.row0 + (rem / nww) * p.wh + (t / p.N) / p.ww;  // global row
     const int x = (rem % nww) * p.ww + (t / p.N) % p.ww;
-    const int ry = (y >= p.Hp - p.wh) + (y >= p.Hp - p.shift);
+    const int ry = (y >= p.hp_total - p.wh) + (y >= p.hp_total - p.shift);
     const int rx = (x >= p.Wp - p.ww) + (x >= p.Wp - p.shift);
     return 3 * ry + rx;
   };
@@ -426,12 +429,14 @@ extern "C" int nmrf_window_attention_bwd(const void* qkv, const void* table, con
                                          void* dqkv, void* dqr, void* dkr, void* mass,
                                          void* dve, int dtype, int B, int Hp, int Wp, int N,
                                          int C, int heads, int wh, int ww, int shift,
-                                         int candidate_mask, float scale, void* stream) {
+                                         int candidate_mask, int row0, int hp_total,
+                                         float scale, void* stream) {
   using namespace nmrf;
   WindowBwdParams p;
   p.B = B; p.Hp = Hp; p.Wp = Wp; p.N = N; p.C = C; p.heads = heads;
   p.wh = wh; p.ww = ww; p.shift = shift;
   p.candidate_mask = candidate_mask; p.scale = scale;
+  p.row0 = row0; p.hp_total = hp_total;
   const int Tw = wh * ww * N;
   if (wh * ww > 64) return static_cast<int>(cudaErrorInvalidValue);  // P <= 64
   p.wpb = Tw >= 128 ? 1 : 128 / Tw;

@@ -88,14 +88,28 @@ _DROPOUT_KEYS = ("NMP.ATTN_DROP", "NMP.PROJ_DROP", "NMP.DROP_PATH",
                  "NMP.DROPOUT")
 
 
-def build_model(cfg, device=None):
+def build_model(cfg, device=None, mesh=None):
     """The NMRF model of a config tree, in eval mode (``model.train()`` for
     training), on ``device`` (CUDA unless given; raises when CUDA is
     absent).  Weights are random from ``cfg.SEED``; load trained ones with
     ``load_state_dict``.  ``BACKBONE.DROP_PATH`` (the swin backbone's
     stochastic depth) is accepted; it acts only in training, which the port
-    does not have for the swin variant yet (``models/layers.py:DropPath``)."""
+    does not have for the swin variant yet (``models/layers.py:DropPath``).
+
+    mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
+    1 the model's decode region runs on H tiles of the features over the
+    mesh's spatial group (drive it through ``parallel.make_sharded_forward``
+    or ``make_train_step(..., mesh=)``); the parameters are the same, so
+    ``params_from_jax`` and ``load_state_dict`` apply unchanged.  The device
+    is then the mesh's unless given."""
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device)
+    spatial = mesh.spatial_group if mesh is not None and mesh.spatial > 1 \
+        else None
+    if spatial is not None and cfg.BACKBONE.MODEL_TYPE != "resnet":
+        raise ValueError("the H-sharded decode is ported for the resnet "
+                         f"variant only, not {cfg.BACKBONE.MODEL_TYPE!r}")
     for key in _DROPOUT_KEYS:
         node, name = key.split(".")
         if getattr(cfg, node)[name] != 0:
@@ -131,6 +145,7 @@ def build_model(cfg, device=None):
         remat=cfg.TPU.REMAT,
         aux_loss=cfg.SOLVER.AUX_LOSS,
         return_intermediate=cfg.NMP.RETURN_INTERMEDIATE,
+        spatial=spatial,
     )
     init_weights(model, cfg.SEED)
     return model.to(device).eval()

@@ -8,7 +8,9 @@
 
 Gradients reach the Conv1d stack only through ``prob`` (the seeds are
 integers) and the propagation and its head only through the labels, as in
-the JAX package.
+the JAX package.  With a spatial group the inputs are an H tile of the
+image and the group reaches the context projection and the propagation
+(``dpn.py:70-93``).
 """
 
 import torch
@@ -23,18 +25,19 @@ class DPN(nn.Module):
     def __init__(self, cost_group, num_proposals, feat_dim, context_dim,
                  num_prop_layers, prop_embed_dim, mlp_ratio, split_size,
                  prop_n_heads, gelu_approx=False, normalize_before=False,
-                 use_kernels=False, dtype=None, remat=False):
+                 use_kernels=False, dtype=None, remat=False, spatial=None):
         super().__init__()
         self.num_proposals = num_proposals
         self.mlp = nn.Sequential(
             Conv1d(cost_group, 8, 5, padding=2, dtype=dtype), nn.ReLU(),
             Conv1d(8, 16, 5, padding=2, dtype=dtype), nn.ReLU(),
             Conv1d(16, 1, 5, padding=2, dtype=dtype))
-        self.proj = ConvINReluConv(feat_dim, 128, context_dim, dtype=dtype)
+        self.proj = ConvINReluConv(feat_dim, 128, context_dim, dtype=dtype,
+                                   spatial=spatial)
         self.propagation = Propagation(
             prop_embed_dim, cost_group, num_prop_layers, mlp_ratio,
             context_dim, split_size, prop_n_heads, gelu_approx,
-            normalize_before, use_kernels, dtype, remat)
+            normalize_before, use_kernels, dtype, remat, spatial)
         self.prop_head = MLPBlock(prop_embed_dim, prop_embed_dim, 1, 3)
 
     def forward(self, cost_volume, fmap1):

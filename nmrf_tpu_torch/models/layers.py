@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import halo_exchange_h, instance_norm_2d_sharded
+
 
 def _dt(dtype, x):
     return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
@@ -164,18 +166,34 @@ class ConvINReluConv(nn.Module):
     """Conv3x3 (no bias) -> InstanceNorm -> ReLU -> Conv1x1 (no bias), the
     projection stack of concatconv/gw/context (``NMRF.py:56-65``).  The
     convolutions are registered as ``0`` and ``3``, the indices of the
-    reference's ``nn.Sequential``."""
+    reference's ``nn.Sequential``.
 
-    def __init__(self, in_channels, mid_channels, out_channels, dtype=None):
+    spatial: the spatial group when x is an H tile of the image
+    (``parallel/spatial.py``): the 3x3 convolution then takes a 1-row halo
+    from each neighbour tile (zero rows at the global edges, as the 'same'
+    zero padding) with H padding 0, and the instance norm's moments are
+    global (``layers.py:180-215``)."""
+
+    def __init__(self, in_channels, mid_channels, out_channels, dtype=None,
+                 spatial=None):
         super().__init__()
         self.dtype = dtype
+        self.spatial = spatial
         self.add_module("0", Conv2d(in_channels, mid_channels, 3, padding=1,
                                     bias=False, dtype=dtype))
         self.add_module("3", Conv2d(mid_channels, out_channels, 1, bias=False,
                                     dtype=dtype))
 
     def forward(self, x):
-        x = instance_norm_2d(self._modules["0"](x))
+        if self.spatial is None:
+            x = instance_norm_2d(self._modules["0"](x))
+        else:
+            conv = self._modules["0"]
+            x = halo_exchange_h(x, 1, self.spatial)
+            dt = _dt(conv.compute_dtype, x)
+            x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                         padding=(0, 1)).permute(0, 2, 3, 1)
+            x = instance_norm_2d_sharded(x, self.spatial)
         if self.dtype is not None:
             x = x.to(self.dtype)
         return self._modules["3"](torch.relu(x))

@@ -13,12 +13,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (
+    masked_attention,
+    masked_attention_plain,
     stripe_attention,
     stripe_attention_plain,
+    stripe_mask,
     window_attention,
     window_attention_plain,
 )
 from ..ops.encodings import fourier_grid_embed
+from ..parallel.spatial import all_gather_h, global_fourier_rows, global_roll_h
 from .layers import GELU, LayerNorm, Linear, Mlp
 
 
@@ -66,15 +70,22 @@ class BasicAttention(nn.Module):
 class WindowAttention(nn.Module):
     """Windowed attention with a learnable relative-position table of width
     3*dim contributing q/k/v positional terms (reference
-    ``WindowAttention``, ``NMP.py:142-292``; ``nmp.py:161``)."""
+    ``WindowAttention``, ``NMP.py:142-292``; ``nmp.py:161``).
+
+    With a spatial group (the input is an H tile of the image) the H roll
+    of a shifted layer is the ring exchange of ``global_roll_h`` and the W
+    roll stays local; the shifted-region mask takes global rows (row0 =
+    tile index x tile height, hp_total = the global padded height,
+    ``nmp.py:203-216,294-304,323-331``)."""
 
     def __init__(self, dim, window_size, num_heads, candidate_mask,
-                 use_kernels=False):
+                 use_kernels=False, spatial=None):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
         self.candidate_mask = candidate_mask
         self.use_kernels = use_kernels
+        self.spatial = spatial
         wh, ww = self.window_size
         self.relative_position_enc_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), 3 * dim))
@@ -83,13 +94,23 @@ class WindowAttention(nn.Module):
         """qkv: [B, Hp, Wp, N, 3C] (window-padded) -> [B, Hp, Wp, N, C].
         ``shift`` > 0 rolls the input by -shift (sign of ``jnp.roll``) and
         the output back by +shift."""
+        sp = self.spatial
         if shift:
-            qkv = torch.roll(qkv, (-shift, -shift), dims=(1, 2))
+            if sp is None:
+                qkv = torch.roll(qkv, (-shift, -shift), dims=(1, 2))
+            else:
+                qkv = torch.roll(global_roll_h(qkv, -shift, sp), -shift, dims=2)
+        H = qkv.shape[1]
+        row0, hp_total = (0, None) if sp is None else (sp.index * H, sp.size * H)
         attend = window_attention if self.use_kernels else window_attention_plain
         out = attend(qkv.contiguous(), self.relative_position_enc_table, shift,
-                     self.window_size, self.num_heads, self.candidate_mask)
+                     self.window_size, self.num_heads, self.candidate_mask,
+                     row0, hp_total)
         if shift:
-            out = torch.roll(out, (shift, shift), dims=(1, 2))
+            if sp is None:
+                out = torch.roll(out, (shift, shift), dims=(1, 2))
+            else:
+                out = global_roll_h(torch.roll(out, shift, dims=2), shift, sp)
         return out
 
 
@@ -98,7 +119,7 @@ class SwinNMP(nn.Module):
 
     def __init__(self, dim, qk_extra_dim, num_heads, window_size, mlp_ratio=4.0,
                  gelu_approx=False, normalize_before=False, candidate_mask=False,
-                 use_kernels=False, dtype=None):
+                 use_kernels=False, dtype=None, spatial=None):
         super().__init__()
         self.normalize_before = normalize_before
         self.dtype = dtype
@@ -106,7 +127,8 @@ class SwinNMP(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.qkv = Linear(dim + qk_extra_dim, 3 * dim, dtype=dtype)
         self.attn = WindowAttention(dim, (window_size, window_size), num_heads,
-                                    candidate_mask, use_kernels=use_kernels)
+                                    candidate_mask, use_kernels=use_kernels,
+                                    spatial=spatial)
         self.proj = Linear(dim, dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim,
                        act=GELU(gelu_approx), dtype=dtype)
@@ -134,24 +156,32 @@ class CSWinAttention(nn.Module):
     idx=0: vertical stripes (H_sp = H, W_sp = split); idx=1: horizontal.
     The positional term sums the candidate planes and removes the other
     candidates' center-tap contributions (self-edge removal); it stays in
-    PyTorch on both paths, as it stayed in XLA.
+    PyTorch on both paths, as it stayed in XLA.  With a spatial group the
+    vertical stripes span the global H (:meth:`_vertical_sharded`); the
+    horizontal ones are tile-local.
     """
 
-    def __init__(self, dim, idx, split_size=7, num_heads=8, use_kernels=False):
+    def __init__(self, dim, idx, split_size=7, num_heads=8, use_kernels=False,
+                 spatial=None):
         super().__init__()
         self.dim, self.idx = dim, idx
         self.split_size, self.num_heads = split_size, num_heads
         self.use_kernels = use_kernels
+        self.spatial = spatial
         # depthwise conv weight [dim, 1, 3, 3] (reference ``get_v``)
         self.get_v = nn.Conv2d(dim, dim, 3, padding=1, groups=dim, bias=False)
 
     def forward(self, query, key, value):
         """query/key/value: [B, H, W, N, C] -> [B, H, W, N, C]."""
         B, H, W, N, C = query.shape
+        if self.idx == 0 and self.spatial is not None:
+            return self._vertical_sharded(query, key, value)
         if self.idx == 0:
             H_sp, W_sp = H, self.split_size
         else:
             H_sp, W_sp = self.split_size, W
+            # under H-sharding horizontal stripes must not cross tiles
+            assert self.spatial is None or H % H_sp == 0, (H, H_sp)
         # centered padding to stripe multiples (reference NMP.py:474-485)
         H_pad = (H_sp - H % H_sp) % H_sp
         W_pad = (W_sp - W % W_sp) % W_sp
@@ -163,16 +193,10 @@ class CSWinAttention(nn.Module):
 
         # depthwise 3x3 positional term on stripe-local candidate planes, in
         # v's dtype (the compute dtype)
-        weight = self.get_v.weight.to(v.dtype)
         vs = v.reshape(B, ni, H_sp, nj, W_sp, N, self.dim)
         vs = vs.permute(0, 1, 3, 5, 6, 2, 4).reshape(B * ni * nj * N, self.dim,
                                                       H_sp, W_sp)
-        rpe = F.conv2d(vs, weight, padding=1, groups=self.dim)
-        rpe = rpe.reshape(B * ni * nj, N, self.dim, H_sp, W_sp)
-        center = vs.reshape(B * ni * nj, N, self.dim, H_sp, W_sp) \
-            * weight[:, 0, 1, 1][:, None, None]
-        # sum over candidates, minus the other candidates' center taps
-        rpe = rpe.sum(1, keepdim=True) - (center.sum(1, keepdim=True) - center)
+        rpe = self._positional(vs, B * ni * nj, N)
         rpe = rpe.reshape(B, ni, nj, N, self.dim, H_sp, W_sp)
         rpe = rpe.permute(0, 1, 5, 2, 6, 3, 4).reshape(B, Hp, Wp, N, self.dim)
 
@@ -180,6 +204,59 @@ class CSWinAttention(nn.Module):
         out = attend(q, k, v, H_sp, W_sp, self.num_heads)
         out = out + rpe.to(out.dtype)
         return out[:, tp:tp + H, lp:lp + W]
+
+    def _positional(self, vs, G, N):
+        """Depthwise 3x3 term of stripe planes vs [G*N, dim, Hs, Ws], summed
+        over the N candidates minus the other candidates' center taps ->
+        [G, N, dim, Hs, Ws]."""
+        weight = self.get_v.weight.to(vs.dtype)
+        rpe = F.conv2d(vs, weight, padding=1, groups=self.dim)
+        rpe = rpe.reshape(G, N, *rpe.shape[1:])
+        center = vs.reshape(G, N, *vs.shape[1:]) \
+            * weight[:, 0, 1, 1][:, None, None]
+        return rpe.sum(1, keepdim=True) - (center.sum(1, keepdim=True) - center)
+
+    def _vertical_sharded(self, query, key, value):
+        """Vertical stripes spanning the GLOBAL H under H-sharding
+        (``nmp.py:590-685``): the local query rows attend to the
+        all-gathered stripe (B6, Rq = H_loc W_sp N, Rk = H W_sp N) under the
+        tile's rows of the global anti-same-pixel mask; the depthwise
+        positional term is computed on the gathered column and the tile's
+        rows are sliced out, so taps across tile edges are exact."""
+        sp = self.spatial
+        B, H, W, N, C = query.shape  # H: the tile height
+        h = self.num_heads
+        hd = self.dim // h
+        W_sp = self.split_size
+        Hg = H * sp.size
+        W_pad = (W_sp - W % W_sp) % W_sp
+        lp = W_pad // 2
+        pad = (0, 0, 0, 0, lp, W_pad - lp)
+        q = F.pad(query, pad)
+        kf = all_gather_h(F.pad(key, pad), sp)
+        vf = all_gather_h(F.pad(value, pad), sp)
+        Wp = W + W_pad
+        nj = Wp // W_sp
+
+        def heads_first(t, Hs):  # [B, Hs, Wp, N, C] -> [h, B*nj, Hs*W_sp*N, hd]
+            t = t.reshape(B, Hs, nj, W_sp, N, h, hd)
+            return t.permute(5, 0, 2, 1, 3, 4, 6).reshape(
+                h, B * nj, Hs * W_sp * N, hd).contiguous()
+
+        vs = vf.reshape(B, Hg, nj, W_sp, N, self.dim)
+        vs = vs.permute(0, 2, 4, 5, 1, 3).reshape(B * nj * N, self.dim, Hg, W_sp)
+        rpe = self._positional(vs, B * nj, N)[..., sp.index * H:(sp.index + 1) * H, :]
+        rpe = rpe.permute(0, 3, 4, 1, 2).reshape(B * nj, H * W_sp * N, h, hd)
+
+        Rq = H * W_sp * N
+        mask = torch.as_tensor(stripe_mask(Hg * W_sp * N, N)[
+            sp.index * Rq:(sp.index + 1) * Rq], device=q.device)
+        attend = masked_attention if self.use_kernels else masked_attention_plain
+        out = attend(heads_first(q, H), heads_first(kf, Hg), heads_first(vf, Hg),
+                     mask[None], hd ** -0.5)
+        out = out.permute(1, 2, 0, 3) + rpe.to(out.dtype)  # [B*nj, Rq, h, hd]
+        out = out.reshape(B, nj, H, W_sp, N, self.dim).permute(0, 2, 1, 3, 4, 5)
+        return out.reshape(B, H, Wp, N, self.dim)[:, :, lp:lp + W]
 
 
 class CSWinNMP(nn.Module):
@@ -192,9 +269,10 @@ class CSWinNMP(nn.Module):
 
     def __init__(self, dim, qk_dim, v_dim, num_heads, split_size=7,
                  mlp_ratio=4.0, gelu_approx=False, normalize_before=False,
-                 use_kernels=False, dtype=None):
+                 use_kernels=False, dtype=None, spatial=None):
         super().__init__()
         self.dim, self.v_dim = dim, v_dim
+        self.spatial = spatial
         self.normalize_before = normalize_before
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
@@ -205,7 +283,8 @@ class CSWinNMP(nn.Module):
         half = dim // 2
         self.attns = nn.ModuleList(
             CSWinAttention(half, idx=i, split_size=split_size,
-                           num_heads=num_heads // 2, use_kernels=use_kernels)
+                           num_heads=num_heads // 2, use_kernels=use_kernels,
+                           spatial=spatial)
             for i in range(2))
         self.proj = Linear(dim, dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=GELU(gelu_approx),
@@ -221,7 +300,13 @@ class CSWinNMP(nn.Module):
             if context is not None:
                 context = context.to(self.dtype)
         qk = torch.cat([x, context], dim=-1) if context is not None else x
-        if self.v_dim > self.dim:
+        if self.v_dim > self.dim and self.spatial is not None:
+            # the embedding indexes GLOBAL rows: this tile's rows of the
+            # global grid (nmp.py:737-750)
+            pe = global_fourier_rows(fourier_grid_embed(
+                (H * self.spatial.size, W), self.v_dim - self.dim,
+                dtype=x.dtype, device=x.device), H, self.spatial)
+        elif self.v_dim > self.dim:
             pe = fourier_grid_embed((H, W), self.v_dim - self.dim,
                                     dtype=x.dtype, device=x.device)
             pe = pe[None, :, :, None, :].expand(B, H, W, N, self.v_dim - self.dim)

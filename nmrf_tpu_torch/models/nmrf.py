@@ -4,7 +4,12 @@ deformable neck) -> group-wise cost volume -> DPN
 -> NMRF inference (8x8 sub-patch decode + selection) -> refinement (4x4
 sub-patch residual decode).  Channel-last throughout.  In train mode with
 ``aux_loss`` the output also holds every layer's predictions for the
-per-layer losses."""
+per-layer losses.
+
+With a spatial group (``parallel/spatial.py``) the decode region (cost
+volume through disparity, :meth:`NMRF.decode`) runs on an H tile of the
+features, its collectives in the modules; ``parallel/mesh.py`` runs the
+backbone, cuts the tiles and reassembles the outputs."""
 
 import torch
 from torch import nn
@@ -56,8 +61,10 @@ class NMRF(nn.Module):
                  num_infer_layers=5, num_refine_layers=5,
                  with_refinement=True, normalize_before=True,
                  gelu_approx=False, use_kernels=False, dtype=None,
-                 remat=False, aux_loss=True, return_intermediate=True):
+                 remat=False, aux_loss=True, return_intermediate=True,
+                 spatial=None):
         super().__init__()
+        self.spatial = spatial
         self.aux_loss = aux_loss
         self.num_proposals = num_proposals
         self.max_disp = max_disp
@@ -65,7 +72,8 @@ class NMRF(nn.Module):
         self.with_refinement = with_refinement
         self.divis_by = divis_by
         common = dict(gelu_approx=gelu_approx, normalize_before=normalize_before,
-                      use_kernels=use_kernels, dtype=dtype, remat=remat)
+                      use_kernels=use_kernels, dtype=dtype, remat=remat,
+                      spatial=spatial)
         stage = dict(common, return_intermediate=return_intermediate)
         if backbone_type == "resnet":
             self.backbone = Backbone(backbone_out_channels, dtype=dtype)
@@ -77,8 +85,9 @@ class NMRF(nn.Module):
         else:
             raise ValueError(f"unknown backbone {backbone_type!r}")
         self.concatconv = ConvINReluConv(backbone_out_channels, 128, 64,
-                                         dtype=dtype)
-        self.gw = ConvINReluConv(backbone_out_channels, 128, 256, dtype=dtype)
+                                         dtype=dtype, spatial=spatial)
+        self.gw = ConvINReluConv(backbone_out_channels, 128, 256, dtype=dtype,
+                                 spatial=spatial)
         self.dpn = DPN(cost_group, num_proposals, backbone_out_channels,
                        context_dim, num_prop_layers, prop_embed_dim,
                        mlp_ratio, split_size, prop_n_heads, **common)
@@ -105,13 +114,20 @@ class NMRF(nn.Module):
         coarse_disp_layers and logits_layers [L_i, B, H, W, N] and, with
         refinement, disp_pred_layers [L_r, B, H, W].
         """
+        return self.decode(*self.extract_feature(img1, img2))
+
+    def extract_feature(self, img1, img2):
+        """Both images through the backbone at once: per-image feature lists
+        [1/8, 1/4] (reference ``NMRF.py:172-187``)."""
         B = img1.shape[0]
         feats = self.backbone(torch.cat([img1, img2], dim=0))[::-1]
-        f1 = [f[:B] for f in feats]  # [1/8, 1/4]
-        f2 = [f[B:] for f in feats]
-        return self.decode(f1, f2)
+        return [f[:B] for f in feats], [f[B:] for f in feats]
 
-    def decode(self, f1_list, f2_list):
+    def decode(self, f1_list, f2_list, spatial_out=False):
+        """Cost volume -> DPN -> NMP inference and refinement -> disparity
+        (``nmrf.py:218-299``).  ``spatial_out`` returns prob and the
+        proposals as [B, h8, w8, ...] instead of flat, so that H tiles can
+        be concatenated and flattened globally."""
         B = f1_list[0].shape[0]
         cost_volume = correlation_volume(f1_list[0], f2_list[0],
                                          self.max_disp // 8, self.cost_group)
@@ -149,9 +165,10 @@ class NMRF(nn.Module):
             out["disp_pred"] = disp_pred[-1]
         else:
             out["disp"] = _select_argmax(coarse[-1], logits[-1]) * 8
-        out["prob"] = prob
-        out["proposal"] = labels[-1].reshape(B, -1, self.num_proposals)
-        out["initial_proposal"] = label_seeds.reshape(B, -1,
+        lead = (B, h8, w8) if spatial_out else (B, -1)
+        out["prob"] = prob.reshape(B, h8, w8, -1) if spatial_out else prob
+        out["proposal"] = labels[-1].reshape(*lead, self.num_proposals)
+        out["initial_proposal"] = label_seeds.reshape(*lead,
                                                       self.num_proposals)
         if self.training and self.aux_loss:
             out["coarse_disp_layers"] = coarse

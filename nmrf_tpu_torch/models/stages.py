@@ -9,7 +9,9 @@ of 1; in train mode Inference and Refinement return every layer's
 normalized output, [L, ...], for the per-layer losses (with
 ``return_intermediate``, as the JAX package does).  With ``remat`` each
 layer runs under ``torch.utils.checkpoint`` (the JAX package's
-``TPU.REMAT``): its activations are recomputed in the backward pass.
+``TPU.REMAT``): its activations are recomputed in the backward pass.  With
+a spatial group (``parallel/spatial.py``) the tokens are an H tile of the
+image and the group reaches the attention layers.
 """
 
 import torch
@@ -37,13 +39,14 @@ class PropagationLayer(nn.Module):
 
     def __init__(self, embed_dim, mlp_ratio, context_dim, split_size, n_heads,
                  gelu_approx=False, normalize_before=False, use_kernels=False,
-                 dtype=None):
+                 dtype=None, spatial=None):
         super().__init__()
         self.nmp = CSWinNMP(embed_dim, embed_dim + context_dim, embed_dim,
                             n_heads, split_size=split_size, mlp_ratio=mlp_ratio,
                             gelu_approx=gelu_approx,
                             normalize_before=normalize_before,
-                            use_kernels=use_kernels, dtype=dtype)
+                            use_kernels=use_kernels, dtype=dtype,
+                            spatial=spatial)
 
     def forward(self, tgt, context):
         return self.nmp(tgt, context)
@@ -57,7 +60,7 @@ class Propagation(nn.Module):
     def __init__(self, embed_dim, cost_group, num_layers, mlp_ratio,
                  context_dim, split_size, n_heads, gelu_approx=False,
                  normalize_before=False, use_kernels=False, dtype=None,
-                 remat=False):
+                 remat=False, spatial=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.remat = remat
@@ -71,7 +74,7 @@ class Propagation(nn.Module):
         self.layers = nn.ModuleList(
             PropagationLayer(embed_dim, mlp_ratio, context_dim, split_size,
                              n_heads, gelu_approx, normalize_before,
-                             use_kernels, dtype)
+                             use_kernels, dtype, spatial)
             for _ in range(num_layers))
         self.norm = LayerNorm(embed_dim)
 
@@ -101,14 +104,14 @@ class InferenceLayer(nn.Module):
 
     def __init__(self, embed_dim, mlp_ratio, window_size, n_heads,
                  gelu_approx=False, normalize_before=False, use_kernels=False,
-                 dtype=None):
+                 dtype=None, spatial=None):
         super().__init__()
         self.self_nmp = BasicAttention(embed_dim, ABS_ENCODING_DIM, n_heads,
                                        normalize_before, dtype=dtype)
         self.nmp = SwinNMP(embed_dim, ABS_ENCODING_DIM, n_heads, window_size,
                            mlp_ratio, gelu_approx, normalize_before,
                            candidate_mask=True, use_kernels=use_kernels,
-                           dtype=dtype)
+                           dtype=dtype, spatial=spatial)
 
     def forward(self, tgt, abs_encoding, shift):
         B, H, W, N, C = tgt.shape
@@ -122,12 +125,12 @@ class RefinementLayer(nn.Module):
 
     def __init__(self, embed_dim, mlp_ratio, window_size, n_heads,
                  gelu_approx=False, normalize_before=False, use_kernels=False,
-                 dtype=None):
+                 dtype=None, spatial=None):
         super().__init__()
         self.nmp = SwinNMP(embed_dim, ABS_ENCODING_DIM, n_heads, window_size,
                            mlp_ratio, gelu_approx, normalize_before,
                            candidate_mask=False, use_kernels=use_kernels,
-                           dtype=dtype)
+                           dtype=dtype, spatial=spatial)
 
     def forward(self, tgt, abs_encoding, shift):
         return self.nmp(tgt, abs_encoding, shift)
@@ -142,17 +145,18 @@ class _NMPStage(nn.Module):
     def __init__(self, feat_dim, cost_group, dim, num_layers, mlp_ratio,
                  window_size, n_heads, gelu_approx=False,
                  normalize_before=False, use_kernels=False, dtype=None,
-                 remat=False, return_intermediate=False):
+                 remat=False, return_intermediate=False, spatial=None):
         super().__init__()
         self.cost_group = cost_group
         self.window_size = window_size
+        self.spatial = spatial
         self.remat = remat
         self.return_intermediate = return_intermediate
         self.ffn = Mlp(2 * feat_dim + cost_group, dim, dim,
                        act=GELU(gelu_approx), dtype=dtype)
         self.layers = nn.ModuleList(
             self.layer_cls(dim, mlp_ratio, window_size, n_heads, gelu_approx,
-                           normalize_before, use_kernels, dtype)
+                           normalize_before, use_kernels, dtype, spatial)
             for _ in range(num_layers))
         self.norm = LayerNorm(dim)
 
@@ -179,6 +183,11 @@ class _NMPStage(nn.Module):
         ws = self.window_size
         H_pad = (ws - H % ws) % ws
         W_pad = (ws - W % ws) % ws
+        # an H tile must hold whole windows: padding the global H would
+        # make the tiles unequal (stages.py:335-340)
+        assert self.spatial is None or H_pad == 0, (
+            f"spatial sharding needs the tile height {H} to be a multiple of "
+            f"the window {ws}")
         tp, lp = H_pad // 2, W_pad // 2
         if H_pad or W_pad:
             pad = (0, 0, 0, 0, lp, W_pad - lp, tp, H_pad - tp)

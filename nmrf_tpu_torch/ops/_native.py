@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("window_attention", "stripe_attention", "window_attention_bwd",
-           "stripe_attention_bwd", "msda_taps")
+           "stripe_attention_bwd", "msda_taps", "masked_attention",
+           "masked_attention_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,17 +33,18 @@ _F = ctypes.c_float
 # argument types of each library's single entry point (pointers, dtype code,
 # shape ints, scale, stream)
 _SIGNATURES = {
-    "window_attention": ("nmrf_window_attention",
-                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _F, _P]),
+    "window_attention": ("nmrf_window_attention", [_P] * 3 + [_I] * 13 + [_F, _P]),
     "stripe_attention": ("nmrf_stripe_attention",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P]),
     "window_attention_bwd": ("nmrf_window_attention_bwd",
-                             [_P] * 8 + [_I] * 11 + [_F, _P]),
+                             [_P] * 8 + [_I] * 13 + [_F, _P]),
     "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
                              [_P] * 9 + [_I] * 9 + [_F, _P]),
     "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P]),
+    "masked_attention": ("nmrf_masked_attention", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "masked_attention_bwd": ("nmrf_masked_attention_bwd",
+                             [_P] * 10 + [_I] * 7 + [_F, _P]),
 }
 # dtype codes of the kernels' ``dtype`` argument (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,5 +1,6 @@
 """NMP attention kernels: window attention (K1) and stripe attention (K2),
-and their backwards (K1b, K2b).
+their backwards (K1b, K2b), and rectangular masked attention (B6) with its
+backward (B6b).
 
 Each function here has three parts:
 
@@ -17,9 +18,10 @@ Each function here has three parts:
 
 K1 replaces ``nmrf_tpu/ops/pallas/attention.py:_window_native_kernel_direct``
 (and the transposed ``_window_native_kernel``, the same function), K2
-``_stripe_attention_kernel``, K1b ``_wan_bwd_kernel_direct`` and K2b
-``_stripe_bwd_kernel``.  On CUDA tensors the forward wrappers are
-``torch.autograd.Function``s whose backward is K1b or K2b; on the CPU
+``_stripe_attention_kernel``, K1b ``_wan_bwd_kernel_direct``, K2b
+``_stripe_bwd_kernel``, B6 ``_masked_attention_kernel`` and B6b
+``_masked_attention_bwd_kernel``.  On CUDA tensors the forward wrappers are
+``torch.autograd.Function``s whose backward is K1b, K2b or B6b; on the CPU
 autograd differentiates the plain forward versions.
 """
 
@@ -51,12 +53,13 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
 
 def _wrappers():
     return (window_attention, stripe_attention, window_attention_bwd,
-            stripe_attention_bwd, msda_taps)
+            stripe_attention_bwd, msda_taps, masked_attention,
+            masked_attention_bwd)
 
 
 def reset_launch_counts():
     """Set the launch count of every kernel wrapper of the port to 0 (K1,
-    K2, K1b, K2b here and B5, ``ops/msda.py:msda_taps``)."""
+    K2, K1b, K2b, B6 and B6b here and B5, ``ops/msda.py:msda_taps``)."""
     for fn in _wrappers():
         fn.launches = 0
 
@@ -80,9 +83,15 @@ def _check_tensor(name, t, ndim):
 # --------------------------------------------------------------------------- #
 
 @lru_cache(maxsize=32)
-def _window_mask(Hp, Wp, wh, ww, N, shift, candidate_mask):
+def _window_mask(Hp, Wp, wh, ww, N, shift, candidate_mask, row0=0,
+                 hp_total=None):
     """[nwh*nww, T, T] additive mask of every window, from token coordinates
-    (candidate mask and shifted-region mask, as the kernel builds them)."""
+    (candidate mask and shifted-region mask, as the kernel builds them).
+    Under H-sharding the image is one tile of a taller one: the region rows
+    are global, y = row0 + local y against the global padded height
+    ``hp_total`` (``nmrf_tpu/ops/pallas/attention.py:_shifted_region_mask``);
+    row0 = 0 and hp_total = Hp for a whole image."""
+    hp_total = Hp if hp_total is None else hp_total
     P = wh * ww
     t = np.arange(P * N)
     pix = t // N
@@ -91,9 +100,9 @@ def _window_mask(Hp, Wp, wh, ww, N, shift, candidate_mask):
         same = (pix[:, None] == pix[None, :]) & (t[:, None] != t[None, :])
         mask += np.where(same, NEG_INF, 0.0).astype(np.float32)
     if shift > 0:
-        y = np.arange(Hp // wh)[:, None] * wh + (pix // ww)[None, :]
+        y = row0 + np.arange(Hp // wh)[:, None] * wh + (pix // ww)[None, :]
         x = np.arange(Wp // ww)[:, None] * ww + (pix % ww)[None, :]
-        ry = (y >= Hp - wh).astype(int) + (y >= Hp - shift)
+        ry = (y >= hp_total - wh).astype(int) + (y >= hp_total - shift)
         rx = (x >= Wp - ww).astype(int) + (x >= Wp - shift)
         reg = 3 * ry[:, None, :] + rx[None, :, :]          # [nwh, nww, T]
         diff = reg[..., :, None] != reg[..., None, :]
@@ -101,10 +110,13 @@ def _window_mask(Hp, Wp, wh, ww, N, shift, candidate_mask):
     return mask.reshape(-1, P * N, P * N)
 
 
-def _window_shapes(qkv, rel_table, window, num_heads):
+def _window_shapes(qkv, rel_table, window, num_heads, row0=0, hp_total=None):
     _check_tensor("qkv", qkv, 5)
     B, Hp, Wp, N, C3 = qkv.shape
     wh, ww = window
+    if hp_total is not None and not 0 <= row0 <= hp_total - Hp:
+        raise ValueError(f"rows {row0}..{row0 + Hp} of the tile outside the "
+                         f"global padded height {hp_total}")
     if C3 % (3 * num_heads):
         raise ValueError(f"qkv channels {C3} not divisible by 3*{num_heads}")
     if Hp % wh or Wp % ww:
@@ -153,7 +165,8 @@ def _window_tables(table, window, num_heads):
     return rpe[..., 0, :], rpe[..., 1, :], rpe[..., 2, :]
 
 
-def _window_probs(q, k, qe, ke, shape, window, shift, candidate_mask):
+def _window_probs(q, k, qe, ke, shape, window, shift, candidate_mask, row0,
+                  hp_total):
     """Softmax of the logits [G, h, T, T]: scaled q.k, the positional terms
     qr[i, pix(j)] + kr[j, pix(i)] and the masks."""
     B, Hp, Wp, N = shape
@@ -167,21 +180,23 @@ def _window_probs(q, k, qe, ke, shape, window, shift, candidate_mask):
     kr = torch.einsum("ghsmc,pshc->ghpsm", k5, qe) * scale
     logits = logits.reshape(G, h, P, N, P, N) + qr[..., None] + kr[:, :, :, None]
     mask = torch.as_tensor(
-        _window_mask(Hp, Wp, *window, N, int(shift), bool(candidate_mask)),
+        _window_mask(Hp, Wp, *window, N, int(shift), bool(candidate_mask),
+                     int(row0), None if hp_total is None else int(hp_total)),
         device=q.device)
     logits = logits.reshape(B, -1, h, T, T) + mask[None, :, None]
     return torch.softmax(logits.reshape(G, h, T, T), dim=-1)
 
 
 def window_attention_plain(qkv, rel_table, shift, window, num_heads,
-                           candidate_mask):
+                           candidate_mask, row0=0, hp_total=None):
     """Plain PyTorch version of :func:`window_attention` (f32 math)."""
-    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads, row0,
+                                     hp_total)
     q, k, v = _window_split(qkv, window, num_heads, 3)
     qe, ke, ve = _window_tables(rel_table.to(qkv.dtype).float(), window,
                                 num_heads)
     attn = _window_probs(q, k, qe, ke, (B, Hp, Wp, N), window, shift,
-                         candidate_mask)
+                         candidate_mask, row0, hp_total)
     G, h, T, hd = q.shape
     P = T // N
     out = torch.einsum("ghij,ghjc->ghic", attn, v)
@@ -225,17 +240,18 @@ def _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, num_heads):
 
 
 def window_attention_bwd_plain(g, qkv, rel_table, shift, window, num_heads,
-                               candidate_mask):
+                               candidate_mask, row0=0, hp_total=None):
     """Plain PyTorch version of :func:`window_attention_bwd` (f32 math, the
     softmax backward written out as in ``_bwd_head_core``)."""
-    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads, row0,
+                                     hp_total)
     h = num_heads
     q, k, v = _window_split(qkv, window, h, 3)
     (gw,) = _window_split(g, window, h, 1)
     table = rel_table.detach().to(qkv.dtype).float()
     qe, ke, ve = _window_tables(table, window, h)
     attn = _window_probs(q, k, qe, ke, (B, Hp, Wp, N), window, shift,
-                         candidate_mask)
+                         candidate_mask, row0, hp_total)
     G, _, T, hd = q.shape
     P = T // N
     # dP = g.v^T + gve[i, pix(j)], gve[i, s] = g_i . ve[pix(i), s]
@@ -271,7 +287,7 @@ def _window_kernel_checks(kernel, qkv, rel_table, shift, window, num_heads):
 
 
 def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
-                             candidate_mask):
+                             candidate_mask, row0, hp_total):
     B, Hp, Wp, N, C = qkv.shape[:4] + (qkv.shape[4] // 3,)
     wh, ww = window
     table = rel_table.detach().to(qkv.dtype).float().contiguous()
@@ -279,7 +295,8 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
     err = _native.library("window_attention")(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
-        int(shift), int(bool(candidate_mask)), (C // num_heads) ** -0.5,
+        int(shift), int(bool(candidate_mask)), int(row0),
+        Hp if hp_total is None else int(hp_total), (C // num_heads) ** -0.5,
         _native.stream())
     _native.check_launch("window_attention", err)
     window_attention.launches += 1
@@ -290,20 +307,23 @@ class _WindowAttentionFn(torch.autograd.Function):
     """K1 forward, K1b backward."""
 
     @staticmethod
-    def forward(ctx, qkv, rel_table, shift, window, num_heads, candidate_mask):
+    def forward(ctx, qkv, rel_table, shift, window, num_heads, candidate_mask,
+                row0, hp_total):
         ctx.save_for_backward(qkv, rel_table)
-        ctx.args = (shift, window, num_heads, candidate_mask)
+        ctx.args = (shift, window, num_heads, candidate_mask, row0, hp_total)
         return _window_attention_launch(qkv, rel_table, shift, window,
-                                        num_heads, candidate_mask)
+                                        num_heads, candidate_mask, row0,
+                                        hp_total)
 
     @staticmethod
     def backward(ctx, g):
         qkv, rel_table = ctx.saved_tensors
         dqkv, d_table = window_attention_bwd(g, qkv, rel_table, *ctx.args)
-        return dqkv, d_table.to(rel_table.dtype), None, None, None, None
+        return (dqkv, d_table.to(rel_table.dtype)) + (None,) * 6
 
 
-def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask):
+def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask,
+                     row0=0, hp_total=None):
     """Windowed NMP attention of one (already rolled and padded) layer input.
 
     qkv: [B, Hp, Wp, N, 3C], channels in (component, head, hd) order.
@@ -312,34 +332,40 @@ def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask):
       package rounds it, then used in f32.
     shift: the layer's cyclic shift (0 or wh//2); > 0 adds the shifted-
       region mask.  candidate_mask: block other candidates of a pixel.
+    row0, hp_total: under H-sharding qkv is one tile of the image; the
+      shifted-region mask then takes the global row row0 + y of local row
+      y against the global padded height hp_total (default: 0 and Hp).
     Returns [B, Hp, Wp, N, C] in qkv's dtype.  Differentiable in qkv and
     rel_table (on CUDA through :func:`window_attention_bwd`).
     """
-    _window_shapes(qkv, rel_table, window, num_heads)
+    _window_shapes(qkv, rel_table, window, num_heads, row0, hp_total)
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, rel_table, shift, window,
-                                      num_heads, candidate_mask)
+                                      num_heads, candidate_mask, row0,
+                                      hp_total)
     _window_kernel_checks("window_attention", qkv, rel_table, shift, window,
                           num_heads)
     return _WindowAttentionFn.apply(qkv, rel_table, shift, window, num_heads,
-                                    candidate_mask)
+                                    candidate_mask, row0, hp_total)
 
 
 def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
-                         candidate_mask):
+                         candidate_mask, row0=0, hp_total=None):
     """Gradients of :func:`window_attention` given g = dL/dout
     [B, Hp, Wp, N, C]: (d(qkv) in qkv's dtype, d(rel_table) f32).
 
     On CUDA tensors one launch of K1b (the softmax backward, dqr/dkr and
     the d(ve) reduction, ``csrc/window_attention_bwd.cu``), then the
     positional products of :func:`_window_bwd_finish`."""
-    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads)
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads, row0,
+                                     hp_total)
     if tuple(g.shape) != (B, Hp, Wp, N, C):
         raise ValueError(f"g shape {tuple(g.shape)}, expected "
                          f"{(B, Hp, Wp, N, C)}")
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(g, qkv, rel_table, shift, window,
-                                          num_heads, candidate_mask)
+                                          num_heads, candidate_mask, row0,
+                                          hp_total)
     _window_kernel_checks("window_attention_bwd", qkv, rel_table, shift,
                           window, num_heads)
     if g.device != qkv.device:
@@ -360,7 +386,9 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
         qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         dqr.data_ptr(), dkr.data_ptr(), mass.data_ptr(), dve.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h, wh, ww, int(shift),
-        int(bool(candidate_mask)), (C // h) ** -0.5, _native.stream())
+        int(bool(candidate_mask)), int(row0),
+        Hp if hp_total is None else int(hp_total), (C // h) ** -0.5,
+        _native.stream())
     _native.check_launch("window_attention_bwd", err)
     window_attention_bwd.launches += 1
     return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
@@ -533,3 +561,140 @@ def stripe_attention_bwd(g, q, k, v, H_sp, W_sp, num_heads):
 
 stripe_attention.launches = 0
 stripe_attention_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# B6 / B6b: rectangular masked attention (H-sharded CSWin vertical stripe)
+# --------------------------------------------------------------------------- #
+
+def _masked_shapes(q, k, v, mask):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, t, 4)
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}: expected [h, G, Rq, hd] and "
+                         "[h, G, Rk, hd]")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must have one dtype")
+    h, G, Rq, hd = q.shape
+    Rk = k.shape[2]
+    if mask.dim() != 3 or mask.shape[1:] != (Rq, Rk) \
+            or mask.shape[0] not in (1, G):
+        raise ValueError(f"mask {tuple(mask.shape)}: expected [Gm, {Rq}, "
+                         f"{Rk}] with Gm in (1, {G})")
+    return h, G, Rq, Rk, hd
+
+
+def _masked_probs(qs, k, mask):
+    """Softmax of q.k + mask over the keys, q pre-scaled: [h, G, Rq, Rk]."""
+    return torch.softmax(qs @ k.transpose(-1, -2) + mask.float()[None], dim=-1)
+
+
+def masked_attention_plain(q, k, v, mask, scale):
+    """Plain PyTorch version of :func:`masked_attention` (f32 math), from
+    ``masked_attention_reference`` (``attention.py:111-122``)."""
+    _masked_shapes(q, k, v, mask)
+    attn = _masked_probs(q.float() * scale, k.float(), mask)
+    return (attn @ v.float()).to(q.dtype)
+
+
+def masked_attention_bwd_plain(g, q, k, v, mask, scale):
+    """Plain PyTorch version of :func:`masked_attention_bwd` (f32 math, the
+    softmax backward written out as in ``_masked_attention_bwd_kernel``,
+    ``attention.py:135-157``: the scale enters dq, and dk through the
+    pre-scaled q)."""
+    _masked_shapes(q, k, v, mask)
+    qs, kf, vf, gf = q.float() * scale, k.float(), v.float(), g.float()
+    attn = _masked_probs(qs, kf, mask)
+    dattn = gf @ vf.transpose(-1, -2)
+    dS = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    return ((dS @ kf * scale).to(q.dtype),
+            (dS.transpose(-1, -2) @ qs).to(k.dtype),
+            (attn.transpose(-1, -2) @ gf).to(v.dtype))
+
+
+def _masked_kernel_checks(kernel, tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel}: inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel}: inputs must be contiguous")
+    hd = tensors[0].shape[-1]
+    if hd not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {hd}")
+
+
+def _masked_attention_launch(q, k, v, mask, scale):
+    h, G, Rq, Rk, hd = _masked_shapes(q, k, v, mask)
+    mask = mask.float().contiguous()
+    _masked_kernel_checks("masked_attention", (q, k, v, mask))
+    out = torch.empty_like(q)
+    err = _native.library("masked_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], G, mask.shape[0], h, Rq, Rk,
+        hd, float(scale), _native.stream())
+    _native.check_launch("masked_attention", err)
+    masked_attention.launches += 1
+    return out
+
+
+class _MaskedAttentionFn(torch.autograd.Function):
+    """B6 forward, B6b backward (the mask takes no gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        return _masked_attention_launch(q, k, v, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        return masked_attention_bwd(g, q, k, v, mask, ctx.scale) + (None, None)
+
+
+def masked_attention(q, k, v, mask, scale):
+    """``softmax(q k^T * scale + mask) v`` with Rq query and Rk key rows.
+
+    q: [h, G, Rq, hd]; k, v: [h, G, Rk, hd]; mask: [Gm, Rq, Rk] additive
+    f32 with Gm in {1, G} (Gm = 1 broadcasts).  Returns [h, G, Rq, hd] in
+    q's dtype.  Differentiable in q, k and v (on CUDA through
+    :func:`masked_attention_bwd`).
+    """
+    _masked_shapes(q, k, v, mask)
+    if all(t.device.type == "cpu" for t in (q, k, v, mask)):
+        return masked_attention_plain(q, k, v, mask, scale)
+    return _MaskedAttentionFn.apply(q, k, v, mask, scale)
+
+
+def masked_attention_bwd(g, q, k, v, mask, scale):
+    """Gradients (dq, dk, dv) of :func:`masked_attention` given
+    g = dL/dout, in the inputs' dtype.  On CUDA tensors one launch of B6b
+    (``csrc/masked_attention_bwd.cu``: a query-side and a key-side
+    kernel)."""
+    h, G, Rq, Rk, hd = _masked_shapes(q, k, v, mask)
+    if g.shape != q.shape:
+        raise ValueError(f"g shape {tuple(g.shape)}, expected {tuple(q.shape)}")
+    if all(t.device.type == "cpu" for t in (g, q, k, v, mask)):
+        return masked_attention_bwd_plain(g, q, k, v, mask, scale)
+    g = g.to(q.dtype).contiguous()
+    mask = mask.float().contiguous()
+    _masked_kernel_checks("masked_attention_bwd", (q, k, v, g, mask))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse, dsum = (torch.empty((h, G, Rq), dtype=torch.float32, device=q.device)
+                 for _ in range(2))
+    err = _native.library("masked_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), _DTYPE_CODES[q.dtype], G,
+        mask.shape[0], h, Rq, Rk, hd, float(scale), _native.stream())
+    _native.check_launch("masked_attention_bwd", err)
+    masked_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+masked_attention.launches = 0
+masked_attention_bwd.launches = 0

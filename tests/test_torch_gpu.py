@@ -10,7 +10,10 @@ the output).  The backward kernels are held against autograd through the
 plain forward versions; their bf16 d(qkv) is one bf16 rounding of sums of
 up to T products of magnitude about 1 and gets atol 5e-2, rtol 2e-2.
 The tap-MSDA kernel (B5) is held against its plain version, the dense tap
-sum, at the forward tolerances.
+sum, at the forward tolerances.  The masked attention B6 and its backward
+B6b, and K1/K1b on a tile's row offset, are held at the same tolerances;
+the sharded path runs on a 1 x 2 grid with both ranks on the card (gloo)
+and, given four cards, on a 2 x 2 grid over NCCL.
 """
 
 from pathlib import Path
@@ -138,7 +141,8 @@ def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
     A.window_attention(qkv, table, 0, (4, 4), 4, False).square().sum().backward()
     after = A.launch_counts()
     assert {k: after[k] - counts[k] for k in after} == dict(
-        dict.fromkeys(after, 1), msda_taps=0)
+        dict.fromkeys(after, 1), msda_taps=0, masked_attention=0,
+        masked_attention_bwd=0)
     q2 = q.detach().clone().requires_grad_()
     A.stripe_attention_plain(q2, q2, q2, 4, 1, 2).square().sum().backward()
     torch.testing.assert_close(q.grad, q2.grad, atol=1e-4, rtol=1e-4)
@@ -173,7 +177,8 @@ def test_train_steps_through_kernels_match_plain(cuda):
         losses[use_kernels] = [step(batch) for _ in range(2)]
         want = 2 * 4 if use_kernels else 0
         assert A.launch_counts() == dict(dict.fromkeys(A.launch_counts(), want),
-                                         msda_taps=0)
+                                         msda_taps=0, masked_attention=0,
+                                         masked_attention_bwd=0)
     for got, ref in zip(losses[True], losses[False]):
         for key, value in ref.items():
             assert torch.isfinite(got[key])
@@ -230,7 +235,219 @@ def test_swin_forward_through_kernels_matches_plain(cuda):
                                      "stripe_attention": want,
                                      "window_attention_bwd": 0,
                                      "stripe_attention_bwd": 0,
-                                     "msda_taps": want}
+                                     "msda_taps": want,
+                                     "masked_attention": 0,
+                                     "masked_attention_bwd": 0}
     for key in ("prob", "proposal", "initial_proposal"):
         torch.testing.assert_close(outs[True][key], outs[False][key],
                                    atol=2e-4, rtol=1e-3)
+
+
+# ---- the H-sharded path: B6, B6b, K1/K1b at a tile's row offset ---- #
+
+def _stripe_tile_mask(tile, device):
+    """Tile `tile`'s rows of the global anti-same-pixel mask of a 48-row
+    vertical stripe split over 2 tiles (Rq 96, Rk 192), as [1, Rq, Rk]."""
+    return torch.as_tensor(A.stripe_mask(192, 4)[tile * 96:(tile + 1) * 96],
+                           device=device)[None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["tile0", "tile1", "per-group"])
+def test_masked_kernels_match_plain(cuda, dtype, mask_kind):
+    """B6 against its plain version and B6b against autograd through it, at
+    the sharded path's shape (2 heads of 32, Rq 96, Rk 192, G 156)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    G = 156
+    q, gout = (torch.randn(2, G, 96, 32, generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(2, G, 192, 32, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    if mask_kind == "per-group":
+        mask = torch.randn(G, 96, 192, generator=g, device=cuda)
+    else:
+        mask = _stripe_tile_mask(int(mask_kind[-1]), cuda)
+    scale = 32 ** -0.5
+    before = A.launch_counts()
+    with torch.inference_mode():
+        got = A.masked_attention(q, k, v, mask, scale)
+        want = A.masked_attention_plain(q, k, v, mask, scale)
+    dgot = A.masked_attention_bwd(gout, q, k, v, mask, scale)
+    after = A.launch_counts()
+    assert after["masked_attention"] == before["masked_attention"] + 1
+    assert after["masked_attention_bwd"] == before["masked_attention_bwd"] + 1
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    dwant = torch.autograd.grad(A.masked_attention_plain(*qkv, mask, scale),
+                                qkv, gout)
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for a, b in zip(dgot, dwant):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(24, 96, 4, 6, 3, True, 24, 48),
+                                  (24, 96, 4, 6, 3, True, 0, 48),
+                                  (48, 192, 1, 4, 2, False, 48, 96)])
+def test_window_kernels_at_a_tile_match_plain(cuda, dtype, case):
+    """K1 and K1b on an H tile (rows row0.. of an image of hp_total rows:
+    the shifted-region mask in global rows) against their plain versions."""
+    Hp, Wp, N, ws, shift, cand, row0, hp_total = case
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn(2, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(2, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
+    args = (qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
+    with torch.inference_mode():
+        got = A.window_attention(*args)
+        want = A.window_attention_plain(*args)
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    dgot = A.window_attention_bwd(gout, *args)
+    dwant = A.window_attention_bwd_plain(gout, *args)
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for a, b in zip(dgot, dwant):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+def _gloo_cuda_worker(rank, out_dir):
+    """Which collectives gloo runs on CUDA tensors itself, and the port's
+    collective layer on the card."""
+    import json
+
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 2, backend="gloo")
+    x = torch.full((4,), float(rank + 1), device=mesh.device)
+    native = {}
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x),
+    }
+    for name, probe in probes.items():
+        try:  # a probe of gloo itself, not a path of the port
+            probe()
+            torch.cuda.synchronize()
+            native[name] = True
+        except RuntimeError as err:
+            native[name] = str(err).splitlines()[0]
+    group = mesh.spatial_group
+    gathered = [t.tolist() for t in group.all_gather(x)]
+    reduced = group.all_reduce(x).tolist()
+    with open(f"{out_dir}/gloo_{rank}.json", "w") as f:
+        json.dump({"native": native, "gathered": gathered, "reduced": reduced}, f)
+
+
+@pytest.mark.gpu
+def test_gloo_collectives_on_cuda(cuda, tmp_path):
+    """gloo runs all_reduce, broadcast and all_gather on CUDA tensors itself
+    (so the collective layer copies nothing to the host), and the layer
+    gives the right results on the card (two ranks on one card)."""
+    import json
+
+    from nmrf_tpu_torch.parallel import spawn
+
+    spawn(_gloo_cuda_worker, 2, "gloo", args=(str(tmp_path),), timeout_s=120)
+    for rank in range(2):
+        got = json.loads((tmp_path / f"gloo_{rank}.json").read_text())
+        print(rank, got["native"])
+        assert got["native"] == dict.fromkeys(
+            ("all_reduce", "broadcast", "all_gather"), True)
+        assert got["gathered"] == [[1.0] * 4, [2.0] * 4]
+        assert got["reduced"] == [3.0] * 4
+
+
+def _sharded_small_worker(rank, out_dir, data, spatial):
+    """A 2-layer model at 96x64, batch 2, through the kernels on a data x
+    spatial grid: eval outputs and one step's loss, with the launch counts,
+    against the unsharded model on rank 0."""
+    import json
+
+    from nmrf_tpu_torch.parallel import (make_mesh, make_sharded_forward,
+                                         shard_batch, spatial_sharded_apply)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_cfg()
+    cfg.NMP.NUM_PROP_LAYERS = cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    cfg.SOLVER.LOSS_WEIGHTS = [1.0, 1.2, 1.4, 2.0]
+    cfg.DPN.MAX_DISP = 64
+    cfg.SOLVER.MAX_DISP = 48
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_SPATIAL = data, spatial
+    mesh = make_mesh(data, spatial)
+    model = build_model(cfg, mesh=mesh)
+    batch = synthetic_batch(2, 96, 64, 48, seed=0)
+    img1, img2 = (torch.from_numpy(batch[k]).to(mesh.device) for k in ("img1", "img2"))
+    A.reset_launch_counts()
+    got = make_sharded_forward(model, mesh)(img1, img2)
+    fwd_counts = A.launch_counts()
+    model.train()
+    local = shard_batch(batch, mesh)
+    A.reset_launch_counts()
+    loss = build_criterion(cfg)(spatial_sharded_apply(
+        model, mesh, local["img1"], local["img2"]), local)["total"]
+    loss.backward()
+    step_counts = A.launch_counts()
+    result = {"fwd": fwd_counts, "step": step_counts, "loss": float(loss.detach())}
+    if rank == 0:
+        ref = build_model(cfg, device=mesh.device)
+        with torch.inference_mode():
+            want = ref(img1, img2)
+        result["err"] = {k: (got[k].float() - want[k].float()).abs().max().item()
+                         for k in ("prob", "proposal", "initial_proposal")}
+        ref.train()
+        tb = {k: torch.from_numpy(v).to(mesh.device) for k, v in batch.items()}
+        result["ref_loss"] = float(build_criterion(cfg)(ref(tb["img1"], tb["img2"]),
+                                                        tb)["total"].detach())
+    with open(f"{out_dir}/sharded_{rank}.json", "w") as f:
+        json.dump(result, f)
+
+
+def _check_sharded_small(tmp_path, world):
+    """Per rank 4 K1, 2 K2 and 2 B6 per forward, 4 K1b, 2 K2b and 2 B6b per
+    backward; the outputs and the loss of the unsharded model."""
+    import json
+
+    fwd = dict.fromkeys(A.launch_counts(), 0)
+    fwd.update(window_attention=4, stripe_attention=2, masked_attention=2)
+    step = dict(fwd, window_attention_bwd=4, stripe_attention_bwd=2,
+                masked_attention_bwd=2)
+    results = [json.loads((tmp_path / f"sharded_{r}.json").read_text())
+               for r in range(world)]
+    for res in results:
+        assert res["fwd"] == fwd and res["step"] == step
+    assert max(results[0]["err"].values()) < 1e-3, results[0]["err"]
+    assert results[0]["loss"] == pytest.approx(results[0]["ref_loss"], rel=1e-4)
+    for res in results[1:]:
+        assert res["loss"] == results[0]["loss"]
+
+
+@pytest.mark.gpu
+def test_sharded_forward_and_step_on_one_card(cuda, tmp_path):
+    """The 1 x 2 sharded path with both ranks on one card (gloo: NCCL
+    refuses two ranks on one device) equals the unsharded model."""
+    from nmrf_tpu_torch.parallel import spawn
+
+    spawn(_sharded_small_worker, 2, "gloo", args=(str(tmp_path), 1, 2),
+          timeout_s=300)
+    _check_sharded_small(tmp_path, 2)
+
+
+@pytest.mark.gpu
+def test_sharded_nccl_one_card_per_rank(cuda, tmp_path):
+    """The 2 x 2 grid (data and spatial axes) over NCCL, a card per rank,
+    equals the unsharded model.  Needs four cards."""
+    from nmrf_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (a card per rank of a 2 x 2 grid)")
+    spawn(_sharded_small_worker, 4, "nccl", args=(str(tmp_path), 2, 2),
+          timeout_s=300)
+    _check_sharded_small(tmp_path, 4)

@@ -13,7 +13,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nmrf_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "nmrf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # with the bodies of the CPU tests' spawned processes, which run the
+    # port alone
+    return sorted((ROOT / "nmrf_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_spatial_workers.py"]
 
 
 def _imported_roots(path):
@@ -37,7 +40,8 @@ def test_import_leaves_jax_unloaded():
             "nmrf_tpu_torch.ops, nmrf_tpu_torch.utils.convert, "
             "nmrf_tpu_torch.solver, nmrf_tpu_torch.data, "
             "nmrf_tpu_torch.ops.msda, nmrf_tpu_torch.models.swin, "
-            "nmrf_tpu_torch.models.adaptor; "
+            "nmrf_tpu_torch.models.adaptor, nmrf_tpu_torch.parallel, "
+            "nmrf_tpu_torch.parallel.mesh, nmrf_tpu_torch.parallel.spatial; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'nmrf_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,

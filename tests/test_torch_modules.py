@@ -137,8 +137,13 @@ def test_cpu_wrappers_do_not_count_launches():
     attn_ops.window_attention(qkv, table, 2, (4, 4), 2, False)
     q = torch.from_numpy(_rand(rng, 1, 4, 6, 2, 8))
     attn_ops.stripe_attention(q, q, q, 4, 1, 2)
+    qh, kh = torch.from_numpy(_rand(rng, 2, 3, 4, 8)), torch.from_numpy(
+        _rand(rng, 2, 3, 6, 8))
+    attn_ops.masked_attention(qh, kh, kh, torch.zeros(1, 4, 6), 0.5)
     assert attn_ops.launch_counts() == {"window_attention": 0,
                                         "stripe_attention": 0,
                                         "window_attention_bwd": 0,
                                         "stripe_attention_bwd": 0,
-                                        "msda_taps": 0}
+                                        "msda_taps": 0,
+                                        "masked_attention": 0,
+                                        "masked_attention_bwd": 0}
