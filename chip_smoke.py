@@ -10,9 +10,12 @@ Phases (any failure exits non-zero before the last line is printed):
    source, in parallel) into ``nmrf_tpu_torch/_build``;
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, in float32 (TF32 off) and bfloat16: the forward
-   kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b
-   and K2b at the training shapes (batch 1, and bf16 at the training batch
-   of 8) and the KITTI shapes;
+   kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b,
+   K2b and B7 (the fully fused window backward of the NMRF_FUSED_POS=1
+   training path) at the training shapes (batch 1, and bf16 at the
+   training batch of 8) and the KITTI shapes; B7 also against K1b on the
+   same f32 inputs (the same function), and two B7 launches on the same
+   inputs must give the same bits;
    The tap-MSDA kernel B5 is held against its plain version at the four
    extractor shapes of a swin KITTI request, and once with samples beyond
    its radius and past the borders;
@@ -25,17 +28,20 @@ Phases (any failure exits non-zero before the last line is printed):
    same forward on the kernels' plain versions;
 4. hold the float32 gradients of the Propagation, Inference and Refinement
    stages (full width, training shape, batch 1) through the kernels against
-   the same stages on the plain versions;
+   the same stages on the plain versions, and those of the Inference and
+   Refinement stages again with NMRF_FUSED_POS=1 (K1 and B7);
 5. drive the training path: the default-config model at full width and
    depth (bf16) takes one warm-up and 10 timed training steps at crop
    384x768, batch 8, on a fixed batch of synthetic pairs (disparities up to
    192 on whole 1/8-resolution bins), with every launch counter read around
-   the timed steps, and its loss must fall;
+   the timed steps, and its loss must fall; then the same config, batch
+   and seed again with NMRF_FUSED_POS=1 (B7 in place of K1b), its step
+   time and peak memory beside the first run's;
 6. time each kernel beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, its backward for K1b,
-   K2b and B6b; ``grid_sample`` for B5) at the same shapes, and break a
-   request of each model and a training step down by device kernel with
-   ``torch.profiler``;
+   B7, K2b and B6b; ``grid_sample`` for B5) at the same shapes, and break a
+   request of each model, a training step and a NMRF_FUSED_POS=1 training
+   step down by device kernel with ``torch.profiler``;
 7. drive the H-sharded path: two processes on the one card (a 1 x 2
    (data, spatial) grid over gloo, ``nmrf_tpu_torch.parallel``) serve 4
    KITTI pairs padded to 384x1248 through ``make_sharded_forward`` (bf16,
@@ -45,14 +51,16 @@ Phases (any failure exits non-zero before the last line is printed):
    (warm-up, profiled, timed; bf16), with the launch counters of each rank
    read around the timed requests and steps; rank 0 profiles a request
    and a step.  Phase 2 also holds the rectangular masked attention B6
-   and its backward B6b, and K1/K1b at a tile's row offset, against their
-   plain versions.
+   and its backward B6b, and K1/K1b/B7 at a tile's row offset, against
+   their plain versions.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -81,6 +89,7 @@ REPLACES = {
     "msda_taps": "nmrf_tpu/ops/pallas/msda.py:93",
     "masked_attention": "nmrf_tpu/ops/pallas/attention.py:59",
     "masked_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:135",
+    "window_attention_pos_bwd": "nmrf_tpu/ops/pallas/attention.py:1210",
 }
 
 
@@ -90,6 +99,17 @@ def log(*args):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def fused_pos():
+    """NMRF_FUSED_POS=1 inside the block: the window layers' backward is B7
+    instead of K1b (``main`` clears the variable at the start)."""
+    os.environ["NMRF_FUSED_POS"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["NMRF_FUSED_POS"]
 
 
 def gpu_identity():
@@ -182,7 +202,10 @@ def window_bound(B, Hp, Wp, N, ws, C, heads, backward=False):
     d(qkv) written, the f32 table read and d(table) written once; the five
     T x T products (q.k and g.v recomputed, dq, dk, dv: 2.5x the forward's
     two) and eight T x P products (qr, kr and g.ve recomputed, the
-    positional halves of dq and dk, the q, k and v table gradients)."""
+    positional halves of dq and dk, the q, k and v table gradients).  That
+    is the fully fused backward's (B7's) bound, which K1b's row shares: K1b
+    also moves its f32 dqr, dkr and mass buffers ([G, h, T, P] each) out
+    and back in, beyond it."""
     T, P = ws * ws * N, ws * ws
     nwin = B * (Hp // ws) * (Wp // ws)
     hd = C // heads
@@ -206,6 +229,22 @@ def stripe_bound(B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=False):
     nbytes = B * Hp * Wp * N * (7 if backward else 4) * C * 2
     ops = nstripes * heads * (10 if backward else 4) * T * T * (C // heads)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+
+
+def check_bwd(name, got, want, dtype_name):
+    """check_close of a window backward's (d(qkv), d(table)) at TOL_BWD;
+    returns the larger error."""
+    return max(check_close(f"{name} d{n}", a, b, dtype_name, TOL_BWD)
+               for n, a, b in zip(("qkv", "table"), got, want))
+
+
+def check_repeat(name, first, second):
+    """Two launches on the same inputs must give the same bits."""
+    import torch
+
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            fail(f"{name}: two launches on the same inputs differ")
 
 
 def check_close(name, got, want, dtype_name, tol=TOL):
@@ -341,11 +380,9 @@ def bwd_kernel_phase(gen):
                     cand)
             got = A.window_attention_bwd(*args)
             torch.cuda.synchronize()
-            want = A.window_attention_bwd_plain(*args)
-            entry[f"max_abs_err_{dtype_name}"] = max(
-                check_close(f"window_attention_bwd {label} d{name}", a, b,
-                            dtype_name, TOL_BWD)
-                for name, a, b in zip(("qkv", "table"), got, want))
+            entry[f"max_abs_err_{dtype_name}"] = check_bwd(
+                f"window_attention_bwd {label}", got,
+                A.window_attention_bwd_plain(*args), dtype_name)
         if timed:
             B = TRAIN_BATCH
             qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
@@ -355,12 +392,10 @@ def bwd_kernel_phase(gen):
             args = (g, qkv, table, shift, (ws, ws), heads, cand)
             got = A.window_attention_bwd(*args)
             torch.cuda.synchronize()
-            want = A.window_attention_bwd_plain(*args)
-            entry["max_abs_err_bfloat16_batch8"] = max(
-                check_close(f"window_attention_bwd {label} batch {B} d{name}",
-                            a, b, "bfloat16", TOL_BWD)
-                for name, a, b in zip(("qkv", "table"), got, want))
-            del got, want
+            entry["max_abs_err_bfloat16_batch8"] = check_bwd(
+                f"window_attention_bwd {label} batch {B}", got,
+                A.window_attention_bwd_plain(*args), "bfloat16")
+            del got
             entry["ms"] = cuda_ms(lambda: A.window_attention_bwd(*args), 10)
             entry["plain_ms"] = cuda_ms(
                 lambda: A.window_attention_bwd_plain(*args), 3, warmup=1)
@@ -417,6 +452,75 @@ def bwd_kernel_phase(gen):
         results["stripe_attention_bwd"].append(entry)
         log(f"kernel stripe_attention_bwd {label}: " + json.dumps(entry))
     return results
+
+
+def pos_bwd_kernel_phase(gen):
+    """Phase 2 for B7, the fully fused window backward of the
+    NMRF_FUSED_POS=1 training path: against its plain version in f32 and
+    bf16 at batch 1 on the training and the KITTI shapes, and in bf16 at
+    batch TRAIN_BATCH on the training shapes; against K1b on the same f32
+    inputs (the same function, at TOL_BWD's f32 1e-4); two launches on the
+    same inputs give the same bits (f32 at batch 1, bf16 at TRAIN_BATCH).
+    Its timings of phase 6 as K1b's: the batch-TRAIN_BATCH inputs, SDPA's
+    backward with an additive mask as the yardstick, the bound of
+    ``window_bound(..., backward=True)``."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    entries = []
+    C, heads = 128, 4
+    cases = [c + (True,) for c in TRAIN_WINDOW_CASES] \
+        + [c + (False,) for c in WINDOW_CASES]
+    for label, Hp, Wp, N, ws, shift, cand, count, timed in cases:
+        name = f"window_attention_pos_bwd {label}"
+        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                  device=dev)
+        qkv32 = torch.randn(1, Hp, Wp, N, 3 * C, generator=gen, device=dev)
+        g32 = torch.randn(1, Hp, Wp, N, C, generator=gen, device=dev)
+        entry = {"shape": label, "count": count if timed else 0}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            args = (g32.to(dt), qkv32.to(dt), table, shift, (ws, ws), heads,
+                    cand)
+            got = A.window_attention_pos_bwd(*args)
+            torch.cuda.synchronize()
+            entry[f"max_abs_err_{dtype_name}"] = check_bwd(
+                name, got, A.window_attention_pos_bwd_plain(*args), dtype_name)
+            if dtype_name == "float32":
+                entry["max_abs_err_vs_k1b_float32"] = check_bwd(
+                    f"{name} vs K1b", got, A.window_attention_bwd(*args),
+                    "float32")
+                check_repeat(name, got, A.window_attention_pos_bwd(*args))
+        if timed:
+            B = TRAIN_BATCH
+            qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
+                              dtype=torch.bfloat16)
+            g = torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            args = (g, qkv, table, shift, (ws, ws), heads, cand)
+            got = A.window_attention_pos_bwd(*args)
+            torch.cuda.synchronize()
+            entry["max_abs_err_bfloat16_batch8"] = check_bwd(
+                f"{name} batch {B}", got, A.window_attention_pos_bwd_plain(*args),
+                "bfloat16")
+            check_repeat(f"{name} batch {B}", got,
+                         A.window_attention_pos_bwd(*args))
+            del got
+            entry["ms"] = cuda_ms(lambda: A.window_attention_pos_bwd(*args), 10)
+            entry["plain_ms"] = cuda_ms(
+                lambda: A.window_attention_pos_bwd_plain(*args), 3, warmup=1)
+            T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
+            bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+            entry["library_ms"] = sdpa_backward_ms(gen, G, heads, T, C // heads,
+                                                   bias)
+            entry["bytes_ms"], entry["ops_ms"] = window_bound(
+                B, Hp, Wp, N, ws, C, heads, backward=True)
+        entries.append(entry)
+        log(f"kernel window_attention_pos_bwd {label}: " + json.dumps(entry))
+    return {"window_attention_pos_bwd": entries}
 
 
 def msda_phase(gen):
@@ -596,24 +700,24 @@ def masked_phase(gen):
 
 
 def row0_phase(gen):
-    """Phase 2: K1 and K1b on a tile of a taller image (row0 > 0 or
+    """Phase 2: K1, K1b and B7 on a tile of a taller image (row0 > 0 or
     hp_total > Hp, the shifted-region mask in global rows) against their
     plain versions, f32 and bf16, at the sharded training shapes; entries
-    with no timed launches, folded into K1's and K1b's rows."""
+    with no timed launches, folded into K1's, K1b's and B7's rows."""
     import torch
 
     from nmrf_tpu_torch.ops import attention as A
 
     dev = "cuda"
     C, heads = 128, 4
-    fwd, bwd = [], []
+    fwd, bwd, pos = [], [], []
     for label, Hp, Wp, N, ws, shift, cand, row0, hp_total in ROW0_CASES:
         table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
                                   device=dev)
         qkv32 = torch.randn(2, Hp, Wp, N, 3 * C, generator=gen, device=dev)
         g32 = torch.randn(2, Hp, Wp, N, C, generator=gen, device=dev)
-        ef, eb = ({"shape": f"{label} row0 {row0} of {hp_total}", "count": 0}
-                  for _ in range(2))
+        ef, eb, ep = ({"shape": f"{label} row0 {row0} of {hp_total}",
+                       "count": 0} for _ in range(3))
         for dtype_name, dt in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16)):
             args = (qkv32.to(dt), table, shift, (ws, ws), heads, cand, row0,
@@ -624,18 +728,22 @@ def row0_phase(gen):
                 want = A.window_attention_plain(*args)
             ef[f"max_abs_err_{dtype_name}"] = check_close(
                 f"window_attention {label}", got, want, dtype_name)
-            got = A.window_attention_bwd(g32.to(dt), *args)
-            torch.cuda.synchronize()
-            want = A.window_attention_bwd_plain(g32.to(dt), *args)
-            eb[f"max_abs_err_{dtype_name}"] = max(
-                check_close(f"window_attention_bwd {label} d{name}", a, b,
-                            dtype_name, TOL_BWD)
-                for name, a, b in zip(("qkv", "table"), got, want))
+            for entry, kernel, plain in (
+                    (eb, A.window_attention_bwd, A.window_attention_bwd_plain),
+                    (ep, A.window_attention_pos_bwd,
+                     A.window_attention_pos_bwd_plain)):
+                got = kernel(g32.to(dt), *args)
+                torch.cuda.synchronize()
+                entry[f"max_abs_err_{dtype_name}"] = check_bwd(
+                    f"{kernel.__name__} {label}", got,
+                    plain(g32.to(dt), *args), dtype_name)
         fwd.append(ef)
         bwd.append(eb)
+        pos.append(ep)
         log(f"kernel window_attention {ef['shape']}: " + json.dumps(ef))
         log(f"kernel window_attention_bwd {eb['shape']}: " + json.dumps(eb))
-    return fwd, bwd
+        log(f"kernel window_attention_pos_bwd {ep['shape']}: " + json.dumps(ep))
+    return fwd, bwd, pos
 
 
 # --------------------------------------------------------------------------- #
@@ -728,12 +836,10 @@ def serve_phase(swin=False):
             fail(f"disparity shape {d.shape}")
         if not np.isfinite(d).all() or (d < 0).any():
             fail("disparity not finite and non-negative")
-    want = {"window_attention": 10 * REQUESTS, "stripe_attention": 10 * REQUESTS,
-            "window_attention_bwd": 0, "stripe_attention_bwd": 0,
-            "msda_taps": (4 if swin else 0) * REQUESTS,
-            "masked_attention": 0, "masked_attention_bwd": 0}
-    if counts != want:
-        fail(f"launches over {REQUESTS} requests: {counts}, expected {want}")
+    _expect_launches(counts, f"{REQUESTS} requests",
+                     window_attention=10 * REQUESTS,
+                     stripe_attention=10 * REQUESTS,
+                     msda_taps=(4 if swin else 0) * REQUESTS)
     return model, pairs[1], {
         "model": "swin" if swin else "resnet",
         "requests": REQUESTS, "frame_ms": frame_ms, "host_request_ms": host_ms,
@@ -742,9 +848,10 @@ def serve_phase(swin=False):
         "disp_mean": float(np.mean([d.mean() for d in disps]))}
 
 
-def train_phase():
+def train_phase(fused=False):
     """Phase 5: training steps of the full-width default model, bf16, crop
-    384x768, batch 8, on a fixed synthetic batch."""
+    384x768, batch 8, on a fixed synthetic batch; ``fused``: run inside
+    ``fused_pos()``, where B7 takes K1b's launches."""
     import torch
 
     from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
@@ -783,26 +890,26 @@ def train_phase():
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
 
     rows = [{k: float(v) for k, v in h.items()} for h in history]
+    tag = " (NMRF_FUSED_POS=1)" if fused else ""
     for i, row in enumerate(rows):
-        log(f"train step {i}: total {row['total']:.4f} epe_train "
+        log(f"train step {i}{tag}: total {row['total']:.4f} epe_train "
             f"{row['epe_train']:.4f} loss_prop {row['loss_prop']:.4f} "
             f"init {row['init']:.4f} loss_coarse_disp_4 "
             f"{row['loss_coarse_disp_4']:.4f} grad_norm {row['grad_norm']:.4f}")
         if not all(np.isfinite(v) for v in row.values()):
-            fail(f"train step {i}: non-finite loss or gradient norm {row}")
+            fail(f"train step {i}{tag}: non-finite loss or gradient norm {row}")
     fwd = (2 if cfg.TPU.REMAT else 1) * 10 * TRAIN_STEPS
-    want = {"window_attention": fwd, "stripe_attention": fwd,
-            "window_attention_bwd": 10 * TRAIN_STEPS,
-            "stripe_attention_bwd": 10 * TRAIN_STEPS, "msda_taps": 0,
-            "masked_attention": 0, "masked_attention_bwd": 0}
-    if counts != want:
-        fail(f"launches over {TRAIN_STEPS} steps: {counts}, expected {want}")
+    window_bwd = "window_attention_pos_bwd" if fused else "window_attention_bwd"
+    _expect_launches(counts, f"{TRAIN_STEPS} steps", window_attention=fwd,
+                     stripe_attention=fwd, stripe_attention_bwd=10 * TRAIN_STEPS,
+                     **{window_bwd: 10 * TRAIN_STEPS})
     timed = [r["total"] for r in rows[1:]]
     first, last = float(np.mean(timed[:3])), float(np.mean(timed[-3:]))
     if not last < first:
-        fail(f"loss did not fall: mean total {first:.4f} over the first 3 "
+        fail(f"loss did not fall{tag}: mean total {first:.4f} over the first 3 "
              f"timed steps, {last:.4f} over the last 3")
     return step, batch, {
+        "fused_pos": fused,
         "batch": B, "crop": [H, W], "steps": TRAIN_STEPS, "step_ms": step_ms,
         "frames_per_s": B / step_ms * 1e3, "warmup_s": warmup_s,
         "remat": bool(cfg.TPU.REMAT), "launches": counts,
@@ -815,6 +922,8 @@ def train_phase():
 
 KERNEL_GROUPS = (
     ("msda_taps (B5)", ("msda_taps_kernel",)),
+    ("window_attention_pos_bwd (B7)", ("window_pos_bwd_kernel",
+                                       "window_pos_bwd_sum_kernel")),
     ("window_attention_bwd (K1b)", ("window_attention_bwd_kernel",
                                     "window_dve_kernel")),
     ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq_kernel",
@@ -966,8 +1075,10 @@ def stage_grad_phase():
     """Phase 4: float32 gradients of the three stages (train mode, full
     width, training shape 48x96 / 96x192, batch 1) through the kernels
     against the same stages on the plain versions, identical weights and
-    inputs.  No argmax lies inside a stage, so every parameter gradient and
-    every input gradient is held at atol = rtol = 1e-4.  The cotangent is
+    inputs; then the Inference and Refinement stages again inside
+    ``fused_pos()`` (K1 and B7, no K1b; the plain stages ignore the flag).
+    No argmax lies inside a stage, so every parameter gradient and every
+    input gradient is held at atol = rtol = 1e-4.  The cotangent is
     N(0, 1) / sqrt(output rows), so every gradient is of order one."""
     import torch
 
@@ -997,7 +1108,10 @@ def stage_grad_phase():
             rand(1, h4, w4, 64), rand(1, h4, w4, 256), rand(1, h4, w4, 256))),
     }
     report = {}
-    for name, (get, args) in cases.items():
+    runs = [(name, False) for name in cases] \
+        + [(name, True) for name in ("inference", "refinement")]
+    for name, fused in runs:
+        get, args = cases[name]
         grads, R = {}, None
         for tag, model in (("kernels", kern), ("plain", plain)):
             stage = get(model).train()
@@ -1006,11 +1120,13 @@ def stage_grad_phase():
                       for a in args]
             if tag == "kernels":
                 A.reset_launch_counts()
-            out = stage(*inputs)
-            out = out[0] if isinstance(out, tuple) else out
-            if R is None:
-                R = rand(*out.shape, scale=(out.numel() / out.shape[-1]) ** -0.5)
-            (out * R).sum().backward()
+            with fused_pos() if fused else contextlib.nullcontext():
+                out = stage(*inputs)
+                out = out[0] if isinstance(out, tuple) else out
+                if R is None:
+                    R = rand(*out.shape,
+                             scale=(out.numel() / out.shape[-1]) ** -0.5)
+                (out * R).sum().backward()
             torch.cuda.synchronize()
             grads[tag] = {f"{name}.{k}": p.grad for k, p in stage.named_parameters()}
             grads[tag].update({f"{name}.input{i}": x.grad
@@ -1019,10 +1135,14 @@ def stage_grad_phase():
                 launches = A.launch_counts()
         if not any(launches.values()):
             fail(f"{name}: the stage gradient ran no kernel")
-        worst = max(check_close(f"{name} gradient {k}", grads["kernels"][k], g,
+        if fused and (launches["window_attention_bwd"]
+                      or not launches["window_attention_pos_bwd"]):
+            fail(f"{name} with NMRF_FUSED_POS=1: launches {launches}")
+        key = f"{name} NMRF_FUSED_POS=1" if fused else name
+        worst = max(check_close(f"{key} gradient {k}", grads["kernels"][k], g,
                                 "float32")
                     for k, g in grads["plain"].items())
-        report[name] = {"max_abs_err": worst, "leaves": len(grads["plain"]),
+        report[key] = {"max_abs_err": worst, "leaves": len(grads["plain"]),
                         "launches": {k: v for k, v in launches.items() if v}}
         kern.zero_grad(set_to_none=True)
         plain.zero_grad(set_to_none=True)
@@ -1350,8 +1470,8 @@ def sharded_train(mesh):
 def kernels_line(kernel_results, counts):
     """The kernels JSON line.  Times are per unit of each kernel's main
     path: per KITTI frame for K1/K2/B5 (serving) and B6 (sharded serving,
-    one rank), per training step for K1b/K2b and B6b (sharded, one
-    rank)."""
+    one rank), per training step for K1b/K2b, B7 (NMRF_FUSED_POS=1) and
+    B6b (sharded, one rank)."""
     units = {
         "window_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
@@ -1365,6 +1485,9 @@ def kernels_line(kernel_results, counts):
                                 f"of a 1 x 2 sharded step at batch {TRAIN_BATCH}, "
                                 f"384x768, bf16; launches: rank 0's over the "
                                 f"{SHARD_TRAIN_STEPS} timed steps",
+        "window_attention_pos_bwd": f"per NMRF_FUSED_POS=1 training step: 10 "
+                                    f"launches at batch {TRAIN_BATCH}, 384x768, "
+                                    f"bf16",
     }
     line = []
     for name, entries in kernel_results.items():
@@ -1411,6 +1534,7 @@ def main(argv=None):
     from nmrf_tpu_torch import predict
     from nmrf_tpu_torch.ops import _native
 
+    os.environ.pop("NMRF_FUSED_POS", None)  # flagged runs set it themselves
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1439,10 +1563,12 @@ def main(argv=None):
         kernel_results = kernel_phase(gen)
         kernel_results.update(msda_phase(gen))
     kernel_results.update(bwd_kernel_phase(gen))
+    kernel_results.update(pos_bwd_kernel_phase(gen))
     kernel_results.update(masked_phase(gen))
-    row0_fwd, row0_bwd = row0_phase(gen)
+    row0_fwd, row0_bwd, row0_pos = row0_phase(gen)
     kernel_results["window_attention"] += row0_fwd
     kernel_results["window_attention_bwd"] += row0_bwd
+    kernel_results["window_attention_pos_bwd"] += row0_pos
     log("phase 2 kernels: every kernel matches its plain version "
         "(f32 and bf16)")
 
@@ -1476,6 +1602,17 @@ def main(argv=None):
     log("phase 6 training-step breakdown: " + json.dumps(step_profile))
     del step, batch
     torch.cuda.empty_cache()
+    with fused_pos():
+        step, batch, train_pos = train_phase(fused=True)
+        log("phase 5 training path, NMRF_FUSED_POS=1: " + json.dumps(train_pos))
+        log("phase 5 NMRF_FUSED_POS=1 against the default step: " + json.dumps(
+            {k: [train_pos[k], train[k]] for k in ("step_ms", "peak_mem_gb")}))
+        pos_profile = profile_phase("train step NMRF_FUSED_POS=1",
+                                    lambda: step(batch))
+        log("phase 6 NMRF_FUSED_POS=1 training-step breakdown: "
+            + json.dumps(pos_profile))
+    del step, batch
+    torch.cuda.empty_cache()
 
     t_shard = time.perf_counter()
     sharded = sharded_phase(args.grid, args.backend)
@@ -1491,6 +1628,8 @@ def main(argv=None):
     counts["masked_attention"] = sharded[0]["serve"]["launches"]["masked_attention"]
     counts["masked_attention_bwd"] = \
         sharded[0]["train"]["launches"]["masked_attention_bwd"]
+    counts["window_attention_pos_bwd"] = \
+        train_pos["launches"]["window_attention_pos_bwd"]
     log(gpu_identity())
     log(json.dumps(kernels_line(kernel_results, counts)))
     print(json.dumps({"ok": True, "device": {

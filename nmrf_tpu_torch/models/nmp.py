@@ -5,8 +5,13 @@ Tokens are kept in spatial layout [B, H, W, N, C] (N = candidates), and
 qkv channels in (component, head, hd) order, as in the JAX package.  With
 ``use_kernels`` the window and stripe attention go through the kernel
 wrappers of ``ops/attention.py`` (the hand-written CUDA kernels for CUDA
-tensors); otherwise they run those kernels' plain PyTorch versions.
+tensors); otherwise they run those kernels' plain PyTorch versions.  On
+the kernel path ``NMRF_FUSED_POS=1`` in the environment, read at each call
+as the JAX package reads it (``nmp.py:282``), gives the window attention
+the fully fused backward B7 instead of K1b.
 """
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -76,7 +81,9 @@ class WindowAttention(nn.Module):
     of a shifted layer is the ring exchange of ``global_roll_h`` and the W
     roll stays local; the shifted-region mask takes global rows (row0 =
     tile index x tile height, hp_total = the global padded height,
-    ``nmp.py:203-216,294-304,323-331``)."""
+    ``nmp.py:203-216,294-304,323-331``).  On the kernel path the backward
+    is B7 when ``NMRF_FUSED_POS`` is set to anything but 0 (``nmp.py:282``);
+    the plain path ignores it, as the JAX XLA path does."""
 
     def __init__(self, dim, window_size, num_heads, candidate_mask,
                  use_kernels=False, spatial=None):
@@ -102,10 +109,14 @@ class WindowAttention(nn.Module):
                 qkv = torch.roll(global_roll_h(qkv, -shift, sp), -shift, dims=2)
         H = qkv.shape[1]
         row0, hp_total = (0, None) if sp is None else (sp.index * H, sp.size * H)
-        attend = window_attention if self.use_kernels else window_attention_plain
-        out = attend(qkv.contiguous(), self.relative_position_enc_table, shift,
-                     self.window_size, self.num_heads, self.candidate_mask,
-                     row0, hp_total)
+        args = (qkv.contiguous(), self.relative_position_enc_table, shift,
+                self.window_size, self.num_heads, self.candidate_mask, row0,
+                hp_total)
+        if self.use_kernels:
+            out = window_attention(*args, fused_pos=os.environ.get(
+                "NMRF_FUSED_POS", "0") != "0")
+        else:
+            out = window_attention_plain(*args)
         if shift:
             if sp is None:
                 out = torch.roll(out, (shift, shift), dims=(1, 2))

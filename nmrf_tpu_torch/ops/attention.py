@@ -1,12 +1,13 @@
 """NMP attention kernels: window attention (K1) and stripe attention (K2),
-their backwards (K1b, K2b), and rectangular masked attention (B6) with its
-backward (B6b).
+their backwards (K1b, K2b), the fully fused window backward (B7), and
+rectangular masked attention (B6) with its backward (B6b).
 
 Each function here has three parts:
 
 * the wrapper (``window_attention``, ``stripe_attention`` and the backward
-  wrappers ``window_attention_bwd``, ``stripe_attention_bwd``), which checks
-  its inputs and, for CUDA tensors, launches the hand-written kernel from
+  wrappers ``window_attention_bwd``, ``window_attention_pos_bwd``,
+  ``stripe_attention_bwd``), which checks its inputs and, for CUDA
+  tensors, launches the hand-written kernel from
   ``nmrf_tpu_torch/csrc`` on the current stream, raising if the launch
   fails.  It counts its launches in ``<wrapper>.launches``;
 * the plain PyTorch version (``*_plain``) of the same function.  The wrapper
@@ -19,10 +20,14 @@ Each function here has three parts:
 K1 replaces ``nmrf_tpu/ops/pallas/attention.py:_window_native_kernel_direct``
 (and the transposed ``_window_native_kernel``, the same function), K2
 ``_stripe_attention_kernel``, K1b ``_wan_bwd_kernel_direct``, K2b
-``_stripe_bwd_kernel``, B6 ``_masked_attention_kernel`` and B6b
-``_masked_attention_bwd_kernel``.  On CUDA tensors the forward wrappers are
-``torch.autograd.Function``s whose backward is K1b, K2b or B6b; on the CPU
-autograd differentiates the plain forward versions.
+``_stripe_bwd_kernel``, B6 ``_masked_attention_kernel``, B6b
+``_masked_attention_bwd_kernel`` and B7 ``_wan_bwd_fused_pos_kernel``.  On
+CUDA tensors the forward wrappers are ``torch.autograd.Function``s whose
+backward is K1b, K2b or B6b; on the CPU autograd differentiates the plain
+forward versions.  ``window_attention(..., fused_pos=True)`` (the JAX
+package's ``NMRF_FUSED_POS=1`` path) takes B7 as the backward instead of
+K1b, and on the CPU B7's plain version, so the CPU tests run it inside the
+model.
 """
 
 from functools import lru_cache
@@ -36,6 +41,11 @@ from .msda import msda_taps
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
 _DTYPE_CODES = _native.DTYPE_CODES
 _KERNEL_HEAD_DIMS = (16, 32, 64)
+# blocks of B7's main kernel over all heads: each writes one partial of the
+# table cotangent, so the count is a function of the shapes only (the sum
+# over partials then has one order on every card); two waves of one block
+# per SM on the H100's 132 SMs at the Inference window
+_POS_BWD_BLOCKS = 264
 
 
 @lru_cache(maxsize=16)
@@ -54,12 +64,12 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
 def _wrappers():
     return (window_attention, stripe_attention, window_attention_bwd,
             stripe_attention_bwd, msda_taps, masked_attention,
-            masked_attention_bwd)
+            masked_attention_bwd, window_attention_pos_bwd)
 
 
 def reset_launch_counts():
     """Set the launch count of every kernel wrapper of the port to 0 (K1,
-    K2, K1b, K2b, B6 and B6b here and B5, ``ops/msda.py:msda_taps``)."""
+    K2, K1b, K2b, B6, B6b and B7 here and B5, ``ops/msda.py:msda_taps``)."""
     for fn in _wrappers():
         fn.launches = 0
 
@@ -270,6 +280,20 @@ def window_attention_bwd_plain(g, qkv, rel_table, shift, window, num_heads,
     return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
 
 
+def window_attention_pos_bwd_plain(g, qkv, rel_table, shift, window,
+                                   num_heads, candidate_mask, row0=0,
+                                   hp_total=None):
+    """Plain PyTorch version of :func:`window_attention_pos_bwd`.  B7
+    computes K1b's function (``_wan_bwd_fused_pos_kernel`` is
+    ``_wan_bwd_kernel_direct`` with the positional backward moved into the
+    kernel), so this is :func:`window_attention_bwd_plain`: the softmax
+    backward, then the positional products and the table scatter of
+    :func:`_window_bwd_finish`."""
+    return window_attention_bwd_plain(g, qkv, rel_table, shift, window,
+                                      num_heads, candidate_mask, row0,
+                                      hp_total)
+
+
 def _window_kernel_checks(kernel, qkv, rel_table, shift, window, num_heads):
     if qkv.device.type != "cuda" or rel_table.device != qkv.device:
         raise ValueError(f"{kernel}: qkv and rel_table must both be on one "
@@ -304,26 +328,29 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
 
 
 class _WindowAttentionFn(torch.autograd.Function):
-    """K1 forward, K1b backward."""
+    """K1 forward, K1b backward; with ``fused_pos`` B7 backward.  On the
+    CPU (``fused_pos`` only) the plain forward and B7's plain version."""
 
     @staticmethod
     def forward(ctx, qkv, rel_table, shift, window, num_heads, candidate_mask,
-                row0, hp_total):
+                row0, hp_total, fused_pos):
         ctx.save_for_backward(qkv, rel_table)
         ctx.args = (shift, window, num_heads, candidate_mask, row0, hp_total)
-        return _window_attention_launch(qkv, rel_table, shift, window,
-                                        num_heads, candidate_mask, row0,
-                                        hp_total)
+        ctx.fused_pos = fused_pos
+        if qkv.device.type == "cpu":
+            return window_attention_plain(qkv, rel_table, *ctx.args)
+        return _window_attention_launch(qkv, rel_table, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
         qkv, rel_table = ctx.saved_tensors
-        dqkv, d_table = window_attention_bwd(g, qkv, rel_table, *ctx.args)
-        return (dqkv, d_table.to(rel_table.dtype)) + (None,) * 6
+        bwd = window_attention_pos_bwd if ctx.fused_pos else window_attention_bwd
+        dqkv, d_table = bwd(g, qkv, rel_table, *ctx.args)
+        return (dqkv, d_table.to(rel_table.dtype)) + (None,) * 7
 
 
 def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask,
-                     row0=0, hp_total=None):
+                     row0=0, hp_total=None, fused_pos=False):
     """Windowed NMP attention of one (already rolled and padded) layer input.
 
     qkv: [B, Hp, Wp, N, 3C], channels in (component, head, hd) order.
@@ -335,18 +362,34 @@ def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask,
     row0, hp_total: under H-sharding qkv is one tile of the image; the
       shifted-region mask then takes the global row row0 + y of local row
       y against the global padded height hp_total (default: 0 and Hp).
+    fused_pos: differentiate through :func:`window_attention_pos_bwd` (B7,
+      the JAX package's ``NMRF_FUSED_POS=1`` backward) instead of K1b; on
+      the CPU through B7's plain version.  The forward is the same.
     Returns [B, Hp, Wp, N, C] in qkv's dtype.  Differentiable in qkv and
     rel_table (on CUDA through :func:`window_attention_bwd`).
     """
     _window_shapes(qkv, rel_table, window, num_heads, row0, hp_total)
-    if qkv.device.type == "cpu":
+    if qkv.device.type == "cpu" and not fused_pos:
         return window_attention_plain(qkv, rel_table, shift, window,
                                       num_heads, candidate_mask, row0,
                                       hp_total)
-    _window_kernel_checks("window_attention", qkv, rel_table, shift, window,
-                          num_heads)
+    if qkv.device.type != "cpu":
+        _window_kernel_checks("window_attention", qkv, rel_table, shift,
+                              window, num_heads)
     return _WindowAttentionFn.apply(qkv, rel_table, shift, window, num_heads,
-                                    candidate_mask, row0, hp_total)
+                                    candidate_mask, row0, hp_total,
+                                    bool(fused_pos))
+
+
+def _window_bwd_kernel_inputs(kernel, g, qkv, rel_table, shift, window,
+                              num_heads):
+    """Checks of a window backward kernel's CUDA inputs; returns g in qkv's
+    dtype and the table rounded to qkv's dtype in f32, both contiguous."""
+    _window_kernel_checks(kernel, qkv, rel_table, shift, window, num_heads)
+    if g.device != qkv.device:
+        raise ValueError(f"{kernel}: g on {g.device}, qkv on {qkv.device}")
+    return (g.to(qkv.dtype).contiguous(),
+            rel_table.detach().to(qkv.dtype).float().contiguous())
 
 
 def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
@@ -366,18 +409,13 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
         return window_attention_bwd_plain(g, qkv, rel_table, shift, window,
                                           num_heads, candidate_mask, row0,
                                           hp_total)
-    _window_kernel_checks("window_attention_bwd", qkv, rel_table, shift,
-                          window, num_heads)
-    if g.device != qkv.device:
-        raise ValueError(f"window_attention_bwd: g on {g.device}, qkv on "
-                         f"{qkv.device}")
+    g, table = _window_bwd_kernel_inputs("window_attention_bwd", g, qkv,
+                                         rel_table, shift, window, num_heads)
     wh, ww = window
     h = num_heads
     P = wh * ww
     T = P * N
     G = B * (Hp // wh) * (Wp // ww)
-    g = g.to(qkv.dtype).contiguous()
-    table = rel_table.detach().to(qkv.dtype).float().contiguous()
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty((B, Hp, Wp, N, 3 * C), **f32)
     dqr, dkr, mass = (torch.empty((G, h, T, P), **f32) for _ in range(3))
@@ -394,8 +432,49 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
     return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
 
 
+def window_attention_pos_bwd(g, qkv, rel_table, shift, window, num_heads,
+                             candidate_mask, row0=0, hp_total=None):
+    """Gradients of :func:`window_attention` given g = dL/dout
+    [B, Hp, Wp, N, C], the function of :func:`window_attention_bwd`:
+    (d(qkv) in qkv's dtype, d(rel_table) f32).
+
+    On CUDA tensors one launch of B7 (``csrc/window_attention_pos_bwd.cu``:
+    the softmax backward with the positional halves of d(q) and d(k) and
+    the q, k and v table cotangents in the kernel, then the sum of its
+    per-block table partials); no dqr, dkr or mass buffer."""
+    B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads, row0,
+                                     hp_total)
+    if tuple(g.shape) != (B, Hp, Wp, N, C):
+        raise ValueError(f"g shape {tuple(g.shape)}, expected "
+                         f"{(B, Hp, Wp, N, C)}")
+    if qkv.device.type == "cpu":
+        return window_attention_pos_bwd_plain(g, qkv, rel_table, shift,
+                                              window, num_heads,
+                                              candidate_mask, row0, hp_total)
+    g, table = _window_bwd_kernel_inputs("window_attention_pos_bwd", g, qkv,
+                                         rel_table, shift, window, num_heads)
+    wh, ww = window
+    nblk = max(1, min(B * (Hp // wh) * (Wp // ww),
+                      _POS_BWD_BLOCKS // num_heads))
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    partial = torch.empty((nblk,) + tuple(table.shape), **f32)
+    d_table = torch.empty(table.shape, **f32)
+    err = _native.library("window_attention_pos_bwd")(
+        qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        partial.data_ptr(), d_table.data_ptr(), _DTYPE_CODES[qkv.dtype], B,
+        Hp, Wp, N, C, num_heads, wh, ww, int(shift),
+        int(bool(candidate_mask)), int(row0),
+        Hp if hp_total is None else int(hp_total), nblk,
+        (C // num_heads) ** -0.5, _native.stream())
+    _native.check_launch("window_attention_pos_bwd", err)
+    window_attention_pos_bwd.launches += 1
+    return dqkv, d_table
+
+
 window_attention.launches = 0
 window_attention_bwd.launches = 0
+window_attention_pos_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -13,7 +13,10 @@ The tap-MSDA kernel (B5) is held against its plain version, the dense tap
 sum, at the forward tolerances.  The masked attention B6 and its backward
 B6b, and K1/K1b on a tile's row offset, are held at the same tolerances;
 the sharded path runs on a 1 x 2 grid with both ranks on the card (gloo)
-and, given four cards, on a 2 x 2 grid over NCCL.
+and, given four cards, on a 2 x 2 grid over NCCL.  The fully fused window
+backward B7 (the ``NMRF_FUSED_POS=1`` path) is held against its plain
+version at the backward tolerances, against K1b in f32, and against itself
+(two launches, the same bits).
 """
 
 from pathlib import Path
@@ -142,7 +145,7 @@ def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
     after = A.launch_counts()
     assert {k: after[k] - counts[k] for k in after} == dict(
         dict.fromkeys(after, 1), msda_taps=0, masked_attention=0,
-        masked_attention_bwd=0)
+        masked_attention_bwd=0, window_attention_pos_bwd=0)
     q2 = q.detach().clone().requires_grad_()
     A.stripe_attention_plain(q2, q2, q2, 4, 1, 2).square().sum().backward()
     torch.testing.assert_close(q.grad, q2.grad, atol=1e-4, rtol=1e-4)
@@ -178,7 +181,8 @@ def test_train_steps_through_kernels_match_plain(cuda):
         want = 2 * 4 if use_kernels else 0
         assert A.launch_counts() == dict(dict.fromkeys(A.launch_counts(), want),
                                          msda_taps=0, masked_attention=0,
-                                         masked_attention_bwd=0)
+                                         masked_attention_bwd=0,
+                                         window_attention_pos_bwd=0)
     for got, ref in zip(losses[True], losses[False]):
         for key, value in ref.items():
             assert torch.isfinite(got[key])
@@ -237,7 +241,8 @@ def test_swin_forward_through_kernels_matches_plain(cuda):
                                      "stripe_attention_bwd": 0,
                                      "msda_taps": want,
                                      "masked_attention": 0,
-                                     "masked_attention_bwd": 0}
+                                     "masked_attention_bwd": 0,
+                                     "window_attention_pos_bwd": 0}
     for key in ("prob", "proposal", "initial_proposal"):
         torch.testing.assert_close(outs[True][key], outs[False][key],
                                    atol=2e-4, rtol=1e-3)
@@ -311,6 +316,84 @@ def test_window_kernels_at_a_tile_match_plain(cuda, dtype, case):
     atol, rtol = _GPU_BWD_TOL[dtype]
     for a, b in zip(dgot, dwant):
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+# ---- B7: the fully fused window backward (NMRF_FUSED_POS=1) ---- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c + (0, None) for c in _WINDOW_BWD_CASES]
+                         + [(24, 96, 4, 6, 3, True, 24, 48),
+                            (48, 192, 1, 4, 2, False, 48, 96)])
+def test_window_pos_bwd_kernel_matches_plain(cuda, dtype, case):
+    """B7 against its plain version at the training, KITTI and tile shapes,
+    and in f32 against K1b (the same function)."""
+    Hp, Wp, N, ws, shift, cand, row0, hp_total = case
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = torch.randn(2, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(2, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
+    args = (gout, qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
+    before = A.window_attention_pos_bwd.launches
+    got = A.window_attention_pos_bwd(*args)
+    assert A.window_attention_pos_bwd.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for a, b in zip(got, A.window_attention_pos_bwd_plain(*args)):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    if dtype == torch.float32:
+        for a, b in zip(got, A.window_attention_bwd(*args)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(48, 96, 4, 6, 3, True), (96, 192, 1, 4, 2, False)])
+def test_window_pos_bwd_kernel_is_deterministic(cuda, case):
+    """Two B7 launches on the same batch-8 bf16 inputs give the same bits
+    (the table cotangent is summed without atomics, in a fixed order)."""
+    Hp, Wp, N, ws, shift, cand = case
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qkv = torch.randn(8, Hp, Wp, N, 384, generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(8, Hp, Wp, N, 128, generator=g, device=cuda,
+                       dtype=torch.bfloat16)
+    args = (gout, qkv, table, shift, (ws, ws), 4, cand)
+    first = A.window_attention_pos_bwd(*args)
+    second = A.window_attention_pos_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", ["inference", "refinement"])
+def test_window_attention_grads_through_b7(cuda, monkeypatch, setting):
+    """WindowAttention with NMRF_FUSED_POS=1, f32: one K1 and one B7 launch
+    (no K1b), and the gradients of the plain module's autograd."""
+    from nmrf_tpu_torch.models import nmp
+
+    ws, N, cand = (6, 4, True) if setting == "inference" else (4, 1, False)
+    monkeypatch.setenv("NMRF_FUSED_POS", "1")
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(2, 4 * ws, 6 * ws, N, 384, generator=g, device=cuda)
+    R = torch.randn(2, 4 * ws, 6 * ws, N, 128, generator=g, device=cuda)
+    table = torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    grads = {}
+    for use_kernels in (True, False):
+        module = nmp.WindowAttention(128, (ws, ws), 4, cand,
+                                     use_kernels=use_kernels).to(cuda)
+        with torch.no_grad():
+            module.relative_position_enc_table.copy_(table)
+        x = qkv.clone().requires_grad_()
+        A.reset_launch_counts()
+        (module(x, ws // 2) * R).sum().backward()
+        grads[use_kernels] = (x.grad, module.relative_position_enc_table.grad)
+        counts = A.launch_counts()
+        assert counts == dict(dict.fromkeys(counts, 0), **(
+            {"window_attention": 1, "window_attention_pos_bwd": 1}
+            if use_kernels else {}))
+    for a, b in zip(grads[True], grads[False]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 def _gloo_cuda_worker(rank, out_dir):

@@ -146,4 +146,5 @@ def test_cpu_wrappers_do_not_count_launches():
                                         "stripe_attention_bwd": 0,
                                         "msda_taps": 0,
                                         "masked_attention": 0,
-                                        "masked_attention_bwd": 0}
+                                        "masked_attention_bwd": 0,
+                                        "window_attention_pos_bwd": 0}
