@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
+    python3 chip_smoke.py --compare-old DIR  # K1b/K2b vs DIR's sources
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -14,8 +15,8 @@ Phases (any failure exits non-zero before the last line is printed):
    K2b and B7 (the fully fused window backward of the NMRF_FUSED_POS=1
    training path) at the training shapes (batch 1, and bf16 at the
    training batch of 8) and the KITTI shapes; B7 also against K1b on the
-   same f32 inputs (the same function), and two B7 launches on the same
-   inputs must give the same bits;
+   same f32 inputs (the same function), and two launches of K1b, K2b or B7
+   on the same inputs must give the same bits;
    The tap-MSDA kernel B5 is held against its plain version at the four
    extractor shapes of a swin KITTI request, and once with samples beyond
    its radius and past the borders;
@@ -39,20 +40,29 @@ Phases (any failure exits non-zero before the last line is printed):
    time and peak memory beside the first run's;
 6. time each kernel beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, its backward for K1b,
-   B7, K2b and B6b; ``grid_sample`` for B5) at the same shapes, and break a
-   request of each model, a training step and a NMRF_FUSED_POS=1 training
-   step down by device kernel with ``torch.profiler``;
+   B7, K2b and B6b; ``grid_sample`` for B5) at the same shapes (K1b also
+   by kernel: its main kernel, its d(ve) kernels and the plain products of
+   ``_window_bwd_finish``), and break a request of each model, a training
+   step and a NMRF_FUSED_POS=1 training step down by device kernel with
+   ``torch.profiler``;
 7. drive the H-sharded path: two processes on the one card (a 1 x 2
    (data, spatial) grid over gloo, ``nmrf_tpu_torch.parallel``) serve 4
    KITTI pairs padded to 384x1248 through ``make_sharded_forward`` (bf16,
    tanh GELU), hold the f32 sharded forward against the unsharded one, hold
    the gradients of one f32 sharded step against the unsharded step's
    (crop 384x768, batch 8), and take 1 + 1 + 5 sharded training steps
-   (warm-up, profiled, timed; bf16), with the launch counters of each rank
-   read around the timed requests and steps; rank 0 profiles a request
+   (warm-up, profiled, timed; bf16), then 1 + 1 + 5 more with
+   NMRF_FUSED_POS=1 (B7 in place of K1b), with the launch counters of each
+   rank read around the timed requests and steps; rank 0 profiles a request
    and a step.  Phase 2 also holds the rectangular masked attention B6
    and its backward B6b, and K1/K1b/B7 at a tile's row offset, against
    their plain versions.
+
+With ``--compare-old DIR`` it builds the kernels and DIR's
+``window_attention_bwd.cu`` and ``stripe_attention_bwd.cu`` (earlier
+versions of K1b and K2b, with DIR's headers) and times the two versions in
+turns (old, new, new, old) at the training shapes, beside SDPA's backward
+and the bound, and in the default training step; nothing else runs.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -117,6 +127,37 @@ def gpu_identity():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_kernels(text):
+    """[(kernel, registers, spill-store bytes)] from ``nvcc -Xptxas -v``;
+    a kernel is its name and template arguments (bf16/f32, integers)."""
+    import re
+
+    out, name, spills = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            n = re.match(r"_ZN4nmrf(\d+)", mangled)
+            if n:
+                start = n.end()
+                base = mangled[start:start + int(n.group(1))]
+                rest = mangled[start + int(n.group(1)):]
+                args = (["bf16"] if "bfloat16" in rest else ["f32"] if rest.startswith("IfL") else []) \
+                    + re.findall(r"Li(\d+)E", rest)
+                name = f"{base}<{','.join(args)}>" if args else base
+            else:
+                name = mangled
+            spills = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -354,11 +395,42 @@ def sdpa_backward_ms(gen, G, heads, T, hd, mask):
                                                retain_graph=True), 10)
 
 
+# K1b's own kernels by name (the rest of a launch's device time is the
+# plain products of ``_window_bwd_finish``)
+K1B_MAIN = ("window_bwd_mma_kernel", "window_attention_bwd_kernel")
+K1B_DVE = ("window_dve_",)
+
+
+def window_bwd_split_ms(fn, ms, iters=3):
+    """K1b's device time per call fn() apart, from torch.profiler's device
+    intervals over iters calls after a warm-up: its main kernel, its d(ve)
+    kernels, and the rest (``_window_bwd_finish``): ms, the event-timed
+    call, less the two."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    main = dve = 0.0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            t = evt.time_range.elapsed_us() / 1e3 / iters
+            main += t if any(k in evt.name for k in K1B_MAIN) else 0.0
+            dve += t if any(k in evt.name for k in K1B_DVE) else 0.0
+    return {"main": main, "dve": dve, "finish": ms - main - dve}
+
+
 def bwd_kernel_phase(gen):
     """Phase 2 (backward kernels, checked in f32 and bf16 at batch 1 on the
     training and the KITTI shapes, and in bf16 at batch TRAIN_BATCH on the
-    training shapes, as the training path launches them) and their timings
-    of phase 6 (the same batch-TRAIN_BATCH inputs)."""
+    training shapes, as the training path launches them; two launches on
+    the same inputs give the same bits) and their timings of phase 6 (the
+    same batch-TRAIN_BATCH inputs; K1b also by kernel)."""
     import torch
 
     from nmrf_tpu_torch.ops import attention as A
@@ -383,6 +455,8 @@ def bwd_kernel_phase(gen):
             entry[f"max_abs_err_{dtype_name}"] = check_bwd(
                 f"window_attention_bwd {label}", got,
                 A.window_attention_bwd_plain(*args), dtype_name)
+            check_repeat(f"window_attention_bwd {label} {dtype_name}", got,
+                         A.window_attention_bwd(*args))
         if timed:
             B = TRAIN_BATCH
             qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
@@ -395,8 +469,12 @@ def bwd_kernel_phase(gen):
             entry["max_abs_err_bfloat16_batch8"] = check_bwd(
                 f"window_attention_bwd {label} batch {B}", got,
                 A.window_attention_bwd_plain(*args), "bfloat16")
+            check_repeat(f"window_attention_bwd {label} batch {B}", got,
+                         A.window_attention_bwd(*args))
             del got
             entry["ms"] = cuda_ms(lambda: A.window_attention_bwd(*args), 10)
+            entry["kernel_ms"] = window_bwd_split_ms(
+                lambda: A.window_attention_bwd(*args), entry["ms"])
             entry["plain_ms"] = cuda_ms(
                 lambda: A.window_attention_bwd_plain(*args), 3, warmup=1)
             T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
@@ -426,6 +504,8 @@ def bwd_kernel_phase(gen):
                 check_close(f"stripe_attention_bwd {label} d{name}", a, b,
                             dtype_name, TOL_BWD)
                 for name, a, b in zip("qkv", got, want))
+            check_repeat(f"stripe_attention_bwd {label} {dtype_name}", got,
+                         A.stripe_attention_bwd(*args))
         if timed:
             B = TRAIN_BATCH
             args = tuple(torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
@@ -438,6 +518,8 @@ def bwd_kernel_phase(gen):
                 check_close(f"stripe_attention_bwd {label} batch {B} d{name}",
                             a, b, "bfloat16", TOL_BWD)
                 for name, a, b in zip("qkv", got, want))
+            check_repeat(f"stripe_attention_bwd {label} batch {B}", got,
+                         A.stripe_attention_bwd(*args))
             del got, want
             entry["ms"] = cuda_ms(lambda: A.stripe_attention_bwd(*args), 10)
             entry["plain_ms"] = cuda_ms(
@@ -848,16 +930,15 @@ def serve_phase(swin=False):
         "disp_mean": float(np.mean([d.mean() for d in disps]))}
 
 
-def train_phase(fused=False):
-    """Phase 5: training steps of the full-width default model, bf16, crop
-    384x768, batch 8, on a fixed synthetic batch; ``fused``: run inside
-    ``fused_pos()``, where B7 takes K1b's launches."""
+def train_setup():
+    """(cfg, step, batch) of the training path: the full-width default
+    model, bf16, its optimizer and step, and a fixed synthetic batch at the
+    config's crop (384x768) and batch (8)."""
     import torch
 
     from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                                 make_train_step)
     from nmrf_tpu_torch.data import synthetic_batch
-    from nmrf_tpu_torch.ops import attention as A
 
     cfg = main_path_cfg("bfloat16", False, True)
     model = build_model(cfg)
@@ -873,6 +954,20 @@ def train_phase(fused=False):
     # reshuffle and move the coarse losses while epe_train falls)
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
         B, H, W, max_disp=cfg.SOLVER.MAX_DISP, seed=0, disp_quantum=8).items()}
+    return cfg, step, batch
+
+
+def train_phase(fused=False):
+    """Phase 5: training steps of the full-width default model, bf16, crop
+    384x768, batch 8, on a fixed synthetic batch; ``fused``: run inside
+    ``fused_pos()``, where B7 takes K1b's launches."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    cfg, step, batch = train_setup()
+    B = cfg.SOLVER.IMS_PER_BATCH
+    H, W = cfg.DATASETS.CROP_SIZE
     t0 = time.perf_counter()
     history = [step(batch)]  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -924,10 +1019,8 @@ KERNEL_GROUPS = (
     ("msda_taps (B5)", ("msda_taps_kernel",)),
     ("window_attention_pos_bwd (B7)", ("window_pos_bwd_kernel",
                                        "window_pos_bwd_sum_kernel")),
-    ("window_attention_bwd (K1b)", ("window_attention_bwd_kernel",
-                                    "window_dve_kernel")),
-    ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq_kernel",
-                                    "stripe_bwd_dkv_kernel")),
+    ("window_attention_bwd (K1b)", K1B_MAIN + K1B_DVE),
+    ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq", "stripe_bwd_dkv")),
     ("window_attention (K1)", ("window_attention_kernel",)),
     ("stripe_attention (K2)", ("stripe_attention_kernel",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
@@ -1191,7 +1284,8 @@ def sharded_worker(rank, out_dir, grid, backend):
               "device_name": torch.cuda.get_device_name(mesh.device)}
     for name, fn in (("serve", sharded_serve), ("parity", sharded_parity),
                      ("grad_check", sharded_grad_check),
-                     ("train", sharded_train)):
+                     ("train", sharded_train),
+                     ("train_fused_pos", lambda m: sharded_train(m, fused=True))):
         report[name] = fn(mesh)
         torch.cuda.empty_cache()
         if rank == 0:
@@ -1398,12 +1492,18 @@ def sharded_grad_check(mesh):
     return report
 
 
-def sharded_train(mesh):
+def sharded_train(mesh, fused=False):
     """A warm-up, a profiled and SHARD_TRAIN_STEPS timed sharded training
     steps (bf16, exact GELU, crop 384x768, batch 8) through
     make_train_step(..., mesh=); per rank per
     step 10 K1 + 10 K1b, 5 K2 + 5 K2b, 5 B6 + 5 B6b; the loss falls and the
-    ranks keep identical parameters."""
+    ranks keep identical parameters.  ``fused``: the same inside
+    ``fused_pos()``, 10 B7 and no K1b per rank and step, no profiled step."""
+    with fused_pos() if fused else contextlib.nullcontext():
+        return _sharded_train(mesh, fused)
+
+
+def _sharded_train(mesh, fused):
     import torch
     import torch.distributed as dist
 
@@ -1426,12 +1526,14 @@ def sharded_train(mesh):
     history = [step(batch)]  # warm-up
     torch.cuda.synchronize()
     dist.barrier()
-    if mesh.rank == 0:  # one profiled step, rank 1 alongside
+    profile = None
+    if fused:
+        history.append(step(batch))
+    elif mesh.rank == 0:  # one profiled step, rank 1 alongside
         profile = profile_phase("sharded train step (rank 0)",
                                 lambda: history.append(step(batch)))
     else:
         history.append(step(batch))
-        profile = None
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
@@ -1443,10 +1545,12 @@ def sharded_train(mesh):
     torch.cuda.synchronize()
     counts = A.launch_counts()
     S = SHARD_TRAIN_STEPS
-    _expect_launches(counts, f"rank {mesh.rank}, {S} sharded steps",
+    window_bwd = "window_attention_pos_bwd" if fused else "window_attention_bwd"
+    _expect_launches(counts, f"rank {mesh.rank}, {S} sharded steps"
+                     + (" (NMRF_FUSED_POS=1)" if fused else ""),
                      window_attention=10 * S, stripe_attention=5 * S,
-                     masked_attention=5 * S, window_attention_bwd=10 * S,
-                     stripe_attention_bwd=5 * S, masked_attention_bwd=5 * S)
+                     masked_attention=5 * S, stripe_attention_bwd=5 * S,
+                     masked_attention_bwd=5 * S, **{window_bwd: 10 * S})
     rows = [{k: float(v) for k, v in h.items()} for h in history]
     if not all(np.isfinite(v) for row in rows for v in row.values()):
         fail(f"sharded training: non-finite loss or gradient norm {rows}")
@@ -1459,12 +1563,154 @@ def sharded_train(mesh):
     sums = mesh.world.all_gather(checksum)
     if not all(torch.equal(sums[0], s) for s in sums[1:]):
         fail("sharded training: the ranks' parameters diverged")
-    return {"batch": TRAIN_BATCH, "crop": [H, W], "steps": S,
+    return {"fused_pos": fused, "batch": TRAIN_BATCH, "crop": [H, W], "steps": S,
             "step_ms": start.elapsed_time(end) / S, "profile": profile,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": counts, "total_first": first, "total_last2": last,
             "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm")}
                        for r in rows]}
+
+
+# --------------------------------------------------------------------------- #
+# --compare-old DIR: the redesigned K1b and K2b against given sources of the
+# versions they replace, in turns in one process on one card
+# --------------------------------------------------------------------------- #
+
+REDESIGNED = ("window_attention_bwd", "stripe_attention_bwd")
+COMPARE_STEPS = 5
+
+
+def old_libraries(src_dir):
+    """Build ``src_dir``'s K1b and K2b sources (with that directory's
+    headers) with the port's nvcc flags, load them, and return {name: entry
+    point taking the current wrapper's arguments}: the older K1b takes no
+    d(ve) partial buffer and split count, so its adapter drops them."""
+    import ctypes
+
+    from nmrf_tpu_torch.ops import _native
+
+    _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in REDESIGNED:
+        target = _native.BUILD_DIR / f"libold_{name}.so"
+        procs[name] = (subprocess.Popen(
+            _native._command(name, target, src_dir), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), target)
+    fns = {}
+    for name, (proc, target) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"{src_dir}/{name}.cu did not build:\n{text}")
+        log(f"  {src_dir}/{name}.cu: " + " | ".join(
+            f"{fn} {regs} regs, {spills} B spilled"
+            for fn, regs, spills in ptxas_kernels(text)))
+        symbol, argtypes = _native._SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(target)), symbol)
+        fn.restype = ctypes.c_int
+        if name == "window_attention_bwd":
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [ptr] * 8 + [i32] * 13 + [ctypes.c_float, ptr]
+            fns[name] = (lambda f: lambda *a: f(*a[:8], *a[9:22], *a[23:]))(fn)
+        else:
+            fn.argtypes = argtypes
+            fns[name] = fn
+    return fns
+
+
+def compare_phase(src_dir, gen):
+    """Time old and new K1b and K2b in turns (old, new, new, old) at the
+    training shapes (bf16, batch TRAIN_BATCH; K1b also by kernel) beside
+    SDPA's backward and the bound, then the default training step with each
+    (COMPARE_STEPS steps per turn).  The wrappers stay the same: only the
+    library each one launches is swapped."""
+    import torch
+
+    from nmrf_tpu_torch.ops import _native
+    from nmrf_tpu_torch.ops import attention as A
+
+    old = old_libraries(src_dir)
+    new = {name: _native.library(name) for name in REDESIGNED}
+    turns = (("old", old), ("new", new), ("new", new), ("old", old))
+    dev, B = "cuda", TRAIN_BATCH
+    entries = []
+
+    def timed(entry, fn, split=False):
+        ms = {"old": [], "new": []}
+        for tag, libs in turns:
+            _native._loaded.update(libs)
+            ms[tag].append(cuda_ms(fn, 10))
+            if split and f"{tag}_kernel_ms" not in entry:
+                entry[f"{tag}_kernel_ms"] = window_bwd_split_ms(fn, ms[tag][-1])
+        _native._loaded.update(new)
+        entry.update(old_ms=ms["old"], new_ms=ms["new"])
+        entries.append(entry)
+        log("phase 8 old vs new: " + json.dumps(entry))
+
+    C, heads = 128, 4
+    for label, Hp, Wp, N, ws, shift, cand, count in TRAIN_WINDOW_CASES:
+        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                  device=dev)
+        qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        g = torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        args = (g, qkv, table, shift, (ws, ws), heads, cand)
+        T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
+        bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        entry = {"name": "window_attention_bwd", "shape": label, "count": count,
+                 "library_ms": sdpa_backward_ms(gen, G, heads, T, C // heads, bias)}
+        entry["bytes_ms"], entry["ops_ms"] = window_bound(
+            B, Hp, Wp, N, ws, C, heads, backward=True)
+        timed(entry, lambda: A.window_attention_bwd(*args), split=True)
+    C, heads = 64, 2
+    for label, Hp, Wp, N, H_sp, W_sp, count in TRAIN_STRIPE_CASES:
+        args = tuple(torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
+                                 dtype=torch.bfloat16) for _ in range(4))
+        args += (H_sp, W_sp, heads)
+        T, G = H_sp * W_sp * N, B * (Hp // H_sp) * (Wp // W_sp)
+        mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(torch.bfloat16)
+        entry = {"name": "stripe_attention_bwd", "shape": label, "count": count,
+                 "library_ms": sdpa_backward_ms(gen, G, heads, T, C // heads, mask)}
+        entry["bytes_ms"], entry["ops_ms"] = stripe_bound(
+            B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=True)
+        timed(entry, lambda: A.stripe_attention_bwd(*args))
+
+    per_step = {}
+    for name in REDESIGNED:
+        rows = [e for e in entries if e["name"] == name]
+        per_step[name] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
+                          for k in ("old_ms", "new_ms", "library_ms")}
+        per_step[name]["bound_ms"] = sum(
+            max(e["bytes_ms"], e["ops_ms"]) * e["count"] for e in rows)
+    k1b = [e for e in entries if e["name"] == "window_attention_bwd"]
+    for tag in ("old", "new"):
+        per_step["window_attention_bwd"][f"{tag}_kernels_ms"] = sum(
+            (e[f"{tag}_kernel_ms"]["main"] + e[f"{tag}_kernel_ms"]["dve"])
+            * e["count"] for e in k1b)
+        per_step["window_attention_bwd"][f"{tag}_dve_ms"] = sum(
+            e[f"{tag}_kernel_ms"]["dve"] * e["count"] for e in k1b)
+    slower = [f"{e['name']} {e['shape']}" for e in entries
+              if max(e["new_ms"]) >= min(e["old_ms"])]
+
+    _, step, batch = train_setup()
+    step(batch)  # warm-up
+    steps = {"old": [], "new": []}
+    for tag, libs in turns:
+        _native._loaded.update(libs)
+        step(batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(COMPARE_STEPS):
+            step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        steps[tag].append(start.elapsed_time(end) / COMPARE_STEPS)
+    _native._loaded.update(new)
+    return {"per_step": per_step, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
+            "new_not_faster_on": slower, "shapes": entries}
 
 
 def kernels_line(kernel_results, counts):
@@ -1527,6 +1773,11 @@ def main(argv=None):
     parser.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                         help="phase 7's backend: gloo (ranks may share a "
                              "card) or nccl (a card per rank)")
+    parser.add_argument("--compare-old", metavar="DIR",
+                        help="build the kernels and time K1b and K2b against "
+                             "DIR's window_attention_bwd.cu and "
+                             "stripe_attention_bwd.cu (with DIR's headers), "
+                             "in turns, alone and in the training step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1542,17 +1793,30 @@ def main(argv=None):
     log(f"phase 1 build: {time.perf_counter() - t_start:.1f} s for "
         f"{len(report)} kernels (nvcc in parallel)")
     for name, (secs, text) in report.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"  {name}: {secs:.1f} s; " + " | ".join(regs))
+        log(f"  {name}: {secs:.1f} s; " + " | ".join(
+            f"{fn} {regs} regs, {spills} B spilled"
+            for fn, regs, spills in ptxas_kernels(text)))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.compare_old:
+        compare = compare_phase(args.compare_old,
+                                torch.Generator(device="cuda").manual_seed(0))
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"compare": {k: v for k, v in compare.items()
+                                    if k != "shapes"}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.sharded_only:
         sharded = sharded_phase(args.grid, args.backend)
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
         log(json.dumps({"sharded": [{k: r[k] for k in (
-            "rank", "device", "serve", "train")} for r in sharded],
+            "rank", "device", "serve", "train", "train_fused_pos")}
+            for r in sharded],
             "grid": args.grid, "backend": args.backend}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1617,7 +1881,8 @@ def main(argv=None):
     t_shard = time.perf_counter()
     sharded = sharded_phase(args.grid, args.backend)
     log(f"phase 7 sharded path: {time.perf_counter() - t_shard:.1f} s; "
-        + json.dumps([{k: r[k] for k in ("rank", "device", "serve", "train")}
+        + json.dumps([{k: r[k] for k in ("rank", "device", "serve", "train",
+                                         "train_fused_pos")}
                       for r in sharded]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 

@@ -14,27 +14,49 @@
 // pixel) gives P_ij = 0 exactly; masked pairs are skipped.
 //
 // Design: the flash-attention-2 split, so the T x T logits of a stripe
-// (T = 624 at KITTI size, 1.5 MB in f32 per head) never exist.
-//   Kernel 1, one block of 64 threads per (64-query tile, stripe, head),
-//   one query row per thread: a first pass over 64-key tiles in shared
-//   memory is K2's online softmax (running max, sum and f32 output
-//   accumulator); it gives the row's log-sum-exp and D_i = g_i.out_i in
-//   f32, both kept in a [stripes, h, T] f32 buffer.  A second pass over the
-//   same key tiles recomputes P_ij = exp(logit - lse_i) and accumulates dq_i
-//   in registers.
-//   Kernel 2, one block of 64 threads per (64-key tile, stripe, head), one
-//   key row per thread with k_j, v_j, dk_j and dv_j in registers: query
-//   rows, g rows and their lse and D stream through shared memory 64 at a
-//   time.  Every output row is written once by one thread, so there are no
-//   atomics and the result is deterministic.
-// Inputs and outputs stay in the padded image layout [B, Hp, Wp, N, C].
+// (T = 624 at KITTI size, 1.5 MB in f32 per head) never exist.  Kernel 1
+// (query side) gives each query row's log-sum-exp and D_i in f32, kept in a
+// [stripes, h, T] f32 buffer, and dq; kernel 2 (key side) walks the query
+// rows with them and gives dk and dv.  Every output row is written once by
+// one owner: no atomics, and two launches on the same inputs give the same
+// bits.  Inputs and outputs stay in the padded image layout [B, Hp, Wp, N, C].
 //
-// Bound on the H100 (bf16, training shape 48x96, batch 8): about 2.5x the
-// forward's matrix work against reading q, k, v, g and writing dq, dk, dv
-// once; this version does its dot products on CUDA cores in f32 (and the
-// forward once more, for lse and D), so FMA issue bounds it.
+// Bound on the H100 (bf16, training shape 48x96, batch 8): the launch must
+// read q, k, v, g and write dq, dk, dv once (132 MB: 0.039 ms per launch)
+// and do five T x T products (18 GFLOP at T = 192: 0.018 ms at the bf16
+// tensor-core rate); the bytes bound it.
+//
+// bf16 (the training step's launch): the T x T products run on the tensor
+// cores, mma.sync.m16n8k16 with bf16 operands and f32 accumulation, fed by
+// ldmatrix (.trans where a product takes the transposed tile).  Blocks of 4
+// warps own 64 rows, 16 per warp; the other side's rows stream through
+// shared memory 64 at a time, double-buffered with 16-byte cp.async, rows
+// padded to HD + 8 elements so ldmatrix has no bank conflict.  A token's
+// head slice is 2 HD contiguous bytes; its offset is computed once per row
+// of a tile (one division), and the anti-same-pixel mask is two compares
+// against the row's pixel range.
+//   Kernel 1: a first pass takes S = Q K^T and dP = G V^T per 16-key chunk
+//   and keeps the online softmax's max, sum and sum of P dP, so lse and
+//   D_i = sum_j P_ij dP_ij come out in f32 without the output O; a second
+//   pass recomputes S and dP, forms dS = P (dP - D) in the accumulators and
+//   reuses them as the A fragment of dq += dS K.
+//   Kernel 2: with the block's k and v rows as A fragments, S^T = K Q^T and
+//   dP^T = V G^T per 16-query chunk, P^T = exp(S^T - lse) and dS^T; then
+//   dv += P^T G and dk += dS^T Q.
+// Softmax, lse, D and every sum stay in f32; P and dS are rounded to bf16
+// only as mma operands, as FlashAttention-2 does.  wgmma is not needed: the
+// work is bound by bytes and the tiles are small (hd 32 is two k-steps), so
+// mma.sync tiles are enough.  This version runs at 9-16x the byte bound
+// (PERF.md); what holds it there is not measured (ncu does not run on the
+// card's machine): the candidates are the barriers of each streamed tile
+// with 4 warps per block, and the exp and mask work of the elementwise part.
+//
+// f32 (phase 3 and 4 checks at 1e-4): kept on CUDA cores, which TF32 would
+// not meet.  One block of 64 threads per (64-row tile, stripe, head), one
+// row per thread, every dot product in f32 from shared memory.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace nmrf {
 
@@ -230,21 +252,367 @@ stripe_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaRows = 64;  // rows a block owns (and rows of a streamed tile)
+constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
+
+// padded row of a staged tile, in elements (16-byte rows, no ldmatrix conflict)
+template <int HD>
+__host__ __device__ constexpr int mma_ld() { return HD + 8; }
+
+// six [64, HD + 8] bf16 tiles (own rows: two; streamed rows: two tensors,
+// double-buffered) and the key side's lse and D of two query tiles
+template <int HD>
+constexpr size_t stripe_mma_smem_bytes() {
+  return static_cast<size_t>(6) * kMmaRows * mma_ld<HD>() * sizeof(bf16) +
+         static_cast<size_t>(4) * kMmaRows * sizeof(float);
+}
+
+// offset of the head's slice of a stripe's first token
+__device__ __forceinline__ long long stripe_base(const StripeBwdParams& p, int stripe, int head,
+                                                 int hd) {
+  const int b = stripe / (p.ni * p.nj);
+  const int si = (stripe / p.nj) % p.ni, sj = stripe % p.nj;
+  return ((static_cast<long long>(b) * p.Hp + si * p.H_sp) * p.Wp + sj * p.W_sp) * p.N * p.C +
+         head * hd;
+}
+
+// offset of stripe token t, (row, col, n) over (H_sp, W_sp, N), from the base:
+// col * N + n is t's remainder after the rows
+__device__ __forceinline__ long long stripe_token(const StripeBwdParams& p, int t) {
+  const int WN = p.W_sp * p.N;
+  const int dy = t / WN;
+  return (static_cast<long long>(dy) * p.Wp * p.N + (t - dy * WN)) * p.C;
+}
+
+// rows r0..r0+63 of a stripe's tokens of xa and xb into two [64, HD + 8]
+// tiles with cp.async; rows at or past T are zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* da, const bf16* xa, bf16* db, const bf16* xb,
+                                           long long base, int r0, const StripeBwdParams& p) {
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  constexpr int LD = mma_ld<HD>();
+  const int c = threadIdx.x % CH;
+  for (int r = threadIdx.x / CH; r < kMmaRows; r += kMmaThreads / CH) {
+    const int t = r0 + r;
+    const bool valid = t < p.T;
+    const long long off = valid ? base + stripe_token(p, t) + c * 8 : 0;
+    cp_async16(da + r * LD + c * 8, xa + off, valid);
+    cp_async16(db + r * LD + c * 8, xb + off, valid);
+  }
+}
+
+// Kernel 1: lse, D and dq of 64 query rows; key rows stream through.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+stripe_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                         bf16* __restrict__ dq, float* __restrict__ lse_out,
+                         float* __restrict__ d_out, StripeBwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = mma_ld<HD>(), KS = HD / 16, NTD = HD / 8, TILE = kMmaRows * LD;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + TILE;
+  bf16* sK = sG + TILE;      // [2][TILE]
+  bf16* sV = sK + 2 * TILE;  // [2][TILE]
+  const int stripe = blockIdx.y, head = blockIdx.z, i0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
+  const long long base = stripe_base(p, stripe, head, HD);
+  const int nkt = (p.T + kMmaRows - 1) / kMmaRows;
+
+  stage_rows<HD>(sQ, q, sG, gout, base, i0, p);
+  stage_rows<HD>(sK, k, sV, v, base, 0, p);
+  cp_async_commit();
+
+  int qi[2], lo[2];  // the thread's two query rows and their pixel's first token
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = i0 + warp * 16 + gq + 8 * r;
+    lo[r] = qi[r] / p.N * p.N;
+  }
+  uint32_t qa[KS][4], ga[KS][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f};
+  float lse[2] = {0.f, 0.f}, D[2] = {0.f, 0.f};
+  float dqa[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  // tiles 0..nkt-1: pass 1 (lse, D); tiles nkt..2nkt-1: pass 2 (dq)
+  for (int it = 0; it < 2 * nkt; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < 2 * nkt)
+      stage_rows<HD>(sK + (buf ^ 1) * TILE, k, sV + (buf ^ 1) * TILE, v, base,
+                     ((it + 1) % nkt) * kMmaRows, p);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        load_a(qa[ks], sQ, LD, warp * 16, ks * 16, lane);
+        load_a(ga[ks], sG, LD, warp * 16, ks * 16, lane);
+      }
+    }
+    if (it == nkt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float ls = quad_sum(l[r]);
+        lse[r] = m[r] + logf(ls);
+        D[r] = quad_sum(pd[r]) / ls;
+      }
+    }
+    const bf16* tk = sK + buf * TILE;
+    const bf16* tv = sV + buf * TILE;
+    const int j0 = (it % nkt) * kMmaRows;
+    for (int kc = 0; kc < kMmaRows / 16 && j0 + kc * 16 < p.T; ++kc) {
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t b[4];
+        load_b_rows(b, tk, LD, kc * 16, ks * 16, lane);
+        mma_bf16(s[0], qa[ks], b[0], b[1]);
+        mma_bf16(s[1], qa[ks], b[2], b[3]);
+        load_b_rows(b, tv, LD, kc * 16, ks * 16, lane);
+        mma_bf16(dp[0], ga[ks], b[0], b[1]);
+        mma_bf16(dp[1], ga[ks], b[2], b[3]);
+      }
+      // logits; -inf past T and between different candidates of a pixel
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, j = j0 + kc * 16 + nt * 8 + 2 * t4 + (e & 1);
+          const bool ok = j < p.T && !(j >= lo[r] && j < lo[r] + p.N && j != qi[r]);
+          s[nt][e] = ok ? s[nt][e] * p.scale : -INFINITY;
+        }
+      if (it < nkt) {  // online softmax: running max, sum and sum of P dP
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mx = quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                          fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+          const float mn = fmaxf(m[r], mx);
+          const float mu = mn == -INFINITY ? 0.f : mn;
+          const float corr = __expf(m[r] - mu);
+          l[r] *= corr;
+          pd[r] *= corr;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float e = __expf(s[nt][2 * r + c] - mu);
+              l[r] += e;
+              pd[r] += e * dp[nt][2 * r + c];
+            }
+          m[r] = mn;
+        }
+      } else {  // dS = P (dP - D), then dq += dS K
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[nt][e] = __expf(s[nt][e] - lse[e >> 1]) * (dp[nt][e] - D[e >> 1]);
+        uint32_t a[4];
+        c_to_a(a, dp[0], dp[1]);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, tk, LD, kc * 16, nd * 16, lane);
+          mma_bf16(dqa[2 * nd], a, b[0], b[1]);
+          mma_bf16(dqa[2 * nd + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= p.T) continue;
+    const long long off = base + stripe_token(p, qi[r]);
+#pragma unroll
+    for (int n = 0; n < NTD; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(dqa[n][2 * r] * p.scale, dqa[n][2 * r + 1] * p.scale);
+    if (t4 == 0) {
+      const long long row = (static_cast<long long>(stripe) * p.heads + head) * p.T + qi[r];
+      lse_out[row] = lse[r];
+      d_out[row] = D[r];
+    }
+  }
+}
+
+// Kernel 2: dk and dv of 64 key rows; query rows, g rows and their lse and D
+// stream through.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+stripe_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
+                          const float* __restrict__ lse_in, const float* __restrict__ d_in,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, StripeBwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = mma_ld<HD>(), KS = HD / 16, NTD = HD / 8, TILE = kMmaRows * LD;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;      // [2][TILE]
+  bf16* sG = sQ + 2 * TILE;  // [2][TILE]
+  float* sL = reinterpret_cast<float*>(sG + 2 * TILE);  // [2][64] lse
+  float* sD = sL + 2 * kMmaRows;                         // [2][64] D
+  const int stripe = blockIdx.y, head = blockIdx.z, j0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
+  const long long base = stripe_base(p, stripe, head, HD);
+  const long long srow = (static_cast<long long>(stripe) * p.heads + head) * p.T;
+  const int nqt = (p.T + kMmaRows - 1) / kMmaRows;
+  // lse and D of query tile i0 (zero past T, where q and g rows are zero too)
+  auto stage_stats = [&](int buf, int i0) {
+    if (threadIdx.x < kMmaRows) {
+      const int i = i0 + threadIdx.x;
+      sL[buf * kMmaRows + threadIdx.x] = i < p.T ? lse_in[srow + i] : 0.f;
+      sD[buf * kMmaRows + threadIdx.x] = i < p.T ? d_in[srow + i] : 0.f;
+    }
+  };
+
+  stage_rows<HD>(sK, k, sV, v, base, j0, p);
+  stage_rows<HD>(sQ, q, sG, gout, base, 0, p);
+  stage_stats(0, 0);
+  cp_async_commit();
+
+  int kj[2], lo[2];  // the thread's two key rows and their pixel's first token
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kj[r] = j0 + warp * 16 + gq + 8 * r;
+    lo[r] = kj[r] / p.N * p.N;
+  }
+  uint32_t ka[KS][4], va[KS][4];
+  float dka[NTD][4], dva[NTD][4];
+#pragma unroll
+  for (int n = 0; n < NTD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < nqt; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < nqt) {
+      stage_rows<HD>(sQ + (buf ^ 1) * TILE, q, sG + (buf ^ 1) * TILE, gout, base,
+                     (it + 1) * kMmaRows, p);
+      stage_stats(buf ^ 1, (it + 1) * kMmaRows);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        load_a(ka[ks], sK, LD, warp * 16, ks * 16, lane);
+        load_a(va[ks], sV, LD, warp * 16, ks * 16, lane);
+      }
+    }
+    const bf16* tq = sQ + buf * TILE;
+    const bf16* tg = sG + buf * TILE;
+    const float* tl = sL + buf * kMmaRows;
+    const float* td = sD + buf * kMmaRows;
+    const int i0 = it * kMmaRows;
+    for (int qc = 0; qc < kMmaRows / 16 && i0 + qc * 16 < p.T; ++qc) {
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t b[4];
+        load_b_rows(b, tq, LD, qc * 16, ks * 16, lane);
+        mma_bf16(s[0], ka[ks], b[0], b[1]);
+        mma_bf16(s[1], ka[ks], b[2], b[3]);
+        load_b_rows(b, tg, LD, qc * 16, ks * 16, lane);
+        mma_bf16(dp[0], va[ks], b[0], b[1]);
+        mma_bf16(dp[1], va[ks], b[2], b[3]);
+      }
+      // P^T and dS^T (rows: keys, columns: queries)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, il = qc * 16 + nt * 8 + 2 * t4 + (e & 1), i = i0 + il;
+          const bool ok = i < p.T && !(i >= lo[r] && i < lo[r] + p.N && i != kj[r]);
+          const float pr = ok ? __expf(s[nt][e] * p.scale - tl[il]) : 0.f;
+          s[nt][e] = pr;
+          dp[nt][e] = pr * (dp[nt][e] - td[il]);
+        }
+      uint32_t pa[4], da[4];
+      c_to_a(pa, s[0], s[1]);
+      c_to_a(da, dp[0], dp[1]);
+#pragma unroll
+      for (int nd = 0; nd < NTD / 2; ++nd) {
+        uint32_t b[4];
+        load_b_cols(b, tg, LD, qc * 16, nd * 16, lane);
+        mma_bf16(dva[2 * nd], pa, b[0], b[1]);
+        mma_bf16(dva[2 * nd + 1], pa, b[2], b[3]);
+        load_b_cols(b, tq, LD, qc * 16, nd * 16, lane);
+        mma_bf16(dka[2 * nd], da, b[0], b[1]);
+        mma_bf16(dka[2 * nd + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kj[r] >= p.T) continue;
+    const long long off = base + stripe_token(p, kj[r]);
+#pragma unroll
+    for (int n = 0; n < NTD; ++n) {
+      const int c = n * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+          __floats2bfloat162_rn(dka[n][2 * r] * p.scale, dka[n][2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* g, void* dq,
+                   void* dk, void* dv, float* lse, float* dsum, StripeBwdParams p,
+                   cudaStream_t stream) {
+  const int smem = static_cast<int>(stripe_mma_smem_bytes<HD>());
+  cudaError_t err = cudaFuncSetAttribute(stripe_bwd_dq_mma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stripe_bwd_dkv_mma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.T + kMmaRows - 1) / kMmaRows, p.B * p.ni * p.nj, p.heads);
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* g_ = static_cast<const bf16*>(g);
+  stripe_bwd_dq_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
+      q_, k_, v_, g_, static_cast<bf16*>(dq), lse, dsum, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stripe_bwd_dkv_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
+      q_, k_, v_, g_, lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
                void* dv, float* lse, float* dsum, StripeBwdParams p, cudaStream_t stream) {
-  dim3 grid((p.T + kBwdTile - 1) / kBwdTile, p.B * p.ni * p.nj, p.heads);
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* g_ = static_cast<const T*>(g);
-  stripe_bwd_dq_kernel<T, HD><<<grid, kBwdTile, 0, stream>>>(
-      q_, k_, v_, g_, static_cast<T*>(dq), lse, dsum, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stripe_bwd_dkv_kernel<T, HD><<<grid, kBwdTile, 0, stream>>>(
-      q_, k_, v_, g_, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    return launch_bwd_mma<HD>(q, k, v, g, dq, dk, dv, lse, dsum, p, stream);
+  } else {
+    dim3 grid((p.T + kBwdTile - 1) / kBwdTile, p.B * p.ni * p.nj, p.heads);
+    const T* q_ = static_cast<const T*>(q);
+    const T* k_ = static_cast<const T*>(k);
+    const T* v_ = static_cast<const T*>(v);
+    const T* g_ = static_cast<const T*>(g);
+    stripe_bwd_dq_kernel<T, HD><<<grid, kBwdTile, 0, stream>>>(
+        q_, k_, v_, g_, static_cast<T*>(dq), lse, dsum, p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stripe_bwd_dkv_kernel<T, HD><<<grid, kBwdTile, 0, stream>>>(
+        q_, k_, v_, g_, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``nmrf_tpu_torch/_build/lib<name>-<hash>.so`` (the hash covers the source and
-the shared header, so an edited source is rebuilt), then loaded with
+the shared headers, so an edited source is rebuilt), then loaded with
 ``ctypes``.  Nothing is built when the module is imported: the first launch
 of a kernel builds it, and :func:`build_all` builds every kernel at once with
 one ``nvcc`` process per source.
@@ -38,7 +38,7 @@ _SIGNATURES = {
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P]),
     "window_attention_bwd": ("nmrf_window_attention_bwd",
-                             [_P] * 8 + [_I] * 13 + [_F, _P]),
+                             [_P] * 9 + [_I] * 14 + [_F, _P]),
     "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
                              [_P] * 9 + [_I] * 9 + [_F, _P]),
     "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P]),
@@ -67,15 +67,15 @@ def _nvcc():
 
 def _library_path(name):
     digest = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _command(name, target):
+def _command(name, target, csrc=CSRC):
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(target), str(CSRC / f"{name}.cu")]
+            "-o", str(target), str(Path(csrc) / f"{name}.cu")]
 
 
 def build_all(names=KERNELS):

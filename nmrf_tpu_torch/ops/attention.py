@@ -46,6 +46,16 @@ _KERNEL_HEAD_DIMS = (16, 32, 64)
 # over partials then has one order on every card); two waves of one block
 # per SM on the H100's 132 SMs at the Inference window
 _POS_BWD_BLOCKS = 264
+# blocks of K1b's d(ve) partial kernel, about 8 per SM on the H100's 132:
+# the split of its items is a function of the shapes only, so the partials
+# are summed in one order on every card
+_DVE_BLOCKS = 1056
+
+
+def _dve_splits(items, P, heads):
+    """Splits of K1b's d(ve) reduction over its items (window, candidate),
+    at least 32 items each."""
+    return max(1, min(-(-_DVE_BLOCKS // (P * heads)), -(-items // 32)))
 
 
 @lru_cache(maxsize=16)
@@ -166,6 +176,22 @@ def _window_index(window, device):
                            device=device)
 
 
+@lru_cache(maxsize=16)
+def _window_scatter_index(wh: int, ww: int) -> np.ndarray:
+    """[(2wh-1)(2ww-1), P] for each table row, the (p, s) pairs (index p P +
+    s) at that relative position, padded with P*P (the index of an
+    appended zero row).  The table cotangent is then a gather and a sum in
+    one fixed order: ``index_add_`` on a card adds with atomics in an order
+    that changes from run to run."""
+    idx = relative_position_index(wh, ww).reshape(-1)
+    out = np.full(((2 * wh - 1) * (2 * ww - 1), wh * ww), idx.size, np.int64)
+    fill = np.zeros(len(out), np.int64)
+    for pair, t in enumerate(idx):
+        out[t, fill[t]] = pair
+        fill[t] += 1
+    return out
+
+
 def _window_tables(table, window, num_heads):
     """(qe, ke, ve), each [P, P, h, hd]: the table rows rel(p, s) of query
     pixel p and key pixel s, columns in (head, component, hd) order."""
@@ -220,7 +246,8 @@ def _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, num_heads):
     dkr ([G, h, T, P], the gradients of the pixel-granular positional
     logits) and d(ve) ([h, P, P, hd]): add the positional halves dqr.ke and
     dkr.qe to d(q) and d(k), form the q/k table gradients and scatter all
-    three into the rows of the table.  Plain tensor products, the part the
+    three into the rows of the table (a gather and a sum in a fixed order,
+    so two calls give the same bits).  Plain tensor products, the part the
     JAX package leaves to XLA.  Returns (d(qkv) in qkv's dtype, d(table)
     f32)."""
     B, Hp, Wp, N, C3 = qkv.shape
@@ -243,10 +270,9 @@ def _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, num_heads):
     pos = torch.stack([dq_pos, dk_pos]).reshape(2, G, h, P * N, hd)
     dqkv[..., :2 * C] += _window_merge(pos, (B, Hp, Wp, N), window)
     d_rpe = torch.stack([d_qe, d_ke, dve.permute(1, 2, 0, 3)], dim=3)
-    d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
-    d_table.index_add_(0, _window_index(window, table.device),
-                       d_rpe.reshape(P * P, C3))
-    return dqkv.to(qkv.dtype), d_table
+    d_rpe = torch.cat([d_rpe.reshape(P * P, C3), d_rpe.new_zeros(1, C3)])
+    index = torch.as_tensor(_window_scatter_index(*window), device=table.device)
+    return dqkv.to(qkv.dtype), d_rpe[index].sum(1)
 
 
 def window_attention_bwd_plain(g, qkv, rel_table, shift, window, num_heads,
@@ -398,8 +424,9 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
     [B, Hp, Wp, N, C]: (d(qkv) in qkv's dtype, d(rel_table) f32).
 
     On CUDA tensors one launch of K1b (the softmax backward, dqr/dkr and
-    the d(ve) reduction, ``csrc/window_attention_bwd.cu``), then the
-    positional products of :func:`_window_bwd_finish`."""
+    the d(ve) reduction over fixed-order partials,
+    ``csrc/window_attention_bwd.cu``), then the positional products of
+    :func:`_window_bwd_finish`."""
     B, Hp, Wp, N, C = _window_shapes(qkv, rel_table, window, num_heads, row0,
                                      hp_total)
     if tuple(g.shape) != (B, Hp, Wp, N, C):
@@ -420,12 +447,14 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
     dqkv = torch.empty((B, Hp, Wp, N, 3 * C), **f32)
     dqr, dkr, mass = (torch.empty((G, h, T, P), **f32) for _ in range(3))
     dve = torch.empty((h, P, P, C // h), **f32)
+    nsplit = _dve_splits(G * N, P, h)
+    dve_partial = torch.empty((nsplit,) + tuple(dve.shape), **f32)
     err = _native.library("window_attention_bwd")(
         qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         dqr.data_ptr(), dkr.data_ptr(), mass.data_ptr(), dve.data_ptr(),
-        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h, wh, ww, int(shift),
-        int(bool(candidate_mask)), int(row0),
-        Hp if hp_total is None else int(hp_total), (C // h) ** -0.5,
+        dve_partial.data_ptr(), _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h,
+        wh, ww, int(shift), int(bool(candidate_mask)), int(row0),
+        Hp if hp_total is None else int(hp_total), nsplit, (C // h) ** -0.5,
         _native.stream())
     _native.check_launch("window_attention_bwd", err)
     window_attention_bwd.launches += 1

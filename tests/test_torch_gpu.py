@@ -9,6 +9,9 @@ Tolerance against the plain version on identical inputs: f32 atol = rtol
 the output).  The backward kernels are held against autograd through the
 plain forward versions; their bf16 d(qkv) is one bf16 rounding of sums of
 up to T products of magnitude about 1 and gets atol 5e-2, rtol 2e-2.
+K1b and K2b are also held at the training step's batch of 8 (K2b on
+ragged stripes too) and against themselves (two launches, the same bits),
+K1b also on the sharded step's tiles.
 The tap-MSDA kernel (B5) is held against its plain version, the dense tap
 sum, at the forward tolerances.  The masked attention B6 and its backward
 B6b, and K1/K1b on a tile's row offset, are held at the same tolerances;
@@ -128,6 +131,58 @@ def test_stripe_bwd_kernel_matches_autograd_of_plain(cuda, dtype, shape):
     atol, rtol = _GPU_BWD_TOL[dtype]
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(47, 156, 47, 1), (47, 156, 1, 156)],
+                         ids=["T188", "T624"])
+def test_stripe_bwd_kernel_batch8_ragged_and_repeatable(cuda, dtype, hd, shape):
+    """K2b at batch 8 on the KITTI stripes (T 188, not a multiple of the
+    16-row tiles, and T 624) and every supported head dim, against its plain
+    version; two launches on the same inputs give the same bits."""
+    H, W, H_sp, W_sp = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = tuple(torch.randn(8, H, W, 4, 64, generator=g, device=cuda).to(dtype)
+                 for _ in range(4)) + (H_sp, W_sp, 64 // hd)
+    got = A.stripe_attention_bwd(*args)
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for a, b in zip(got, A.stripe_attention_bwd_plain(*args)):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    for a, b in zip(got, A.stripe_attention_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _WINDOW_BWD_CASES[:4],
+                         ids=["inference-shift0", "inference-shift3",
+                              "refinement-shift0", "refinement-shift2"])
+def test_window_bwd_kernel_batch8_and_repeatable(cuda, dtype, case):
+    """K1b at the training step's shapes and batch (8) against its plain
+    version; two launches on the same inputs give the same bits (d(ve) is
+    summed from fixed-order partials and the table scatter is a gather and
+    a sum: no atomics)."""
+    Hp, Wp, N, ws, shift, cand = case
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(8, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(8, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
+    args = (gout, qkv, table, shift, (ws, ws), 4, cand)
+    got = A.window_attention_bwd(*args)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    want = A.window_attention_bwd_plain(*args)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    # d(table) sums over every window of the batch (18,432 at Refinement),
+    # in another order than the plain version's: atol as in
+    # test_window_bwd_kernel_matches_autograd_of_plain
+    torch.testing.assert_close(got[1], want[1], atol=atol * 10, rtol=rtol)
+    for a, b in zip(got, A.window_attention_bwd(*args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -299,7 +354,8 @@ def test_masked_kernels_match_plain(cuda, dtype, mask_kind):
                                   (48, 192, 1, 4, 2, False, 48, 96)])
 def test_window_kernels_at_a_tile_match_plain(cuda, dtype, case):
     """K1 and K1b on an H tile (rows row0.. of an image of hp_total rows:
-    the shifted-region mask in global rows) against their plain versions."""
+    the shifted-region mask in global rows) against their plain versions;
+    a second K1b launch gives the same bits."""
     Hp, Wp, N, ws, shift, cand, row0, hp_total = case
     g = torch.Generator(device=cuda).manual_seed(8)
     qkv = torch.randn(2, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
@@ -316,6 +372,8 @@ def test_window_kernels_at_a_tile_match_plain(cuda, dtype, case):
     atol, rtol = _GPU_BWD_TOL[dtype]
     for a, b in zip(dgot, dwant):
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    for a, b in zip(dgot, A.window_attention_bwd(gout, *args)):
+        assert torch.equal(a, b)
 
 
 # ---- B7: the fully fused window backward (NMRF_FUSED_POS=1) ---- #

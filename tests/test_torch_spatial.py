@@ -128,14 +128,10 @@ def _leaves(tree):
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """Weights, batch, and the JAX package's outputs: the sharded (1, 2)
-    forward, the unsharded forward, and the sharded train losses, gradients
-    and final proposal logits."""
-    cfg = _jax_cfg()
-    model, criterion = build_model_jax(cfg)
-    model_sp, _ = build_model_jax(cfg, spatial_axis="spatial")
+def jax_weights_and_batch(model):
+    """The test weights (flax tree as numpy: the JAX init, a seeded jitter,
+    the proposal logits spread and the MLP heads' hidden biases raised) and
+    the synthetic batch."""
     zeros = jnp.zeros((1, H, WIDTH, 3))
     params = jax.jit(lambda r: model.init(r, zeros, zeros, train=False))(
         jax.random.PRNGKey(0))
@@ -149,15 +145,17 @@ def jax_side():
                  tree["dpn"]["prop_head"]):
         for layer in ("layers_0", "layers_1"):
             head[layer]["bias"] += HEAD_BIAS
-    batch = synthetic_batch(B, H, WIDTH, max_disp=48, seed=BATCH_SEED)
+    return params, synthetic_batch(B, H, WIDTH, max_disp=48, seed=BATCH_SEED)
+
+
+def jax_sharded_step(cfg, params, batch):
+    """Losses and gradient leaves of one JAX training step on a (1, 2) CPU
+    mesh (``spatial_sharded_apply``); asserts the proposal-logit margin."""
+    _, criterion = build_model_jax(cfg)
+    model_sp, _ = build_model_jax(cfg, spatial_axis="spatial")
     p = jax.tree_util.tree_map(jnp.asarray, params)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     mesh = make_mesh_jax(1, 2, devices=jax.devices()[:2])
-
-    sharded = jax.jit(lambda p, a, b: spatial_apply_jax(
-        model_sp, mesh, p, a, b, train=False))(p, jb["img1"], jb["img2"])
-    unsharded = jax.jit(lambda p, a, b: model.apply(p, a, b, train=False))(
-        p, jb["img1"], jb["img2"])
 
     def loss_fn(p):
         out = spatial_apply_jax(model_sp, mesh, p, jb["img1"], jb["img2"],
@@ -169,11 +167,30 @@ def jax_side():
         jax.value_and_grad(loss_fn, has_aux=True))(p)
     top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() > MIN_MARGIN
+    return {k: float(v) for k, v in losses.items()}, _leaves(grads)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """Weights, batch, and the JAX package's outputs: the sharded (1, 2)
+    forward, the unsharded forward, and the sharded train losses and
+    gradients."""
+    cfg = _jax_cfg()
+    model, _ = build_model_jax(cfg)
+    model_sp, _ = build_model_jax(cfg, spatial_axis="spatial")
+    params, batch = jax_weights_and_batch(model)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    mesh = make_mesh_jax(1, 2, devices=jax.devices()[:2])
+
+    sharded = jax.jit(lambda p, a, b: spatial_apply_jax(
+        model_sp, mesh, p, a, b, train=False))(p, jb["img1"], jb["img2"])
+    unsharded = jax.jit(lambda p, a, b: model.apply(p, a, b, train=False))(
+        p, jb["img1"], jb["img2"])
+    losses, grads = jax_sharded_step(cfg, params, batch)
     np_out = (lambda o: {k: np.asarray(v) for k, v in o.items()})
     return {"params": params, "batch": batch, "sharded": np_out(sharded),
-            "unsharded": np_out(unsharded),
-            "losses": {k: float(v) for k, v in losses.items()},
-            "grads": _leaves(grads)}
+            "unsharded": np_out(unsharded), "losses": losses, "grads": grads}
 
 
 @pytest.fixture(scope="module")
@@ -232,12 +249,19 @@ def test_batch1_eval_replicates_over_data_axis(port_runs):
 
 @pytest.mark.parametrize("grid", GRIDS)
 def test_train_losses_and_gradients_match_jax_sharded(jax_side, port_runs, grid):
-    rank0 = port_runs[grid][0]
-    assert set(rank0["losses"]) == set(jax_side["losses"])
-    for key, value in jax_side["losses"].items():
+    check_train_step(port_runs[grid], jax_side["losses"], jax_side["grads"])
+
+
+def check_train_step(ranks, want_losses, want):
+    """The port's sharded step (rank results) against the JAX step's losses
+    (|d| < 1e-4) and gradient leaves (the tolerances of
+    ``tests/test_spatial_model.py``); every rank holds the same summed
+    gradients."""
+    rank0 = ranks[0]
+    assert set(rank0["losses"]) == set(want_losses)
+    for key, value in want_losses.items():
         assert abs(rank0["losses"][key] - value) < 1e-4, (key, rank0["losses"][key], value)
     got = _leaves(convert_torch_state_dict(rank0["grads"])[0])
-    want = jax_side["grads"]
     assert got.keys() == want.keys()
     bb_scale = max(np.abs(g).max() for k, g in want.items() if "backbone" in k)
     bad = []
@@ -257,6 +281,6 @@ def test_train_losses_and_gradients_match_jax_sharded(jax_side, port_runs, grid)
         if not ok:
             bad.append(f"{key}: {err:.3e}")
     assert not bad, "\n".join(bad)
-    for other in port_runs[grid][1:]:  # the summed gradients agree everywhere
+    for other in ranks[1:]:  # the summed gradients agree everywhere
         for key, value in rank0["grads"].items():
             torch.testing.assert_close(other["grads"][key], value, atol=0, rtol=0)

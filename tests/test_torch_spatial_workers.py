@@ -107,3 +107,36 @@ def model_worker(rank, data, spatial, in_dir, out_dir):
     result["grads"] = {k: p.grad for k, p in model.named_parameters()}
     result["logits"] = out["logits_layers"][-1].detach()
     torch.save(result, f"{out_dir}/model_{rank}.pt")
+
+
+def fused_step_worker(rank, in_dir, out_dir):
+    """One sharded training step on a 1 x spatial grid as ``model_worker``
+    takes it, run with NMRF_FUSED_POS=1 in the environment: the losses, the
+    world-summed gradients, and how often each window backward ran (on the
+    CPU B7's plain version, and K1b's path is autograd of the plain
+    forward)."""
+    from nmrf_tpu_torch.ops import attention as A
+
+    torch.set_num_threads(1)
+    calls = {"window_attention_pos_bwd_plain": 0}
+    plain = A.window_attention_pos_bwd_plain
+
+    def counted(*args, **kw):
+        calls["window_attention_pos_bwd_plain"] += 1
+        return plain(*args, **kw)
+
+    A.window_attention_pos_bwd_plain = counted
+    cfg = small_cfg(1, torch.distributed.get_world_size())
+    mesh = make_mesh(cfg.TPU.MESH_DATA, cfg.TPU.MESH_SPATIAL, device="cpu")
+    model = build_model(cfg, mesh=mesh)
+    model.load_state_dict(torch.load(f"{in_dir}/weights.pt"), strict=True)
+    batch = {k: v for k, v in np.load(f"{in_dir}/batch.npz").items()}
+    model.train()
+    local = shard_batch(batch, mesh)
+    out = spatial_sharded_apply(model, mesh, local["img1"], local["img2"])
+    losses = build_criterion(cfg)(out, local)
+    losses["total"].backward()
+    sum_gradients(list(model.parameters()), mesh)
+    torch.save({"losses": {k: float(v.detach()) for k, v in losses.items()},
+                "grads": {k: p.grad for k, p in model.named_parameters()},
+                "calls": calls}, f"{out_dir}/fused_{rank}.pt")
