@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
-    python3 chip_smoke.py --compare-old DIR  # K1b/K2b vs DIR's sources
+    python3 chip_smoke.py --compare-old DIR  # B7/K2 vs DIR's sources
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. build every hand-written kernel from ``nmrf_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) into ``nmrf_tpu_torch/_build``;
+   source, in parallel) into ``nmrf_tpu_torch/_build``; the tensor-core
+   kernels must not spill registers at head dim 32 (``NO_SPILL``);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, in float32 (TF32 off) and bfloat16: the forward
-   kernels K1 and K2 at the KITTI serving shapes, the backward kernels K1b,
-   K2b and B7 (the fully fused window backward of the NMRF_FUSED_POS=1
-   training path) at the training shapes (batch 1, and bf16 at the
-   training batch of 8) and the KITTI shapes; B7 also against K1b on the
+   kernels K1 and K2 at the KITTI serving shapes (K2 also at the training
+   shapes, bf16 at the training batch, and on a sharded rank's tile), the
+   backward kernels K1b, K2b and B7 (the fully fused window backward of
+   the NMRF_FUSED_POS=1 training path) at the training shapes (batch 1,
+   and bf16 at the training batch of 8) and the KITTI shapes; B7 also against K1b on the
    same f32 inputs (the same function), and two launches of K1b, K2b or B7
    on the same inputs must give the same bits;
    The tap-MSDA kernel B5 is held against its plain version at the four
@@ -42,9 +44,9 @@ Phases (any failure exits non-zero before the last line is printed):
    library call (``scaled_dot_product_attention``, its backward for K1b,
    B7, K2b and B6b; ``grid_sample`` for B5) at the same shapes (K1b also
    by kernel: its main kernel, its d(ve) kernels and the plain products of
-   ``_window_bwd_finish``), and break a request of each model, a training
-   step and a NMRF_FUSED_POS=1 training step down by device kernel with
-   ``torch.profiler``;
+   ``_window_bwd_finish``; B7 its main kernel and its partial sum), and
+   break a request of each model, a training step and a NMRF_FUSED_POS=1
+   training step down by device kernel with ``torch.profiler``;
 7. drive the H-sharded path: two processes on the one card (a 1 x 2
    (data, spatial) grid over gloo, ``nmrf_tpu_torch.parallel``) serve 4
    KITTI pairs padded to 384x1248 through ``make_sharded_forward`` (bf16,
@@ -59,10 +61,12 @@ Phases (any failure exits non-zero before the last line is printed):
    their plain versions.
 
 With ``--compare-old DIR`` it builds the kernels and DIR's
-``window_attention_bwd.cu`` and ``stripe_attention_bwd.cu`` (earlier
-versions of K1b and K2b, with DIR's headers) and times the two versions in
-turns (old, new, new, old) at the training shapes, beside SDPA's backward
-and the bound, and in the default training step; nothing else runs.
+``window_attention_pos_bwd.cu`` and ``stripe_attention.cu`` (earlier
+versions of B7 and K2, with DIR's headers) and times the two versions in
+turns (old, new, new, old): B7 at the training shapes beside SDPA's
+backward and the bound, K2 at the serving and the training shapes beside
+SDPA and the bound, then the NMRF_FUSED_POS=1 and the default training
+steps; nothing else runs.
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -158,6 +162,33 @@ def ptxas_kernels(text):
             out.append((name, int(m.group(1)), spills))
             name = None
     return out
+
+
+# the tensor-core kernels at the main paths' head dim (32): each must build
+# without spilling registers to local memory
+NO_SPILL = {
+    "stripe_attention": ("stripe_attention_mma_kernel<bf16,32>",),
+    "stripe_attention_bwd": ("stripe_bwd_dq_mma_kernel<bf16,32>",
+                             "stripe_bwd_dkv_mma_kernel<bf16,32>"),
+    "window_attention_bwd": ("window_bwd_mma_kernel<bf16,32,1>",
+                             "window_bwd_mma_kernel<bf16,32,9>"),
+    "window_attention_pos_bwd": ("window_pos_bwd_mma_kernel<bf16,32,1>",
+                                 "window_pos_bwd_mma_kernel<bf16,32,9>"),
+}
+
+
+def check_spills(report):
+    """Fail if ptxas reported a spill, or no report, for a kernel of
+    NO_SPILL in a library that this run built."""
+    for lib, kernels in NO_SPILL.items():
+        if lib not in report:
+            continue
+        found = {fn: spills for fn, _, spills in ptxas_kernels(report[lib][1])}
+        for kernel in kernels:
+            if kernel not in found:
+                fail(f"ptxas reported nothing for {kernel} ({lib}.cu)")
+            if found[kernel]:
+                fail(f"{kernel} spills {found[kernel]} B of registers")
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -377,6 +408,24 @@ def kernel_phase(gen):
                                                           W_sp, C, heads)
         results["stripe_attention"].append(entry)
         log(f"kernel stripe_attention {label}: " + json.dumps(entry))
+    # checked, not timed here (count 0): the training stripes (f32 at batch
+    # 1, bf16 at the training batch) and the horizontal stripes of a
+    # sharded rank's tile (24 of the 48 rows at 1/8, 1 x 2 grid)
+    cases = [c[:6] + (TRAIN_BATCH,) for c in TRAIN_STRIPE_CASES] \
+        + [("sharded tile horizontal/T624", 24, 156, 4, 1, 156, 1)]
+    for label, Hp, Wp, N, H_sp, W_sp, batch in cases:
+        entry = {"shape": label, "count": 0}
+        for dtype_name, dt, b in (("float32", torch.float32, 1),
+                                  ("bfloat16", torch.bfloat16, batch)):
+            q, k, v = (torch.randn(b, Hp, Wp, N, C, generator=gen, device=dev,
+                                   dtype=dt) for _ in range(3))
+            got = A.stripe_attention(q, k, v, H_sp, W_sp, heads)
+            torch.cuda.synchronize()
+            want = A.stripe_attention_plain(q, k, v, H_sp, W_sp, heads)
+            entry[f"max_abs_err_{dtype_name}"] = check_close(
+                f"stripe_attention {label} batch {b}", got, want, dtype_name)
+        results["stripe_attention"].append(entry)
+        log(f"kernel stripe_attention {label}: " + json.dumps(entry))
     return results
 
 
@@ -395,17 +444,20 @@ def sdpa_backward_ms(gen, G, heads, T, hd, mask):
                                                retain_graph=True), 10)
 
 
-# K1b's own kernels by name (the rest of a launch's device time is the
-# plain products of ``_window_bwd_finish``)
+# the window backwards' own kernels by name: K1b's main and d(ve) kernels
+# (the rest of a launch's device time is the plain products of
+# ``_window_bwd_finish``), B7's main kernel and its in-order partial sum
 K1B_MAIN = ("window_bwd_mma_kernel", "window_attention_bwd_kernel")
 K1B_DVE = ("window_dve_",)
+B7_MAIN = ("window_pos_bwd_mma_kernel", "window_pos_bwd_kernel")
+B7_SUM = ("window_pos_bwd_sum_kernel",)
 
 
-def window_bwd_split_ms(fn, ms, iters=3):
-    """K1b's device time per call fn() apart, from torch.profiler's device
-    intervals over iters calls after a warm-up: its main kernel, its d(ve)
-    kernels, and the rest (``_window_bwd_finish``): ms, the event-timed
-    call, less the two."""
+def split_ms(fn, ms, groups, iters=3):
+    """Device time per call fn() by kernel, from torch.profiler's device
+    intervals over iters calls after a warm-up: {group: ms} for each
+    (group, name substrings) of ``groups``, and "rest": ms, the event-timed
+    call, less the groups (K1b's ``_window_bwd_finish``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -416,13 +468,18 @@ def window_bwd_split_ms(fn, ms, iters=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    main = dve = 0.0
+    out = {g: 0.0 for g, _ in groups}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
-            t = evt.time_range.elapsed_us() / 1e3 / iters
-            main += t if any(k in evt.name for k in K1B_MAIN) else 0.0
-            dve += t if any(k in evt.name for k in K1B_DVE) else 0.0
-    return {"main": main, "dve": dve, "finish": ms - main - dve}
+            for g, keys in groups:
+                if any(k in evt.name for k in keys):
+                    out[g] += evt.time_range.elapsed_us() / 1e3 / iters
+    out["rest"] = ms - sum(out.values())
+    return out
+
+
+K1B_SPLIT = (("main", K1B_MAIN), ("dve", K1B_DVE))
+B7_SPLIT = (("main", B7_MAIN), ("sum", B7_SUM))
 
 
 def bwd_kernel_phase(gen):
@@ -473,8 +530,8 @@ def bwd_kernel_phase(gen):
                          A.window_attention_bwd(*args))
             del got
             entry["ms"] = cuda_ms(lambda: A.window_attention_bwd(*args), 10)
-            entry["kernel_ms"] = window_bwd_split_ms(
-                lambda: A.window_attention_bwd(*args), entry["ms"])
+            entry["kernel_ms"] = split_ms(
+                lambda: A.window_attention_bwd(*args), entry["ms"], K1B_SPLIT)
             entry["plain_ms"] = cuda_ms(
                 lambda: A.window_attention_bwd_plain(*args), 3, warmup=1)
             T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
@@ -543,9 +600,9 @@ def pos_bwd_kernel_phase(gen):
     batch TRAIN_BATCH on the training shapes; against K1b on the same f32
     inputs (the same function, at TOL_BWD's f32 1e-4); two launches on the
     same inputs give the same bits (f32 at batch 1, bf16 at TRAIN_BATCH).
-    Its timings of phase 6 as K1b's: the batch-TRAIN_BATCH inputs, SDPA's
-    backward with an additive mask as the yardstick, the bound of
-    ``window_bound(..., backward=True)``."""
+    Its timings of phase 6 as K1b's: the batch-TRAIN_BATCH inputs, its main
+    and sum kernels apart, SDPA's backward with an additive mask as the
+    yardstick, the bound of ``window_bound(..., backward=True)``."""
     import torch
 
     from nmrf_tpu_torch.ops import attention as A
@@ -591,6 +648,8 @@ def pos_bwd_kernel_phase(gen):
                          A.window_attention_pos_bwd(*args))
             del got
             entry["ms"] = cuda_ms(lambda: A.window_attention_pos_bwd(*args), 10)
+            entry["kernel_ms"] = split_ms(
+                lambda: A.window_attention_pos_bwd(*args), entry["ms"], B7_SPLIT)
             entry["plain_ms"] = cuda_ms(
                 lambda: A.window_attention_pos_bwd_plain(*args), 3, warmup=1)
             T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
@@ -1017,12 +1076,12 @@ def train_phase(fused=False):
 
 KERNEL_GROUPS = (
     ("msda_taps (B5)", ("msda_taps_kernel",)),
-    ("window_attention_pos_bwd (B7)", ("window_pos_bwd_kernel",
-                                       "window_pos_bwd_sum_kernel")),
+    ("window_attention_pos_bwd (B7)", B7_MAIN + B7_SUM),
     ("window_attention_bwd (K1b)", K1B_MAIN + K1B_DVE),
     ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq", "stripe_bwd_dkv")),
     ("window_attention (K1)", ("window_attention_kernel",)),
-    ("stripe_attention (K2)", ("stripe_attention_kernel",)),
+    ("stripe_attention (K2)", ("stripe_attention_kernel",
+                               "stripe_attention_mma_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
                      "winograd")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
@@ -1572,19 +1631,18 @@ def _sharded_train(mesh, fused):
 
 
 # --------------------------------------------------------------------------- #
-# --compare-old DIR: the redesigned K1b and K2b against given sources of the
+# --compare-old DIR: the redesigned B7 and K2 against given sources of the
 # versions they replace, in turns in one process on one card
 # --------------------------------------------------------------------------- #
 
-REDESIGNED = ("window_attention_bwd", "stripe_attention_bwd")
+REDESIGNED = ("window_attention_pos_bwd", "stripe_attention")
 COMPARE_STEPS = 5
 
 
 def old_libraries(src_dir):
-    """Build ``src_dir``'s K1b and K2b sources (with that directory's
+    """Build ``src_dir``'s B7 and K2 sources (with that directory's
     headers) with the port's nvcc flags, load them, and return {name: entry
-    point taking the current wrapper's arguments}: the older K1b takes no
-    d(ve) partial buffer and split count, so its adapter drops them."""
+    point}; their C signatures are the current ones."""
     import ctypes
 
     from nmrf_tpu_torch.ops import _native
@@ -1606,24 +1664,22 @@ def old_libraries(src_dir):
             for fn, regs, spills in ptxas_kernels(text)))
         symbol, argtypes = _native._SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(target)), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        if name == "window_attention_bwd":
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [ptr] * 8 + [i32] * 13 + [ctypes.c_float, ptr]
-            fns[name] = (lambda f: lambda *a: f(*a[:8], *a[9:22], *a[23:]))(fn)
-        else:
-            fn.argtypes = argtypes
-            fns[name] = fn
+        fns[name] = fn
     return fns
 
 
 def compare_phase(src_dir, gen):
-    """Time old and new K1b and K2b in turns (old, new, new, old) at the
-    training shapes (bf16, batch TRAIN_BATCH; K1b also by kernel) beside
-    SDPA's backward and the bound, then the default training step with each
+    """Time old and new B7 and K2 in turns (old, new, new, old): B7 at the
+    training shapes (bf16, batch TRAIN_BATCH; its main and sum kernels
+    apart) beside SDPA's backward and the bound; K2 at the serving shapes
+    (batch 1) and the training shapes (batch TRAIN_BATCH) beside SDPA and
+    the bound; then the NMRF_FUSED_POS=1 training step and the default one
     (COMPARE_STEPS steps per turn).  The wrappers stay the same: only the
     library each one launches is swapped."""
     import torch
+    import torch.nn.functional as F
 
     from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.ops import attention as A
@@ -1634,13 +1690,13 @@ def compare_phase(src_dir, gen):
     dev, B = "cuda", TRAIN_BATCH
     entries = []
 
-    def timed(entry, fn, split=False):
+    def timed(entry, fn, split=None):
         ms = {"old": [], "new": []}
         for tag, libs in turns:
             _native._loaded.update(libs)
             ms[tag].append(cuda_ms(fn, 10))
             if split and f"{tag}_kernel_ms" not in entry:
-                entry[f"{tag}_kernel_ms"] = window_bwd_split_ms(fn, ms[tag][-1])
+                entry[f"{tag}_kernel_ms"] = split_ms(fn, ms[tag][-1], split)
         _native._loaded.update(new)
         entry.update(old_ms=ms["old"], new_ms=ms["new"])
         entries.append(entry)
@@ -1658,58 +1714,70 @@ def compare_phase(src_dir, gen):
         T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
         bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
                            dtype=torch.bfloat16)
-        entry = {"name": "window_attention_bwd", "shape": label, "count": count,
+        entry = {"name": "window_attention_pos_bwd", "shape": label,
+                 "unit": "step", "count": count,
                  "library_ms": sdpa_backward_ms(gen, G, heads, T, C // heads, bias)}
         entry["bytes_ms"], entry["ops_ms"] = window_bound(
             B, Hp, Wp, N, ws, C, heads, backward=True)
-        timed(entry, lambda: A.window_attention_bwd(*args), split=True)
+        timed(entry, lambda: A.window_attention_pos_bwd(*args), split=B7_SPLIT)
     C, heads = 64, 2
-    for label, Hp, Wp, N, H_sp, W_sp, count in TRAIN_STRIPE_CASES:
-        args = tuple(torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
-                                 dtype=torch.bfloat16) for _ in range(4))
-        args += (H_sp, W_sp, heads)
-        T, G = H_sp * W_sp * N, B * (Hp // H_sp) * (Wp // W_sp)
-        mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(torch.bfloat16)
-        entry = {"name": "stripe_attention_bwd", "shape": label, "count": count,
-                 "library_ms": sdpa_backward_ms(gen, G, heads, T, C // heads, mask)}
-        entry["bytes_ms"], entry["ops_ms"] = stripe_bound(
-            B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=True)
-        timed(entry, lambda: A.stripe_attention_bwd(*args))
+    for batch, unit, cases in ((1, "frame", STRIPE_CASES),
+                               (B, "step", TRAIN_STRIPE_CASES)):
+        for label, Hp, Wp, N, H_sp, W_sp, count in cases:
+            q, k, v = (torch.randn(batch, Hp, Wp, N, C, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(3))
+            T, G = H_sp * W_sp * N, batch * (Hp // H_sp) * (Wp // W_sp)
+            qs, ks, vs = (torch.randn(G, heads, T, C // heads, generator=gen,
+                                      device=dev, dtype=torch.bfloat16)
+                          for _ in range(3))
+            mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(torch.bfloat16)
+            with torch.inference_mode():
+                entry = {"name": "stripe_attention", "shape": label,
+                         "unit": unit, "count": count,
+                         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                             qs, ks, vs, attn_mask=mask), 20)}
+                entry["bytes_ms"], entry["ops_ms"] = stripe_bound(
+                    batch, Hp, Wp, N, H_sp, W_sp, C, heads)
+                timed(entry, lambda: A.stripe_attention(q, k, v, H_sp, W_sp, heads))
 
-    per_step = {}
-    for name in REDESIGNED:
-        rows = [e for e in entries if e["name"] == name]
-        per_step[name] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
-                          for k in ("old_ms", "new_ms", "library_ms")}
-        per_step[name]["bound_ms"] = sum(
+    totals = {}
+    for name, unit in (("window_attention_pos_bwd", "step"),
+                       ("stripe_attention", "frame"), ("stripe_attention", "step")):
+        rows = [e for e in entries if e["name"] == name and e["unit"] == unit]
+        key = f"{name} per {unit}"
+        totals[key] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
+                       for k in ("old_ms", "new_ms", "library_ms")}
+        totals[key]["bound_ms"] = sum(
             max(e["bytes_ms"], e["ops_ms"]) * e["count"] for e in rows)
-    k1b = [e for e in entries if e["name"] == "window_attention_bwd"]
+    b7 = [e for e in entries if e["name"] == "window_attention_pos_bwd"]
     for tag in ("old", "new"):
-        per_step["window_attention_bwd"][f"{tag}_kernels_ms"] = sum(
-            (e[f"{tag}_kernel_ms"]["main"] + e[f"{tag}_kernel_ms"]["dve"])
-            * e["count"] for e in k1b)
-        per_step["window_attention_bwd"][f"{tag}_dve_ms"] = sum(
-            e[f"{tag}_kernel_ms"]["dve"] * e["count"] for e in k1b)
+        for part in ("main", "sum"):
+            totals["window_attention_pos_bwd per step"][f"{tag}_{part}_ms"] = sum(
+                e[f"{tag}_kernel_ms"][part] * e["count"] for e in b7)
     slower = [f"{e['name']} {e['shape']}" for e in entries
               if max(e["new_ms"]) >= min(e["old_ms"])]
 
     _, step, batch = train_setup()
     step(batch)  # warm-up
-    steps = {"old": [], "new": []}
-    for tag, libs in turns:
-        _native._loaded.update(libs)
-        step(batch)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(COMPARE_STEPS):
-            step(batch)
-        end.record()
-        torch.cuda.synchronize()
-        steps[tag].append(start.elapsed_time(end) / COMPARE_STEPS)
+    steps = {}
+    for flagged in (True, False):
+        key = "NMRF_FUSED_POS=1" if flagged else "default"
+        steps[key] = {"old": [], "new": []}
+        with fused_pos() if flagged else contextlib.nullcontext():
+            for tag, libs in turns:
+                _native._loaded.update(libs)
+                step(batch)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(COMPARE_STEPS):
+                    step(batch)
+                end.record()
+                torch.cuda.synchronize()
+                steps[key][tag].append(start.elapsed_time(end) / COMPARE_STEPS)
     _native._loaded.update(new)
-    return {"per_step": per_step, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
+    return {"per_unit": totals, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
             "new_not_faster_on": slower, "shapes": entries}
 
 
@@ -1774,10 +1842,10 @@ def main(argv=None):
                         help="phase 7's backend: gloo (ranks may share a "
                              "card) or nccl (a card per rank)")
     parser.add_argument("--compare-old", metavar="DIR",
-                        help="build the kernels and time K1b and K2b against "
-                             "DIR's window_attention_bwd.cu and "
-                             "stripe_attention_bwd.cu (with DIR's headers), "
-                             "in turns, alone and in the training step")
+                        help="build the kernels and time B7 and K2 against "
+                             "DIR's window_attention_pos_bwd.cu and "
+                             "stripe_attention.cu (with DIR's headers), in "
+                             "turns, alone and in the training steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1796,6 +1864,7 @@ def main(argv=None):
         log(f"  {name}: {secs:.1f} s; " + " | ".join(
             f"{fn} {regs} regs, {spills} B spilled"
             for fn, regs, spills in ptxas_kernels(text)))
+    check_spills(report)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

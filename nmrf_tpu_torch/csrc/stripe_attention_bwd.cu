@@ -31,7 +31,8 @@
 // ldmatrix (.trans where a product takes the transposed tile).  Blocks of 4
 // warps own 64 rows, 16 per warp; the other side's rows stream through
 // shared memory 64 at a time, double-buffered with 16-byte cp.async, rows
-// padded to HD + 8 elements so ldmatrix has no bank conflict.  A token's
+// padded to HD + 8 elements so ldmatrix has no bank conflict (the loader
+// of stripe_tiles.cuh, shared with K2).  A token's
 // head slice is 2 HD contiguous bytes; its offset is computed once per row
 // of a tile (one division), and the anti-same-pixel mask is two compares
 // against the row's pixel range.
@@ -56,33 +57,17 @@
 // row per thread, every dot product in f32 from shared memory.
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "stripe_tiles.cuh"
 
 namespace nmrf {
 
-struct StripeBwdParams {
-  int B, Hp, Wp, N, C, heads, H_sp, W_sp, ni, nj, T;
-  float scale;
-};
-
 constexpr int kBwdTile = 64;
-
-__device__ __forceinline__ long long stripe_offset(const StripeBwdParams& p, int stripe,
-                                                   int head, int hd, int t) {
-  const int b = stripe / (p.ni * p.nj);
-  const int si = (stripe / p.nj) % p.ni, sj = stripe % p.nj;
-  const int WN = p.W_sp * p.N;
-  const int y = si * p.H_sp + t / WN;
-  const int x = sj * p.W_sp + (t / p.N) % p.W_sp;
-  return (((static_cast<long long>(b) * p.Hp + y) * p.Wp + x) * p.N + t % p.N) * p.C +
-         head * hd;
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBwdTile)
 stripe_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ lse_out,
-                     float* __restrict__ d_out, StripeBwdParams p) {
+                     float* __restrict__ d_out, StripeParams p) {
   __shared__ float sk[kBwdTile][HD + 1];
   __shared__ float sv[kBwdTile][HD + 1];
   const int stripe = blockIdx.y, head = blockIdx.z;
@@ -186,7 +171,7 @@ __global__ void __launch_bounds__(kBwdTile)
 stripe_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ g, const float* __restrict__ lse_in,
                       const float* __restrict__ d_in, T* __restrict__ dk, T* __restrict__ dv,
-                      StripeBwdParams p) {
+                      StripeParams p) {
   __shared__ float sq[kBwdTile][HD + 1];
   __shared__ float sg[kBwdTile][HD + 1];
   __shared__ float slse[kBwdTile];
@@ -258,13 +243,6 @@ stripe_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMmaRows = 64;  // rows a block owns (and rows of a streamed tile)
-constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
-
-// padded row of a staged tile, in elements (16-byte rows, no ldmatrix conflict)
-template <int HD>
-__host__ __device__ constexpr int mma_ld() { return HD + 8; }
-
 // six [64, HD + 8] bf16 tiles (own rows: two; streamed rows: two tensors,
 // double-buffered) and the key side's lse and D of two query tiles
 template <int HD>
@@ -273,47 +251,13 @@ constexpr size_t stripe_mma_smem_bytes() {
          static_cast<size_t>(4) * kMmaRows * sizeof(float);
 }
 
-// offset of the head's slice of a stripe's first token
-__device__ __forceinline__ long long stripe_base(const StripeBwdParams& p, int stripe, int head,
-                                                 int hd) {
-  const int b = stripe / (p.ni * p.nj);
-  const int si = (stripe / p.nj) % p.ni, sj = stripe % p.nj;
-  return ((static_cast<long long>(b) * p.Hp + si * p.H_sp) * p.Wp + sj * p.W_sp) * p.N * p.C +
-         head * hd;
-}
-
-// offset of stripe token t, (row, col, n) over (H_sp, W_sp, N), from the base:
-// col * N + n is t's remainder after the rows
-__device__ __forceinline__ long long stripe_token(const StripeBwdParams& p, int t) {
-  const int WN = p.W_sp * p.N;
-  const int dy = t / WN;
-  return (static_cast<long long>(dy) * p.Wp * p.N + (t - dy * WN)) * p.C;
-}
-
-// rows r0..r0+63 of a stripe's tokens of xa and xb into two [64, HD + 8]
-// tiles with cp.async; rows at or past T are zero-filled
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* da, const bf16* xa, bf16* db, const bf16* xb,
-                                           long long base, int r0, const StripeBwdParams& p) {
-  constexpr int CH = HD / 8;  // 16-byte chunks of a row
-  constexpr int LD = mma_ld<HD>();
-  const int c = threadIdx.x % CH;
-  for (int r = threadIdx.x / CH; r < kMmaRows; r += kMmaThreads / CH) {
-    const int t = r0 + r;
-    const bool valid = t < p.T;
-    const long long off = valid ? base + stripe_token(p, t) + c * 8 : 0;
-    cp_async16(da + r * LD + c * 8, xa + off, valid);
-    cp_async16(db + r * LD + c * 8, xb + off, valid);
-  }
-}
-
 // Kernel 1: lse, D and dq of 64 query rows; key rows stream through.
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
 stripe_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ gout,
                          bf16* __restrict__ dq, float* __restrict__ lse_out,
-                         float* __restrict__ d_out, StripeBwdParams p) {
+                         float* __restrict__ d_out, StripeParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = mma_ld<HD>(), KS = HD / 16, NTD = HD / 8, TILE = kMmaRows * LD;
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -452,7 +396,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 stripe_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ gout,
                           const float* __restrict__ lse_in, const float* __restrict__ d_in,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, StripeBwdParams p) {
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, StripeParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = mma_ld<HD>(), KS = HD / 16, NTD = HD / 8, TILE = kMmaRows * LD;
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -571,7 +515,7 @@ stripe_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int HD>
 int launch_bwd_mma(const void* q, const void* k, const void* v, const void* g, void* dq,
-                   void* dk, void* dv, float* lse, float* dsum, StripeBwdParams p,
+                   void* dk, void* dv, float* lse, float* dsum, StripeParams p,
                    cudaStream_t stream) {
   const int smem = static_cast<int>(stripe_mma_smem_bytes<HD>());
   cudaError_t err = cudaFuncSetAttribute(stripe_bwd_dq_mma_kernel<HD>,
@@ -596,7 +540,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* g, v
 
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-               void* dv, float* lse, float* dsum, StripeBwdParams p, cudaStream_t stream) {
+               void* dv, float* lse, float* dsum, StripeParams p, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return launch_bwd_mma<HD>(q, k, v, g, dq, dk, dv, lse, dsum, p, stream);
   } else {
@@ -617,7 +561,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
 
 template <typename T>
 int dispatch_bwd(int hd, const void* q, const void* k, const void* v, const void* g, void* dq,
-                 void* dk, void* dv, float* lse, float* dsum, StripeBwdParams p,
+                 void* dk, void* dv, float* lse, float* dsum, StripeParams p,
                  cudaStream_t s) {
   switch (hd) {
     case 16: return launch_bwd<T, 16>(q, k, v, g, dq, dk, dv, lse, dsum, p, s);
@@ -635,10 +579,7 @@ extern "C" int nmrf_stripe_attention_bwd(const void* q, const void* k, const voi
                                          int Wp, int N, int C, int heads, int H_sp, int W_sp,
                                          float scale, void* stream) {
   using namespace nmrf;
-  StripeBwdParams p;
-  p.B = B; p.Hp = Hp; p.Wp = Wp; p.N = N; p.C = C; p.heads = heads;
-  p.H_sp = H_sp; p.W_sp = W_sp; p.ni = Hp / H_sp; p.nj = Wp / W_sp;
-  p.T = H_sp * W_sp * N; p.scale = scale;
+  const StripeParams p = stripe_params(B, Hp, Wp, N, C, heads, H_sp, W_sp, scale);
   const int hd = C / heads;
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(dsum);

@@ -20,10 +20,63 @@
 // in f32.  The shifted-region mask takes global rows (row0, hp_total) as
 // in K1 and K1b.
 //
-// Design.  Kernel 1, a fixed grid of nblk x heads blocks of 8 warps (nblk
-// comes from the wrapper, a function of the shapes only).  Block b walks
-// the window groups b, b + nblk, ... (the grouping of K1b: one window at
-// T >= 128, else floor(128 / T) windows).  Per group:
+// The grid and the sums, in both versions below.  Kernel 1 runs on a fixed
+// grid of nblk x heads blocks (nblk comes from the wrapper, a function of
+// the shapes only); block b walks the window groups b, b + nblk, ... (the
+// grouping of K1b: one window at T >= 128, else floor(128 / T) windows) and
+// adds each group's table terms into its own f32 partial of d(table) in
+// device memory, every element with one owner, in group order.  Kernel 2
+// sums the nblk partials of each element in block order.  No float atomics
+// anywhere, in shared or device memory: distinct (p,s) pairs share a rel
+// row, and an atomic sum would change its order from run to run.  Two
+// launches on the same inputs give the same bits.  A partial per window
+// would be 190 MB at Inference (1024 windows x 4 heads x 46 KB); nblk = 66
+// per head there makes 12 MB.  d(qkv) rows have one writer each.
+//
+// bf16 (the training step's launches: T = 144 at Inference, 6x6x4, and
+// T = 16 at Refinement, 4x4x1; any N in {1, 2, 4, 8} with T = 16 or 144):
+// the tensor-core kernel, mma.sync.m16n8k16 with bf16 operands and f32
+// accumulation fed by ldmatrix, one warp per 16 rows of a group (9 warps
+// at Inference, 8 windows of one warp at Refinement), K1b's row and column
+// passes with the positional backward added as five dense products.  With
+// trows = (2wh-1)(2ww-1) table rows (121 at Inference, padded to 128) and
+//   Wq[i, t] = dqr[i, s] where rel(pix(i), s) = t,
+//   Wk[j, t] = dkr[j, p] where rel(p, pix(j)) = t,
+//   Wm[i, t] = mass[i, s] where rel(pix(i), s) = t
+// ([T, trows], zero where no pixel of the window matches; for a fixed pixel
+// s -> rel is injective, so an entry has at most one source), the sums
+// above are dq_pos = Wq KE, dk_pos = Wk QE, d(table)[q] = scale Wk^T K,
+// d(table)[k] = scale Wq^T Q and d(table)[v] = Wm^T G, KE, QE the head's
+// staged table columns.  The A fragments are gathered from the f32 blocks
+// through that index (w_col) and packed to bf16, as the JAX kernel's
+// operands are when not exact; the table products take W as bf16 hi + lo
+// parts, since d(table) sums over every window of the batch.  Per group:
+//   1. the token and shifted region of each row; q, k, v and g rows to
+//      shared memory with 16-byte cp.async, rows padded to HD + 8 (no
+//      ldmatrix bank conflict);
+//   2. qr, kr and gve [rows, P] (f32): Q, K and G against every row of the
+//      staged table on the tensor cores, scattered to their pixels;
+//   3. row pass, three sweeps over 16-key chunks (max and sum; P and D;
+//      P again, dS, dq += dS K), P and dS kept in shared memory as bf16.
+//      In sweep 3 dqr, mass and dkr of a chunk overwrite the qr, gve and
+//      kr entries the chunk has just read (a __syncwarp between): a
+//      pixel's N rows lie in one warp's 16-row tile (N divides 16), so
+//      column s of qr[i, .] and gve[i, .] and column pix(i) of kr[j, .] are
+//      read and written only by the warp that owns row i.  Then dq += Wq KE;
+//   4. column pass, a warp per 16 key rows: dk = dS^T Q + Wk QE and
+//      dv = P^T G, dS and P by ldmatrix.trans, no logit recomputed;
+//   5. the table: units of (16 table rows, component) owned by one warp
+//      each accumulate their product over the group's rows and add it to
+//      the partial, which they read once and store once per group.
+// The staged table (bf16, [128, 3 HD + 8] at Inference) stays in shared
+// memory for the launch.  Shared memory at Inference (hd 32): 46,080 B of
+// rows, 62,208 of qr|kr|gve (then dqr|dkr|mass), 87,552 of P and dS, 26,624
+// of table, 1,152 of ids: 223,616 of the 232,448 a block may have, one
+// block per SM; 92,160 at Refinement.  Softmax, lse, D, dqr, dkr and mass
+// stay in f32; P and dS are rounded to bf16 only as mma operands.
+//
+// f32 (the phase 3 and 4 checks at 1e-4, which TF32 would not meet) and
+// other shapes: the CUDA-core kernel, 8 warps.  Per group:
 //   1. q, k, v and g rows to shared memory in the input's dtype; the
 //      head's qe|ke|ve table columns are staged and the pixel-granular qr,
 //      kr and gve blocks [rows, P] computed from them, as in K1b; the
@@ -41,32 +94,28 @@
 //      adds them into the block's own f32 partial in device memory (the
 //      partial's load is issued before the sum, to overlap its latency).
 // The staged table stays in shared memory for the whole launch (staged
-// once) where it fits, as at the training path's bf16 shapes; otherwise
-// (f32 at Inference) it is staged per group into the space that then
-// holds dqr | dkr | mass, and the positional halves read the ke/qe rows
-// from device memory (the f32 table is 186 KB and stays in L2).
-// Kernel 2 sums the nblk partials of each element in block order.  No
-// float atomics anywhere, in shared or device memory: distinct (p,s)
-// pairs share a rel row, and an atomic sum would change its order from
-// run to run.  The result is deterministic: two launches on the same
-// inputs give the same bits.  A partial per window would be 190 MB at
-// Inference (1024 windows x 4 heads x 46 KB); nblk = 66 per head there
-// makes 12 MB.  This also folds in K1b's d(ve) reduction kernel, whose
-// grid of P x heads blocks left most SMs idle, and its f32 mass buffer.
-// Shared memory at Inference (T 144, P 36, hd 32): 222 KB in bf16 with the
-// table kept, 212 KB in f32 without, one block per SM; at hd 64 the
-// Inference window does not fit in the 227 KB a block may have and the
-// launch is refused (the wrapper raises), as K1b's is.
+// once) where it fits; otherwise (f32 at Inference) it is staged per group
+// into the space that then holds dqr | dkr | mass, and the positional
+// halves read the ke/qe rows from device memory (the f32 table is 186 KB
+// and stays in L2).  Shared memory at Inference (T 144, P 36, hd 32):
+// 212 KB in f32 without the table, one block per SM.  At hd 64 the
+// Inference window fits neither version in the 227 KB a block may have and
+// the launch is refused (the wrapper raises), as K1b's is.
 //
 // Bound on the H100 (bf16, training shape 48x96, batch 8, Inference): the
 // launch must read qkv, g and the table and write d(qkv) and d(table) once
 // (about 0.26 GB), and do K1b's matrix work (the five T x T and eight
 // T x P products, about 38 GFLOP): the bytes bound it, at about 0.08 ms.
-// Like K1b this version does its products on CUDA cores from shared memory
-// and recomputes the logits in the column pass, so it is issue-bound far
-// above that; mma/wgmma tiles are the redesign's tool.
+// The tensor-core kernel does the T x P work as T x trows products (3.4x
+// the operations, on the tensor cores) and keeps every intermediate in
+// shared memory.  It stays far above the bound (PERF.md); what holds it
+// there is not measured (ncu does not run on the card's machine): the
+// candidate is one 223 KB block per SM walking its window groups one
+// after another, so a group's row loads, sweeps and table products do not
+// overlap.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace nmrf {
 
@@ -453,6 +502,553 @@ window_pos_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__
   dtable[o] = a;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPosMmaMaxWarps = 9;  // one warp per 16 rows of a window group
+
+__host__ __device__ constexpr size_t pos_align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// byte offsets of the bf16 kernel's shared memory: q|k|v|g rows [rows,
+// HD + 8], the f32 blocks qr|kr|gve [rows, P] (later dqr|dkr|mass, in
+// place), P|dS of every window [T, T + 8], the staged table [TR, 3 HD + 8]
+// (kept for the launch), then the token and region ids; returns the total
+template <int HD>
+__host__ __device__ inline size_t pos_mma_smem(int rows, int P, int T, int wpb, int TR,
+                                               size_t* pos_off, size_t* pds_off,
+                                               size_t* tbl_off, size_t* int_off) {
+  *pos_off = static_cast<size_t>(4) * rows * (HD + 8) * sizeof(bf16);
+  *pds_off = *pos_off + pos_align16(static_cast<size_t>(3) * rows * P * sizeof(float));
+  *tbl_off = *pds_off + pos_align16(static_cast<size_t>(2) * wpb * T * (T + 8) * sizeof(bf16));
+  *int_off = *tbl_off + static_cast<size_t>(TR) * (3 * HD + 8) * sizeof(bf16);
+  return *int_off + static_cast<size_t>(2) * rows * sizeof(int);
+}
+
+// The column of a pixel-granular block row that table row t = (dy, dx)
+// meets, for the row's pixel (y, x): s with rel((y, x), s) = t (qr, gve, dqr,
+// mass: the Wq and Wm matrices), or with key, p with rel(p, (y, x)) = t (kr,
+// dkr: Wk); -1 where no pixel of the window matches.
+__device__ __forceinline__ int w_col(int y, int x, int dy, int dx, int wh, int ww, bool key) {
+  const int sy = key ? y - (wh - 1) + dy : y + (wh - 1) - dy;
+  const int sx = key ? x - (ww - 1) + dx : x + (ww - 1) - dx;
+  return sy >= 0 && sy < wh && sx >= 0 && sx < ww ? sy * ww + sx : -1;
+}
+
+// MT 16-row tiles per window (T = 16 MT); N = 1 << nshift candidates
+template <int HD, int MT>
+__global__ void __launch_bounds__(kPosMmaMaxWarps * 32)
+window_pos_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ table,
+                          const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+                          float* __restrict__ partial, PosBwdParams p, int nshift) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int T = 16 * MT, LD = HD + 8, KS = HD / 16, NTD = HD / 8;
+  constexpr int TS = 3 * HD + 8;  // staged table row (qe | ke | ve)
+  constexpr int PL = T + 8;       // kept P / dS row
+  constexpr int CH = HD / 8;      // 16-byte chunks of a row
+  const int P = p.wh * p.ww;
+  const int rows = p.wpb * T;
+  const int trows = (2 * p.wh - 1) * (2 * p.ww - 1);
+  const int TR = (trows + 15) / 16 * 16;
+  const int W2 = 2 * p.ww - 1;
+  const int C3 = 3 * p.C;
+  size_t pos_off, pds_off, tbl_off, int_off;
+  pos_mma_smem<HD>(rows, P, T, p.wpb, TR, &pos_off, &pds_off, &tbl_off, &int_off);
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [rows, LD] each
+  bf16* sk = sq + rows * LD;
+  bf16* sv = sk + rows * LD;
+  bf16* sg = sv + rows * LD;
+  float* sqr = reinterpret_cast<float*>(smem_raw + pos_off);  // qr, then dqr [rows, P]
+  float* skr = sqr + rows * P;                                // kr, then dkr
+  float* sgve = skr + rows * P;                               // gve, then mass
+  bf16* stbl = reinterpret_cast<bf16*>(smem_raw + tbl_off);  // [TR, TS]
+  int* stok = reinterpret_cast<int*>(smem_raw + int_off);    // token of each row, -1 past nwin
+  int* sreg = stok + rows;                                   // shifted region of each row
+
+  const int head = blockIdx.y;
+  const int nwh = p.Hp / p.wh, nww = p.Wp / p.ww;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
+  // this block's partial of the head's table cotangent: [trows, 3 HD] at
+  // the head's columns of a [trows, C3] slab
+  float* part = partial + static_cast<long long>(blockIdx.x) * trows * C3 + head * 3 * HD;
+  if (blockIdx.x >= p.ngroups) {  // no window group: a zero partial
+    for (int o = threadIdx.x; o < trows * 3 * HD; o += blockDim.x)
+      part[(o / (3 * HD)) * C3 + o % (3 * HD)] = 0.f;
+    return;
+  }
+
+  // the head's qe | ke | ve table columns as bf16 (the table holds bf16
+  // values, so exactly), once; the first group's barriers order them
+  for (int idx = threadIdx.x; idx < TR * 3 * HD; idx += blockDim.x) {
+    const int t = idx / (3 * HD), c = idx % (3 * HD);
+    const float x = t < trows ? __ldg(table + static_cast<long long>(t) * C3 + head * 3 * HD + c)
+                              : 0.f;
+    stbl[t * TS + c] = __float2bfloat16(x);
+  }
+
+  // this warp: rows r0w.. of window wi of a group, its row tile rt
+  const int r0w = warp * 16, wi = warp / MT, rt = warp % MT;
+  const int base = wi * T;  // group row of the window's token 0
+  int ti[2], ri[2], pr[2], py[2], px[2];  // the thread's two rows: token, group row, pixel
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ti[r] = rt * 16 + gq + 8 * r;
+    ri[r] = base + ti[r];
+    pr[r] = ti[r] >> nshift;
+    py[r] = pr[r] / p.ww;
+    px[r] = pr[r] - py[r] * p.ww;
+  }
+  bf16* sP = reinterpret_cast<bf16*>(smem_raw + pds_off) + wi * 2 * T * PL;  // [T, PL]
+  bf16* sdS = sP + T * PL;                                                    // [T, PL]
+  const bf16* wq = sq + base * LD;
+  const bf16* wk = sk + base * LD;
+  const bf16* wv = sv + base * LD;
+  const bf16* wg = sg + base * LD;
+  const int ncol = 1 << nshift;  // tokens of a pixel
+
+  for (int grp = blockIdx.x; grp < p.ngroups; grp += p.nblk) {
+    const int win0 = grp * p.wpb;
+    const int nvalid = min(p.wpb, p.nwin - win0);
+    const bool wvalid = wi < nvalid;
+    auto token_of = [&](int r) {
+      const int win = win0 + r / T, t = r % T;
+      if (win >= p.nwin) return -1;
+      const int b = win / (nwh * nww), rem = win % (nwh * nww);
+      const int y = (rem / nww) * p.wh + (t >> nshift) / p.ww;
+      const int x = (rem % nww) * p.ww + (t >> nshift) % p.ww;
+      return ((b * p.Hp + y) * p.Wp + x) * p.N + (t & (ncol - 1));
+    };
+
+    // ---- 1. token and region ids, the q|k|v|g rows ----
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const int tok = token_of(r);
+      int reg = 0;
+      if (tok >= 0 && p.shift > 0) {
+        const int win = win0 + r / T, t = (r % T) >> nshift;
+        const int rem = win % (nwh * nww);
+        const int gy = p.row0 + (rem / nww) * p.wh + t / p.ww;  // global row
+        const int x = (rem % nww) * p.ww + t % p.ww;
+        const int ry = (gy >= p.hp_total - p.wh) + (gy >= p.hp_total - p.shift);
+        const int rx = (x >= p.Wp - p.ww) + (x >= p.Wp - p.shift);
+        reg = 3 * ry + rx;
+      }
+      stok[r] = tok;
+      sreg[r] = reg;
+    }
+    for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+      const int r = idx / CH, c = (idx % CH) * 8;
+      const int tok = token_of(r);
+      const bool valid = tok >= 0;
+      const long long src = valid ? static_cast<long long>(tok) * C3 + head * HD + c : 0;
+      const long long gsrc = valid ? static_cast<long long>(tok) * p.C + head * HD + c : 0;
+      cp_async16(sq + r * LD + c, qkv + src, valid);
+      cp_async16(sk + r * LD + c, qkv + src + p.C, valid);
+      cp_async16(sv + r * LD + c, qkv + src + 2 * p.C, valid);
+      cp_async16(sg + r * LD + c, gout + gsrc, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- 2. positional blocks: Q, K and G against every table row ----
+    {
+      uint32_t qa[KS][4], ka[KS][4], ga[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        load_a(qa[ks], sq, LD, r0w, ks * 16, lane);
+        load_a(ka[ks], sk, LD, r0w, ks * 16, lane);
+        load_a(ga[ks], sg, LD, r0w, ks * 16, lane);
+      }
+      for (int tp = 0; tp < TR / 16; ++tp) {
+        float cq[2][4] = {}, ck[2][4] = {}, cg[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];
+          load_b_rows(b, stbl + HD, TS, tp * 16, ks * 16, lane);  // ke columns
+          mma_bf16(cq[0], qa[ks], b[0], b[1]);
+          mma_bf16(cq[1], qa[ks], b[2], b[3]);
+          load_b_rows(b, stbl, TS, tp * 16, ks * 16, lane);  // qe columns
+          mma_bf16(ck[0], ka[ks], b[0], b[1]);
+          mma_bf16(ck[1], ka[ks], b[2], b[3]);
+          load_b_rows(b, stbl + 2 * HD, TS, tp * 16, ks * 16, lane);  // ve columns
+          mma_bf16(cg[0], ga[ks], b[0], b[1]);
+          mma_bf16(cg[1], ga[ks], b[2], b[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = tp * 16 + nt * 8 + 2 * t4 + (e & 1), r = e >> 1;
+            if (t >= trows) continue;
+            const int dy = t / W2, dx = t - dy * W2;
+            const int row = r0w + gq + 8 * r;
+            int s = w_col(py[r], px[r], dy, dx, p.wh, p.ww, false);  // t = rel(pix, s)
+            if (s >= 0) {
+              sqr[row * P + s] = cq[nt][e] * p.scale;
+              sgve[row * P + s] = cg[nt][e];
+            }
+            s = w_col(py[r], px[r], dy, dx, p.wh, p.ww, true);  // t = rel(s, pix)
+            if (s >= 0) skr[row * P + s] = ck[nt][e] * p.scale;
+          }
+      }
+    }
+    __syncthreads();  // kr[j, .] is read by the warps of the query pixels
+
+    // ---- 3. row pass: three sweeps over 16-key chunks ----
+    if (wvalid) {
+      uint32_t qa[KS][4], ga[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        load_a(qa[ks], sq, LD, r0w, ks * 16, lane);
+        load_a(ga[ks], sg, LD, r0w, ks * 16, lane);
+      }
+      // logits of keys kp*16..: scale Q K^T + qr[i, pix(j)] + kr[j, pix(i)] + masks
+      auto logit_chunk = [&](float s[2][4], int kp) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];
+          load_b_rows(b, wk, LD, kp * 16, ks * 16, lane);
+          mma_bf16(s[0], qa[ks], b[0], b[1]);
+          mma_bf16(s[1], qa[ks], b[2], b[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, j = kp * 16 + c * 8 + 2 * t4 + (e & 1), pj = j >> nshift;
+            float x = s[c][e] * p.scale + sqr[ri[r] * P + pj] + skr[(base + j) * P + pr[r]];
+            if ((p.candidate_mask && pj == pr[r] && j != ti[r]) ||
+                (p.shift > 0 && sreg[ri[r]] != sreg[base + j]))
+              x += kNegInf;
+            s[c][e] = x;
+          }
+      };
+      // dP of keys kp*16..: G V^T + gve[i, pix(j)]
+      auto dp_chunk = [&](float dp[2][4], int kp) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[c][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t b[4];
+          load_b_rows(b, wv, LD, kp * 16, ks * 16, lane);
+          mma_bf16(dp[0], ga[ks], b[0], b[1]);
+          mma_bf16(dp[1], ga[ks], b[2], b[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = kp * 16 + c * 8 + 2 * t4 + (e & 1);
+            dp[c][e] += sgve[ri[e >> 1] * P + (j >> nshift)];
+          }
+      };
+      // sum over the key tokens of each pixel (the quad's lanes), stored
+      // at column pix of row ri[r] of dst
+      auto pixel_sum = [&](float* dst, const float v[2][4], int c, int j0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (ncol == 1) {
+            dst[ri[r] * P + j0] = v[c][2 * r];
+            dst[ri[r] * P + j0 + 1] = v[c][2 * r + 1];
+          } else {
+            float a = v[c][2 * r] + v[c][2 * r + 1];
+            for (int o = 1; o < ncol / 2; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+            if ((t4 & (ncol / 2 - 1)) == 0) dst[ri[r] * P + (j0 >> nshift)] = a;
+          }
+        }
+      };
+      // sweep 1: the row's max and sum (online, f32)
+      float mx[2] = {-INFINITY, -INFINITY}, inv[2] = {0.f, 0.f};
+      for (int kp = 0; kp < MT; ++kp) {
+        float s[2][4];
+        logit_chunk(s, kp);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(mx[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                                       fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
+          inv[r] *= __expf(mx[r] - mn);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            inv[r] += __expf(s[c][2 * r] - mn) + __expf(s[c][2 * r + 1] - mn);
+          mx[r] = mn;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(inv[r]);
+      // sweep 2: P (to shared memory as bf16), D = sum_j P dP
+      float D[2] = {0.f, 0.f};
+      for (int kp = 0; kp < MT; ++kp) {
+        float s[2][4], dp[2][4];
+        logit_chunk(s, kp);
+        dp_chunk(dp, kp);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j0 = kp * 16 + c * 8 + 2 * t4;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[c][e] = __expf(s[c][e] - mx[e >> 1]) * inv[e >> 1];
+            D[e >> 1] += s[c][e] * dp[c][e];
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(sP + ti[r] * PL + j0) =
+                pack_bf16(s[c][2 * r], s[c][2 * r + 1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) D[r] = quad_sum(D[r]);
+
+      // sweep 3: P again, dS = P (dP - D) (to shared memory as bf16), dq;
+      // dqr, mass and dkr of the chunk replace the qr, gve and kr entries
+      // the chunk has just read, which no other warp reads (a pixel's rows
+      // lie in one warp's tile)
+      float dqa[NTD][4];
+#pragma unroll
+      for (int n = 0; n < NTD; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+      for (int kp = 0; kp < MT; ++kp) {
+        float s[2][4], ds[2][4];
+        logit_chunk(s, kp);
+        dp_chunk(ds, kp);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[c][e] = __expf(s[c][e] - mx[e >> 1]) * inv[e >> 1];
+            ds[c][e] = s[c][e] * (ds[c][e] - D[e >> 1]);
+          }
+        __syncwarp();  // every lane has read the chunk's qr, kr and gve
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j0 = kp * 16 + c * 8 + 2 * t4;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(sdS + ti[r] * PL + j0) =
+                pack_bf16(ds[c][2 * r], ds[c][2 * r + 1]);
+          pixel_sum(sqr, ds, c, j0);  // dqr
+          pixel_sum(sgve, s, c, j0);  // mass
+          // dkr: sums over the query tokens of the row's pixel (lanes gq ^ 1, 2, 4)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float a = ds[c][e];
+            for (int o = 4; o < (4 << nshift); o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+            if ((gq & (ncol - 1)) == 0) skr[(base + j0 + (e & 1)) * P + pr[e >> 1]] = a;
+          }
+        }
+        uint32_t a[4];
+        c_to_a(a, ds[0], ds[1]);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, wk, LD, kp * 16, nd * 16, lane);
+          mma_bf16(dqa[2 * nd], a, b[0], b[1]);
+          mma_bf16(dqa[2 * nd + 1], a, b[2], b[3]);
+        }
+      }
+      __syncwarp();  // the warp's dqr rows are complete
+      // positional half: dq += Wq KE, Wq[i, t] = dqr[i, s] where rel(pix(i), s) = t
+      for (int tp = 0; tp < TR / 16; ++tp) {
+        float w[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = tp * 16 + 8 * h + 2 * t4 + e;
+            const int dy = t / W2, dx = t - dy * W2;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int s = w_col(py[r], px[r], dy, dx, p.wh, p.ww, false);
+              w[h][2 * r + e] = s >= 0 ? sqr[ri[r] * P + s] : 0.f;
+            }
+          }
+        uint32_t a[4];
+        c_to_a(a, w[0], w[1]);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, stbl + HD, TS, tp * 16, nd * 16, lane);  // ke columns
+          mma_bf16(dqa[2 * nd], a, b[0], b[1]);
+          mma_bf16(dqa[2 * nd + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        bf16* dst = dqkv + static_cast<long long>(stok[ri[r]]) * C3 + head * HD + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NTD; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+              __floats2bfloat162_rn(dqa[n][2 * r] * p.scale, dqa[n][2 * r + 1] * p.scale);
+      }
+    }
+    __syncthreads();  // P, dS, dqr, dkr and mass of the group are complete
+
+    // ---- 4. column pass: dk = dS^T Q + Wk QE, dv = P^T G for the warp's 16 keys ----
+    if (wvalid) {
+      float dka[NTD][4], dva[NTD][4];
+#pragma unroll
+      for (int n = 0; n < NTD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+#pragma unroll
+      for (int qc = 0; qc < MT; ++qc) {
+        uint32_t da[4], pa[4];
+        load_a_trans(da, sdS, PL, rt * 16, qc * 16, lane);
+        load_a_trans(pa, sP, PL, rt * 16, qc * 16, lane);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, wq, LD, qc * 16, nd * 16, lane);
+          mma_bf16(dka[2 * nd], da, b[0], b[1]);
+          mma_bf16(dka[2 * nd + 1], da, b[2], b[3]);
+          load_b_cols(b, wg, LD, qc * 16, nd * 16, lane);
+          mma_bf16(dva[2 * nd], pa, b[0], b[1]);
+          mma_bf16(dva[2 * nd + 1], pa, b[2], b[3]);
+        }
+      }
+      // positional half: Wk[j, t] = dkr[j, p] where rel(p, pix(j)) = t
+      for (int tp = 0; tp < TR / 16; ++tp) {
+        float w[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = tp * 16 + 8 * h + 2 * t4 + e;
+            const int dy = t / W2, dx = t - dy * W2;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int s = w_col(py[r], px[r], dy, dx, p.wh, p.ww, true);
+              w[h][2 * r + e] = s >= 0 ? skr[ri[r] * P + s] : 0.f;
+            }
+          }
+        uint32_t a[4];
+        c_to_a(a, w[0], w[1]);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, stbl, TS, tp * 16, nd * 16, lane);  // qe columns
+          mma_bf16(dka[2 * nd], a, b[0], b[1]);
+          mma_bf16(dka[2 * nd + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        bf16* dst = dqkv + static_cast<long long>(stok[ri[r]]) * C3 + head * HD + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NTD; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + p.C + n * 8) =
+              __floats2bfloat162_rn(dka[n][2 * r] * p.scale, dka[n][2 * r + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dst + 2 * p.C + n * 8) =
+              __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+        }
+      }
+    }
+
+    // ---- 5. table cotangent: units (16 table rows, component), each owned
+    // by one warp; q columns scale Wk^T K, k columns scale Wq^T Q, v
+    // columns Wm^T G over the group's valid rows, added to the partial ----
+    for (int u = warp; u < 3 * (TR / 16); u += nwarps) {
+      const int mt = u / 3, comp = u - 3 * mt;
+      const bool key = comp == 0;
+      const float* wsrc = comp == 0 ? skr : comp == 1 ? sqr : sgve;
+      const bf16* bsrc = comp == 0 ? sk : comp == 1 ? sq : sg;
+      const float fac = comp < 2 ? p.scale : 1.f;
+      int tr[2], dy[2], dx[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tr[h] = mt * 16 + gq + 8 * h;
+        dy[h] = tr[h] / W2;
+        dx[h] = tr[h] - dy[h] * W2;
+      }
+      float acc[NTD][4], prev[NTD][4];
+#pragma unroll
+      for (int n = 0; n < NTD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = prev[n][e] = 0.f;
+      if (grp != blockIdx.x) {  // the partial so far (loaded first: its latency overlaps)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (tr[h] >= trows) continue;
+#pragma unroll
+          for (int n = 0; n < NTD; ++n) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                part + tr[h] * C3 + comp * HD + n * 8 + 2 * t4);
+            prev[n][2 * h] = x.x;
+            prev[n][2 * h + 1] = x.y;
+          }
+        }
+      }
+      for (int kc = 0; kc < nvalid * MT; ++kc) {
+        float w[2][4];  // A[t][j] = W[j][t]: rows t (tr), cols j
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = kc * 16 + 8 * h + 2 * t4 + e;  // group row
+            const int pj = (j % T) >> nshift, jy = pj / p.ww, jx = pj - jy * p.ww;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int s = w_col(jy, jx, dy[r], dx[r], p.wh, p.ww, key);
+              w[h][2 * r + e] = s >= 0 ? wsrc[j * P + s] : 0.f;
+            }
+          }
+        // W as bf16 hi + lo parts: the sum over every window of the batch
+        // keeps about 16 bits of each term, where bf16 alone (8) would lose
+        // the tolerance at the training batch
+        float wlo[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wlo[h][e] = w[h][e] - __bfloat162float(__float2bfloat16(w[h][e]));
+        uint32_t a[4], alo[4];
+        c_to_a(a, w[0], w[1]);
+        c_to_a(alo, wlo[0], wlo[1]);
+#pragma unroll
+        for (int nd = 0; nd < NTD / 2; ++nd) {
+          uint32_t b[4];
+          load_b_cols(b, bsrc, LD, kc * 16, nd * 16, lane);
+          mma_bf16(acc[2 * nd], a, b[0], b[1]);
+          mma_bf16(acc[2 * nd + 1], a, b[2], b[3]);
+          mma_bf16(acc[2 * nd], alo, b[0], b[1]);
+          mma_bf16(acc[2 * nd + 1], alo, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tr[h] >= trows) continue;
+#pragma unroll
+        for (int n = 0; n < NTD; ++n)
+          *reinterpret_cast<float2*>(part + tr[h] * C3 + comp * HD + n * 8 + 2 * t4) =
+              make_float2(prev[n][2 * h] + acc[n][2 * h] * fac,
+                          prev[n][2 * h + 1] + acc[n][2 * h + 1] * fac);
+      }
+    }
+    __syncthreads();  // the next group overwrites the staged rows and blocks
+  }
+}
+
+template <int HD, int MT>
+int launch_pos_mma(const void* qkv, const float* table, const void* g, void* dqkv,
+                   float* partial, PosBwdParams p, int nshift, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(window_pos_bwd_mma_kernel<HD, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_pos_bwd_mma_kernel<HD, MT><<<dim3(p.nblk, p.heads), p.wpb * MT * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), table, static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
+      partial, p, nshift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int launch_pos_bwd(const void* qkv, const float* table, const void* g, void* dqkv, float* partial,
                    float* dtable, PosBwdParams p, cudaStream_t stream) {
@@ -460,22 +1056,35 @@ int launch_pos_bwd(const void* qkv, const float* table, const void* g, void* dqk
   const int Tw = P * p.N;
   const int trows = (2 * p.wh - 1) * (2 * p.ww - 1);
   int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.keep_table = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, 1) <=
-                 static_cast<size_t>(max_smem);
-  const size_t smem = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, p.keep_table);
-  err = cudaFuncSetAttribute(window_pos_bwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_pos_bwd_kernel<T, HD><<<dim3(p.nblk, p.heads), kPosWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), table, static_cast<const T*>(g), static_cast<T*>(dqkv),
-      partial, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int err = -1;  // -1: the main kernel not launched yet
+  if constexpr (sizeof(T) == 2) {
+    const int nshift = p.N == 1 ? 0 : p.N == 2 ? 1 : p.N == 4 ? 2 : p.N == 8 ? 3 : -1;
+    const int mt = Tw % 16 == 0 ? Tw / 16 : 0;
+    size_t a, b, c, d;
+    const size_t smem =
+        pos_mma_smem<HD>(p.wpb * Tw, P, Tw, p.wpb, (trows + 15) / 16 * 16, &a, &b, &c, &d);
+    if (nshift >= 0 && smem <= static_cast<size_t>(max_smem)) {
+      if (mt == 1) err = launch_pos_mma<HD, 1>(qkv, table, g, dqkv, partial, p, nshift, smem, stream);
+      if (mt == 9) err = launch_pos_mma<HD, 9>(qkv, table, g, dqkv, partial, p, nshift, smem, stream);
+    }
+  }
+  if (err == -1) {
+    p.keep_table = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, 1) <=
+                   static_cast<size_t>(max_smem);
+    const size_t smem = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, p.keep_table);
+    e = cudaFuncSetAttribute(window_pos_bwd_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    window_pos_bwd_kernel<T, HD><<<dim3(p.nblk, p.heads), kPosWarps * 32, smem, stream>>>(
+        static_cast<const T*>(qkv), table, static_cast<const T*>(g), static_cast<T*>(dqkv),
+        partial, p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err != 0) return err;
   const int n = trows * 3 * p.C;
   window_pos_bwd_sum_kernel<<<(n + kSumThreads - 1) / kSumThreads, kSumThreads, 0, stream>>>(
       partial, dtable, p.nblk, n);

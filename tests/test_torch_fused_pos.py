@@ -18,7 +18,12 @@ port against the JAX package (CPU, float32).
   Pallas path with the flag, at ``tests/test_torch_train.py``'s tolerances;
 * (d) with the flag unset the port takes K1b's path as before: no call of
   B7's plain version, no launch counted, and the same output and
-  gradients as with the flag.
+  gradients as with the flag;
+* (e) the product form of B7's tensor-core kernel: the positional backward
+  as five dense products with [T, (2ws-1)^2] matrices Wq, Wk and Wm,
+  gathered from the plain dqr, dkr and mass through the relative index the
+  kernel uses (``w_col`` in ``csrc/window_attention_pos_bwd.cu``), in f32,
+  against B7's plain version and the JAX Pallas B7 at (a)'s 2e-5.
 
 JAX reads ``NMRF_FUSED_POS`` when it traces, so each test sets it with
 ``monkeypatch.setenv`` before it builds and jits a fresh function.
@@ -99,16 +104,34 @@ def _jax_pos_op_vjp(qkv, table, g, shift, ws, N, heads, cand, row0, hp_total):
     return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("case", list(_OP_CASES))
-def test_b7_plain_matches_jax_pallas_b7(case, b7_calls):
+_OP_HEADS = 2
+_OP_RESULTS = {}
+
+
+def _op_case(case):
+    """Inputs (qkv, table, g) of an _OP_CASES case, 16 channels in 2 heads,
+    and the JAX fused-positional op's output and (d(qkv), d(table)) on them,
+    kept for the process: (e) reuses what (a) computed."""
+    if case in _OP_RESULTS:
+        return _OP_RESULTS[case]
     B, H, W, N, ws, shift, cand, row0, hp_total = _OP_CASES[case]
-    dim, heads = 16, 2
+    dim = 16
     rng = np.random.RandomState(12)
     qkv = _rand(rng, B, H, W, N, 3 * dim)
     table = 0.1 * _rand(rng, (2 * ws - 1) ** 2, 3 * dim)
     g = _rand(rng, B, H, W, N, dim)
-    out_want, grads_want = _jax_pos_op_vjp(qkv, table, g, shift, ws, N, heads,
-                                           cand, row0, hp_total)
+    out, grads = _jax_pos_op_vjp(qkv, table, g, shift, ws, N, _OP_HEADS, cand,
+                                 row0, hp_total)
+    _OP_RESULTS[case] = (qkv, table, g), out, grads
+    return _OP_RESULTS[case]
+
+
+@pytest.mark.parametrize("case", list(_OP_CASES))
+def test_b7_plain_matches_jax_pallas_b7(case, b7_calls):
+    B, H, W, N, ws, shift, cand, row0, hp_total = _OP_CASES[case]
+    heads = _OP_HEADS
+    _OP_RESULTS.pop(case, None)  # this test counts the JAX call
+    (qkv, table, g), out_want, grads_want = _op_case(case)
     assert b7_calls["jax"] == 1
     args = (torch.from_numpy(qkv), torch.from_numpy(table), shift, (ws, ws),
             heads, cand, row0, hp_total)
@@ -233,3 +256,100 @@ def test_flag_unset_keeps_the_default_path(setting, monkeypatch, b7_calls):
         ("window_attention", "stripe_attention", "window_attention_bwd",
          "stripe_attention_bwd", "msda_taps", "masked_attention",
          "masked_attention_bwd", "window_attention_pos_bwd"), 0)
+
+
+# ---- (e) ---- #
+
+def _w_index(ws):
+    """([P, trows], [P, trows]) for pixel p of a ws x ws window and table row
+    t = (dy, dx), dy = t // (2ws-1): the key pixel s with rel(p, s) = t (the
+    query side: Wq, Wm) and the query pixel s' with rel(s', p) = t (the key
+    side: Wk), P (an appended zero column) where no pixel matches, as the
+    kernel's ``w_col`` finds them."""
+    P, W2 = ws * ws, 2 * ws - 1
+    q_idx = np.full((P, W2 * W2), P)
+    k_idx = np.full((P, W2 * W2), P)
+    for p in range(P):
+        y, x = divmod(p, ws)
+        for t in range(W2 * W2):
+            dy, dx = divmod(t, W2)
+            for idx, sy, sx in ((q_idx, y + ws - 1 - dy, x + ws - 1 - dx),
+                                (k_idx, y - ws + 1 + dy, x - ws + 1 + dx)):
+                if 0 <= sy < ws and 0 <= sx < ws:
+                    idx[p, t] = sy * ws + sx
+    return q_idx, k_idx
+
+
+def _product_form_bwd(g, qkv, table, shift, ws, heads, cand, row0, hp_total):
+    """(d(qkv), d(table)) of the window attention, f32: the softmax
+    backward written out as in B7's plain version, then the positional
+    backward as the tensor-core kernel forms it, five products with the
+    gathered W matrices:
+        dq += scale Wq KE,  dk += scale Wk QE,
+        d(table)[q cols] = scale Wk^T K, [k cols] = scale Wq^T Q,
+        [v cols] = Wm^T G."""
+    B, Hp, Wp, N, C3 = qkv.shape
+    h, hd = heads, C3 // (3 * heads)
+    P, trows = ws * ws, (2 * ws - 1) ** 2
+    scale = hd ** -0.5
+    q, k, v = A._window_split(qkv, (ws, ws), h, 3)
+    (gw,) = A._window_split(g, (ws, ws), h, 1)
+    qe, ke, ve = A._window_tables(table, (ws, ws), h)
+    attn = A._window_probs(q, k, qe, ke, (B, Hp, Wp, N), (ws, ws), shift, cand,
+                           row0, hp_total)
+    G, _, T, _ = q.shape
+    gve = torch.einsum("ghpnc,pshc->ghpns", gw.reshape(G, h, P, N, hd), ve)
+    dattn = gw @ v.transpose(-1, -2) \
+        + gve.reshape(G, h, T, P).repeat_interleave(N, dim=-1)
+    dS = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    dqr = dS.reshape(G, h, T, P, N).sum(-1)
+    dkr = dS.transpose(-1, -2).reshape(G, h, T, P, N).sum(-1)
+    mass = attn.reshape(G, h, T, P, N).sum(-1)
+
+    q_idx, k_idx = _w_index(ws)
+    pix = np.arange(T) // N
+
+    def gathered(block, idx):  # [G, h, T, P] -> [G, h, T, trows]
+        padded = torch.cat([block, block.new_zeros(G, h, T, 1)], dim=-1)
+        index = torch.as_tensor(idx[pix]).expand(G, h, T, trows)
+        return torch.gather(padded, -1, index)
+
+    Wq, Wk, Wm = gathered(dqr, q_idx), gathered(dkr, k_idx), gathered(mass, q_idx)
+    tab = table.reshape(trows, h, 3, hd)
+    QE, KE = tab[:, :, 0], tab[:, :, 1]
+    dq = (dS @ k + torch.einsum("ghit,thc->ghic", Wq, KE)) * scale
+    dk = (dS.transpose(-1, -2) @ q + torch.einsum("ghjt,thc->ghjc", Wk, QE)) * scale
+    dv = attn.transpose(-1, -2) @ gw
+    d_table = torch.stack([
+        torch.einsum("ghjt,ghjc->thc", Wk, k) * scale,
+        torch.einsum("ghit,ghic->thc", Wq, q) * scale,
+        torch.einsum("ghit,ghic->thc", Wm, gw)], dim=2)
+    dqkv = A._window_merge(torch.stack([dq, dk, dv]), (B, Hp, Wp, N), (ws, ws))
+    return dqkv, d_table.reshape(trows, C3)
+
+
+@pytest.mark.parametrize("case", ["inference/shift0", "inference/shift3",
+                                  "refinement/shift0", "refinement/shift2"])
+def test_b7_product_form_matches_plain_and_jax(case):
+    B, H, W, N, ws, shift, cand, row0, hp_total = _OP_CASES[case]
+    # the W index is the relative-position index turned inside out
+    q_idx, k_idx = _w_index(ws)
+    rel = A.relative_position_index(ws, ws)
+    P = ws * ws
+    for p in range(P):
+        np.testing.assert_array_equal(q_idx[p, rel[p]], np.arange(P))
+        np.testing.assert_array_equal(k_idx[p, rel[:, p]], np.arange(P))
+    assert ((q_idx < P).sum(1) == P).all() and ((k_idx < P).sum(1) == P).all()
+
+    (qkv, table, g), _, grads_want = _op_case(case)
+    args = (torch.from_numpy(qkv), torch.from_numpy(table), shift, (ws, ws),
+            _OP_HEADS, cand, row0, hp_total)
+    got = _product_form_bwd(torch.from_numpy(g), torch.from_numpy(qkv),
+                            torch.from_numpy(table), shift, ws, _OP_HEADS,
+                            cand, row0, hp_total)
+    plain = A.window_attention_pos_bwd_plain(torch.from_numpy(g), *args)
+    for name, a, b, w in zip(("qkv", "table"), got, plain, grads_want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=2e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), w, atol=2e-5, rtol=2e-5,
+                                   err_msg=name)

@@ -18,8 +18,11 @@ B6b, and K1/K1b on a tile's row offset, are held at the same tolerances;
 the sharded path runs on a 1 x 2 grid with both ranks on the card (gloo)
 and, given four cards, on a 2 x 2 grid over NCCL.  The fully fused window
 backward B7 (the ``NMRF_FUSED_POS=1`` path) is held against its plain
-version at the backward tolerances, against K1b in f32, and against itself
-(two launches, the same bits).
+version at the backward tolerances (its tensor-core kernel also at the
+training batch of 8 and on tiles), against K1b in f32, and against itself
+(two launches, the same bits).  K2's tensor-core kernel is held at the
+serving and training stripes at batch 1 and 8, and on ragged tiny stripes
+at every head dim.
 """
 
 from pathlib import Path
@@ -421,6 +424,77 @@ def test_window_pos_bwd_kernel_is_deterministic(cuda, case):
     second = A.window_attention_pos_bwd(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c + (0, None) for c in _WINDOW_BWD_CASES[:4]]
+                         + [(24, 96, 4, 6, 3, True, 24, 48),
+                            (48, 192, 1, 4, 2, False, 48, 96)],
+                         ids=["inference-shift0", "inference-shift3",
+                              "refinement-shift0", "refinement-shift2",
+                              "inference-tile1", "refinement-tile1"])
+def test_window_pos_bwd_mma_kernel_batch8_matches_plain(cuda, case):
+    """B7's tensor-core kernel (bf16, T 144 and 16) at the training batch
+    of 8, on whole images and on a sharded rank's tile, against its plain
+    version: d(qkv) and d(table), the latter summed over every window of
+    the batch (its W products take bf16 hi + lo parts)."""
+    Hp, Wp, N, ws, shift, cand, row0, hp_total = case
+    g = torch.Generator(device=cuda).manual_seed(15)
+    qkv = torch.randn(8, Hp, Wp, N, 384, generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    gout = torch.randn(8, Hp, Wp, N, 128, generator=g, device=cuda,
+                       dtype=torch.bfloat16)
+    args = (gout, qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
+    before = A.window_attention_pos_bwd.launches
+    got = A.window_attention_pos_bwd(*args)
+    assert A.window_attention_pos_bwd.launches == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    atol, rtol = _GPU_BWD_TOL[torch.bfloat16]
+    for a, b in zip(got, A.window_attention_pos_bwd_plain(*args)):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", [(47, 156, 47, 1), (47, 156, 1, 156),
+                                   (48, 96, 48, 1), (48, 96, 1, 96)],
+                         ids=["T188", "T624", "T192", "T384"])
+def test_stripe_kernel_bf16_serving_and_training_shapes(cuda, batch, shape):
+    """K2's tensor-core kernel at the serving (T 188, 624) and training
+    (T 192, 384) stripes, batch 1 and 8, against its plain version."""
+    H, W, H_sp, W_sp = shape
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn(batch, H, W, 4, 64, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = A.stripe_attention.launches
+    with torch.inference_mode():
+        got = A.stripe_attention(q, k, v, H_sp, W_sp, 2)
+        want = A.stripe_attention_plain(q, k, v, H_sp, W_sp, 2)
+    assert A.stripe_attention.launches == before + 1
+    atol, rtol = _GPU_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(5, 6, 5, 1, 4), (3, 22, 1, 11, 2),
+                                   (2, 40, 1, 20, 4)],
+                         ids=["T20", "T22", "T80"])
+def test_stripe_kernel_ragged_stripes_and_head_dims(cuda, dtype, hd, shape):
+    """K2 on tiny stripes that fill no 16-row tile (T 20, 22) or end
+    inside one (T 80 = 64 + 16), with 1, 2 or 4 candidates, at every
+    supported head dim, against its plain version."""
+    H, W, H_sp, W_sp, N = shape
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(2, H, W, N, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    with torch.inference_mode():
+        got = A.stripe_attention(q, k, v, H_sp, W_sp, 64 // hd)
+        want = A.stripe_attention_plain(q, k, v, H_sp, W_sp, 64 // hd)
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.gpu
