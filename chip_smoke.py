@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
-    python3 chip_smoke.py --compare-old DIR  # B7/K2 vs DIR's sources
+    python3 chip_smoke.py --compare-old DIR  # B6/B6b vs DIR's sources
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -57,16 +57,16 @@ Phases (any failure exits non-zero before the last line is printed):
    NMRF_FUSED_POS=1 (B7 in place of K1b), with the launch counters of each
    rank read around the timed requests and steps; rank 0 profiles a request
    and a step.  Phase 2 also holds the rectangular masked attention B6
-   and its backward B6b, and K1/K1b/B7 at a tile's row offset, against
-   their plain versions.
+   and its backward B6b (at the sharded serving and training shapes, G 156
+   and 768, and on a ragged shape; two B6b launches give the same bits),
+   and K1/K1b/B7 at a tile's row offset, against their plain versions.
 
 With ``--compare-old DIR`` it builds the kernels and DIR's
-``window_attention_pos_bwd.cu`` and ``stripe_attention.cu`` (earlier
-versions of B7 and K2, with DIR's headers) and times the two versions in
-turns (old, new, new, old): B7 at the training shapes beside SDPA's
-backward and the bound, K2 at the serving and the training shapes beside
-SDPA and the bound, then the NMRF_FUSED_POS=1 and the default training
-steps; nothing else runs.
+``masked_attention.cu`` and ``masked_attention_bwd.cu`` (earlier versions
+of B6 and B6b, with DIR's headers) and times the two versions in turns
+(old, new, new, old) at the sharded path's shapes: B6 at G 156 and 768,
+B6b at G 768, each beside SDPA (its backward for B6b) and the bound;
+nothing else runs (the unsharded steps launch neither kernel).
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +174,9 @@ NO_SPILL = {
                              "window_bwd_mma_kernel<bf16,32,9>"),
     "window_attention_pos_bwd": ("window_pos_bwd_mma_kernel<bf16,32,1>",
                                  "window_pos_bwd_mma_kernel<bf16,32,9>"),
+    "masked_attention": ("masked_attention_mma_kernel<bf16,32>",),
+    "masked_attention_bwd": ("masked_bwd_dq_mma_kernel<bf16,32>",
+                             "masked_bwd_dkv_mma_kernel<bf16,32>"),
 }
 
 
@@ -480,6 +483,8 @@ def split_ms(fn, ms, groups, iters=3):
 
 K1B_SPLIT = (("main", K1B_MAIN), ("dve", K1B_DVE))
 B7_SPLIT = (("main", B7_MAIN), ("sum", B7_SUM))
+# B6b's query-side and key-side kernels
+B6B_SPLIT = (("dq", ("masked_bwd_dq",)), ("dkv", ("masked_bwd_dkv",)))
 
 
 def bwd_kernel_phase(gen):
@@ -736,6 +741,9 @@ MASKED_CASES = [
     ("serve G156", 156, 5, 0),
     ("train G768", 768, 0, 5),
 ]
+# a ragged shape (a 48-row query block over 40 rows; 64 + 8 keys), one
+# mask per group: (G, Rq, Rk)
+MASKED_RAGGED = (24, 40, 72)
 # K1/K1b on a tile of the sharded training shapes (row0 > 0, hp_total > Hp):
 # (label, Hp, Wp, N, ws, shift, candidate_mask, row0, hp_total)
 ROW0_CASES = [
@@ -761,18 +769,77 @@ def masked_bound(G, Rq, Rk, heads, hd, Gm, backward=False):
 
 
 def tile_stripe_mask(tile):
-    """[Rq, Rk] rows of the global anti-same-pixel stripe mask for a tile."""
+    """[1, Rq, Rk] rows of the global anti-same-pixel stripe mask for a tile,
+    on the card: the sharded CSWin layer's own cached mask."""
+    import torch
+
+    from nmrf_tpu_torch.models import nmp
+
+    return nmp.tile_stripe_mask(MASKED_RK, MASKED_N, tile, MASKED_RQ,
+                                torch.device("cuda", 0))
+
+
+def per_group_mask(gen, G, Rq, Rk):
+    """[G, Rq, Rk] random additive mask: a fifth of the entries -1e9, the
+    rest standard normal, and query row 1 masked everywhere (the plain
+    version's uniform softmax)."""
+    import torch
+
+    mask = torch.where(
+        torch.rand(G, Rq, Rk, generator=gen, device="cuda") < 0.2, -1e9,
+        torch.randn(G, Rq, Rk, generator=gen, device="cuda"))
+    mask[:, 1] = -1e9
+    return mask
+
+
+def masked_checks(gen, label, G, Rq, Rk, masks):
+    """B6 and B6b against their plain versions in f32 and bf16 for each
+    mask, and two bf16 B6b launches for the same bits; ({"max_abs_err_<dtype>":
+    ...} of B6, the same of B6b)."""
+    import torch
+
     from nmrf_tpu_torch.ops import attention as A
 
-    return A.stripe_mask(MASKED_RK, MASKED_N)[tile * MASKED_RQ:(tile + 1) * MASKED_RQ]
+    h, hd = MASKED_HEADS, MASKED_HD
+    scale = hd ** -0.5
+    q32, g32 = (torch.randn(h, G, Rq, hd, generator=gen, device="cuda")
+                for _ in range(2))
+    k32, v32 = (torch.randn(h, G, Rk, hd, generator=gen, device="cuda")
+                for _ in range(2))
+    ef, eb = {}, {}
+    for dtype_name, dt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+        q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+        errs_f, errs_b = [], []
+        for mname, mask in masks.items():
+            with torch.inference_mode():
+                got = A.masked_attention(q, k, v, mask, scale)
+                torch.cuda.synchronize()
+                want = A.masked_attention_plain(q, k, v, mask, scale)
+            errs_f.append(check_close(f"masked_attention {label} {mname}",
+                                      got, want, dtype_name))
+            got = A.masked_attention_bwd(g, q, k, v, mask, scale)
+            torch.cuda.synchronize()
+            want = A.masked_attention_bwd_plain(g, q, k, v, mask, scale)
+            errs_b.extend(check_close(
+                f"masked_attention_bwd {label} {mname} d{n}", a, b,
+                dtype_name, TOL_BWD) for n, a, b in zip("qkv", got, want))
+            if dtype_name == "bfloat16":
+                check_repeat(f"masked_attention_bwd {label} {mname}", got,
+                             A.masked_attention_bwd(g, q, k, v, mask, scale))
+        ef[f"max_abs_err_{dtype_name}"] = max(errs_f)
+        eb[f"max_abs_err_{dtype_name}"] = max(errs_b)
+    return ef, eb
 
 
 def masked_phase(gen):
     """Phase 2 (B6 and B6b against their plain versions, f32 and bf16, at
-    the sharded path's shapes, with the tile-0 and tile-1 stripe masks
-    (Gm = 1) and a random mask per group (Gm = G)) and their timings of
-    phase 6 (bf16, tile-1 mask as the path runs it; SDPA with the same
-    additive mask, forward and backward)."""
+    the sharded path's shapes (serving G 156, training G 768), with the
+    tile-0 and tile-1 stripe masks (Gm = 1) and a random mask per group (Gm
+    = G, one row masked everywhere), then on a ragged shape; two bf16 B6b
+    launches give the same bits) and their timings of phase 6 (bf16, tile-1
+    mask as the path runs it; SDPA with the same additive mask, forward and
+    backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -783,37 +850,15 @@ def masked_phase(gen):
     scale = hd ** -0.5
     fwd, bwd = [], []
     for label, G, fwd_count, bwd_count in MASKED_CASES:
-        q32 = torch.randn(h, G, Rq, hd, generator=gen, device=dev)
-        k32, v32 = (torch.randn(h, G, Rk, hd, generator=gen, device=dev)
-                    for _ in range(2))
-        g32 = torch.randn(h, G, Rq, hd, generator=gen, device=dev)
-        masks = {f"tile{t}": torch.as_tensor(tile_stripe_mask(t), device=dev)[None]
-                 for t in (0, 1)}
-        masks["per-group"] = torch.where(
-            torch.rand(G, Rq, Rk, generator=gen, device=dev) < 0.2, -1e9,
-            torch.randn(G, Rq, Rk, generator=gen, device=dev))
-        ef = {"shape": label, "count": fwd_count}
-        eb = {"shape": label, "count": bwd_count}
-        for dtype_name, dt in (("float32", torch.float32),
-                               ("bfloat16", torch.bfloat16)):
-            q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
-            errs_f, errs_b = [], []
-            for mname, mask in masks.items():
-                with torch.inference_mode():
-                    got = A.masked_attention(q, k, v, mask, scale)
-                    torch.cuda.synchronize()
-                    want = A.masked_attention_plain(q, k, v, mask, scale)
-                errs_f.append(check_close(f"masked_attention {label} {mname}",
-                                          got, want, dtype_name))
-                got = A.masked_attention_bwd(g, q, k, v, mask, scale)
-                torch.cuda.synchronize()
-                want = A.masked_attention_bwd_plain(g, q, k, v, mask, scale)
-                errs_b.extend(check_close(
-                    f"masked_attention_bwd {label} {mname} d{n}", a, b,
-                    dtype_name, TOL_BWD) for n, a, b in zip("qkv", got, want))
-            ef[f"max_abs_err_{dtype_name}"] = max(errs_f)
-            eb[f"max_abs_err_{dtype_name}"] = max(errs_b)
-        q, k, v, g = (t.to(torch.bfloat16) for t in (q32, k32, v32, g32))
+        masks = {f"tile{t}": tile_stripe_mask(t) for t in (0, 1)}
+        masks["per-group"] = per_group_mask(gen, G, Rq, Rk)
+        ef, eb = masked_checks(gen, label, G, Rq, Rk, masks)
+        ef.update(shape=label, count=fwd_count)
+        eb.update(shape=label, count=bwd_count)
+        q, g = (torch.randn(h, G, Rq, hd, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(h, G, Rk, hd, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
         mask = masks["tile1"]
         bmask = mask.to(torch.bfloat16)
         with torch.inference_mode():
@@ -837,6 +882,14 @@ def masked_phase(gen):
         bwd.append(eb)
         log(f"kernel masked_attention {label}: " + json.dumps(ef))
         log(f"kernel masked_attention_bwd {label}: " + json.dumps(eb))
+    G, Rq, Rk = MASKED_RAGGED
+    label = f"ragged G{G} Rq{Rq} Rk{Rk}"
+    ef, eb = masked_checks(gen, label, G, Rq, Rk,
+                           {"per-group": per_group_mask(gen, G, Rq, Rk)})
+    for entries, entry in ((fwd, ef), (bwd, eb)):
+        entry.update(shape=label, count=0)
+        entries.append(entry)
+        log(f"kernel masked {label}: " + json.dumps(entry))
     return {"masked_attention": fwd, "masked_attention_bwd": bwd}
 
 
@@ -1076,6 +1129,9 @@ def train_phase(fused=False):
 
 KERNEL_GROUPS = (
     ("msda_taps (B5)", ("msda_taps_kernel",)),
+    ("masked_attention_bwd (B6b)", ("masked_bwd_",)),
+    ("masked_attention (B6)", ("masked_attention_kernel",
+                               "masked_attention_mma_kernel")),
     ("window_attention_pos_bwd (B7)", B7_MAIN + B7_SUM),
     ("window_attention_bwd (K1b)", K1B_MAIN + K1B_DVE),
     ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq", "stripe_bwd_dkv")),
@@ -1631,18 +1687,17 @@ def _sharded_train(mesh, fused):
 
 
 # --------------------------------------------------------------------------- #
-# --compare-old DIR: the redesigned B7 and K2 against given sources of the
+# --compare-old DIR: the redesigned B6 and B6b against given sources of the
 # versions they replace, in turns in one process on one card
 # --------------------------------------------------------------------------- #
 
-REDESIGNED = ("window_attention_pos_bwd", "stripe_attention")
-COMPARE_STEPS = 5
+REDESIGNED = ("masked_attention", "masked_attention_bwd")
 
 
 def old_libraries(src_dir):
-    """Build ``src_dir``'s B7 and K2 sources (with that directory's
-    headers) with the port's nvcc flags, load them, and return {name: entry
-    point}; their C signatures are the current ones."""
+    """Build ``src_dir``'s sources of the REDESIGNED kernels (with that
+    directory's headers) with the port's nvcc flags, load them, and return
+    {name: entry point}; their C signatures are the current ones."""
     import ctypes
 
     from nmrf_tpu_torch.ops import _native
@@ -1670,14 +1725,22 @@ def old_libraries(src_dir):
     return fns
 
 
+# (kernel, G, unit, launches per unit): B6 per sharded frame (serving) and
+# per sharded step (the forward of the training step), B6b per sharded step
+COMPARE_CASES = [
+    ("masked_attention", 156, "frame", 5),
+    ("masked_attention", 768, "step", 5),
+    ("masked_attention_bwd", 768, "step", 5),
+]
+
+
 def compare_phase(src_dir, gen):
-    """Time old and new B7 and K2 in turns (old, new, new, old): B7 at the
-    training shapes (bf16, batch TRAIN_BATCH; its main and sum kernels
-    apart) beside SDPA's backward and the bound; K2 at the serving shapes
-    (batch 1) and the training shapes (batch TRAIN_BATCH) beside SDPA and
-    the bound; then the NMRF_FUSED_POS=1 training step and the default one
-    (COMPARE_STEPS steps per turn).  The wrappers stay the same: only the
-    library each one launches is swapped."""
+    """Time old and new B6 and B6b in turns (old, new, new, old) at the
+    sharded path's shapes (bf16, Rq 96, Rk 192, 2 heads of 32, the tile-1
+    stripe mask): B6 at G 156 and G 768, B6b at G 768, each beside one SDPA
+    with the same additive mask (its backward for B6b) and the bound.  The
+    wrappers stay the same: only the library each one launches is swapped.
+    The unsharded steps launch neither kernel, so no step is timed."""
     import torch
     import torch.nn.functional as F
 
@@ -1687,98 +1750,59 @@ def compare_phase(src_dir, gen):
     old = old_libraries(src_dir)
     new = {name: _native.library(name) for name in REDESIGNED}
     turns = (("old", old), ("new", new), ("new", new), ("old", old))
-    dev, B = "cuda", TRAIN_BATCH
+    h, Rq, Rk, hd = MASKED_HEADS, MASKED_RQ, MASKED_RK, MASKED_HD
+    scale = hd ** -0.5
+    mask = tile_stripe_mask(1)
+    bmask = mask.to(torch.bfloat16)
     entries = []
-
-    def timed(entry, fn, split=None):
+    for name, G, unit, count in COMPARE_CASES:
+        q, g = (torch.randn(h, G, Rq, hd, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(h, G, Rk, hd, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        backward = name == "masked_attention_bwd"
+        entry = {"name": name, "shape": f"G{G}", "unit": unit, "count": count}
+        entry["bytes_ms"], entry["ops_ms"] = masked_bound(G, Rq, Rk, h, hd, 1,
+                                                          backward)
+        if backward:
+            fn = lambda: A.masked_attention_bwd(g, q, k, v, mask, scale)  # noqa: E731
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)
+            entry["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), g, retain_graph=True), 20)
+            del out, qs, ks, vs
+        else:
+            fn = lambda: A.masked_attention(q, k, v, mask, scale)  # noqa: E731
+            with torch.inference_mode():
+                entry["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bmask), 50)
         ms = {"old": [], "new": []}
-        for tag, libs in turns:
-            _native._loaded.update(libs)
-            ms[tag].append(cuda_ms(fn, 10))
-            if split and f"{tag}_kernel_ms" not in entry:
-                entry[f"{tag}_kernel_ms"] = split_ms(fn, ms[tag][-1], split)
+        with torch.inference_mode():
+            for tag, libs in turns:
+                _native._loaded.update(libs)
+                ms[tag].append(cuda_ms(fn, 20))
+                if backward and f"{tag}_kernel_ms" not in entry:
+                    entry[f"{tag}_kernel_ms"] = split_ms(fn, ms[tag][-1], B6B_SPLIT)
         _native._loaded.update(new)
         entry.update(old_ms=ms["old"], new_ms=ms["new"])
         entries.append(entry)
         log("phase 8 old vs new: " + json.dumps(entry))
 
-    C, heads = 128, 4
-    for label, Hp, Wp, N, ws, shift, cand, count in TRAIN_WINDOW_CASES:
-        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
-                                  device=dev)
-        qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
-                          dtype=torch.bfloat16)
-        g = torch.randn(B, Hp, Wp, N, C, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        args = (g, qkv, table, shift, (ws, ws), heads, cand)
-        T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
-        bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
-        entry = {"name": "window_attention_pos_bwd", "shape": label,
-                 "unit": "step", "count": count,
-                 "library_ms": sdpa_backward_ms(gen, G, heads, T, C // heads, bias)}
-        entry["bytes_ms"], entry["ops_ms"] = window_bound(
-            B, Hp, Wp, N, ws, C, heads, backward=True)
-        timed(entry, lambda: A.window_attention_pos_bwd(*args), split=B7_SPLIT)
-    C, heads = 64, 2
-    for batch, unit, cases in ((1, "frame", STRIPE_CASES),
-                               (B, "step", TRAIN_STRIPE_CASES)):
-        for label, Hp, Wp, N, H_sp, W_sp, count in cases:
-            q, k, v = (torch.randn(batch, Hp, Wp, N, C, generator=gen, device=dev,
-                                   dtype=torch.bfloat16) for _ in range(3))
-            T, G = H_sp * W_sp * N, batch * (Hp // H_sp) * (Wp // W_sp)
-            qs, ks, vs = (torch.randn(G, heads, T, C // heads, generator=gen,
-                                      device=dev, dtype=torch.bfloat16)
-                          for _ in range(3))
-            mask = torch.as_tensor(A.stripe_mask(T, N), device=dev).to(torch.bfloat16)
-            with torch.inference_mode():
-                entry = {"name": "stripe_attention", "shape": label,
-                         "unit": unit, "count": count,
-                         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                             qs, ks, vs, attn_mask=mask), 20)}
-                entry["bytes_ms"], entry["ops_ms"] = stripe_bound(
-                    batch, Hp, Wp, N, H_sp, W_sp, C, heads)
-                timed(entry, lambda: A.stripe_attention(q, k, v, H_sp, W_sp, heads))
-
     totals = {}
-    for name, unit in (("window_attention_pos_bwd", "step"),
-                       ("stripe_attention", "frame"), ("stripe_attention", "step")):
-        rows = [e for e in entries if e["name"] == name and e["unit"] == unit]
-        key = f"{name} per {unit}"
-        totals[key] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
-                       for k in ("old_ms", "new_ms", "library_ms")}
-        totals[key]["bound_ms"] = sum(
-            max(e["bytes_ms"], e["ops_ms"]) * e["count"] for e in rows)
-    b7 = [e for e in entries if e["name"] == "window_attention_pos_bwd"]
-    for tag in ("old", "new"):
-        for part in ("main", "sum"):
-            totals["window_attention_pos_bwd per step"][f"{tag}_{part}_ms"] = sum(
-                e[f"{tag}_kernel_ms"][part] * e["count"] for e in b7)
+    for e in entries:
+        key = f"{e['name']} per {e['unit']} (G {e['shape'][1:]})"
+        totals[key] = {
+            "old_ms": float(np.mean(e["old_ms"])) * e["count"],
+            "new_ms": float(np.mean(e["new_ms"])) * e["count"],
+            "library_ms": e["library_ms"] * e["count"],
+            "bound_ms": max(e["bytes_ms"], e["ops_ms"]) * e["count"]}
+        for tag in ("old", "new"):
+            for part in ("dq", "dkv"):
+                if f"{tag}_kernel_ms" in e:
+                    totals[key][f"{tag}_{part}_ms"] = e[f"{tag}_kernel_ms"][part] * e["count"]
     slower = [f"{e['name']} {e['shape']}" for e in entries
               if max(e["new_ms"]) >= min(e["old_ms"])]
-
-    _, step, batch = train_setup()
-    step(batch)  # warm-up
-    steps = {}
-    for flagged in (True, False):
-        key = "NMRF_FUSED_POS=1" if flagged else "default"
-        steps[key] = {"old": [], "new": []}
-        with fused_pos() if flagged else contextlib.nullcontext():
-            for tag, libs in turns:
-                _native._loaded.update(libs)
-                step(batch)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(COMPARE_STEPS):
-                    step(batch)
-                end.record()
-                torch.cuda.synchronize()
-                steps[key][tag].append(start.elapsed_time(end) / COMPARE_STEPS)
-    _native._loaded.update(new)
-    return {"per_unit": totals, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
-            "new_not_faster_on": slower, "shapes": entries}
+    return {"per_unit": totals, "new_not_faster_on": slower, "shapes": entries}
 
 
 def kernels_line(kernel_results, counts):
@@ -1842,10 +1866,10 @@ def main(argv=None):
                         help="phase 7's backend: gloo (ranks may share a "
                              "card) or nccl (a card per rank)")
     parser.add_argument("--compare-old", metavar="DIR",
-                        help="build the kernels and time B7 and K2 against "
-                             "DIR's window_attention_pos_bwd.cu and "
-                             "stripe_attention.cu (with DIR's headers), in "
-                             "turns, alone and in the training steps")
+                        help="build the kernels and time B6 and B6b against "
+                             "DIR's masked_attention.cu and "
+                             "masked_attention_bwd.cu (with DIR's headers), "
+                             "in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)

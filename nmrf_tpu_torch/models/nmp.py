@@ -12,6 +12,7 @@ the fully fused backward B7 instead of K1b.
 """
 
 import os
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +30,17 @@ from ..ops.attention import (
 from ..ops.encodings import fourier_grid_embed
 from ..parallel.spatial import all_gather_h, global_fourier_rows, global_roll_h
 from .layers import GELU, LayerNorm, Linear, Mlp
+
+
+@lru_cache(maxsize=16)
+def tile_stripe_mask(T, N, index, Rq, device):
+    """[1, Rq, T] rows ``index * Rq ..`` of the global anti-same-pixel mask of
+    a T-token stripe, on ``device``: one host-to-device copy per shape, not
+    one per layer call.  Made outside inference mode, so that a training
+    step may save it for backward after a request has cached it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(stripe_mask(T, N)[index * Rq:(index + 1) * Rq],
+                               device=device)[None]
 
 
 class BasicAttention(nn.Module):
@@ -259,12 +271,10 @@ class CSWinAttention(nn.Module):
         rpe = self._positional(vs, B * nj, N)[..., sp.index * H:(sp.index + 1) * H, :]
         rpe = rpe.permute(0, 3, 4, 1, 2).reshape(B * nj, H * W_sp * N, h, hd)
 
-        Rq = H * W_sp * N
-        mask = torch.as_tensor(stripe_mask(Hg * W_sp * N, N)[
-            sp.index * Rq:(sp.index + 1) * Rq], device=q.device)
+        mask = tile_stripe_mask(Hg * W_sp * N, N, sp.index, H * W_sp * N, q.device)
         attend = masked_attention if self.use_kernels else masked_attention_plain
         out = attend(heads_first(q, H), heads_first(kf, Hg), heads_first(vf, Hg),
-                     mask[None], hd ** -0.5)
+                     mask, hd ** -0.5)
         out = out.permute(1, 2, 0, 3) + rpe.to(out.dtype)  # [B*nj, Rq, h, hd]
         out = out.reshape(B, nj, H, W_sp, N, self.dim).permute(0, 2, 1, 3, 4, 5)
         return out.reshape(B, H, Wp, N, self.dim)[:, :, lp:lp + W]

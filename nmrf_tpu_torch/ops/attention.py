@@ -736,7 +736,9 @@ def _masked_kernel_checks(kernel, tensors):
 
 
 def _masked_attention_launch(q, k, v, mask, scale):
-    h, G, Rq, Rk, hd = _masked_shapes(q, k, v, mask)
+    """One B6 launch on inputs that :func:`_masked_shapes` has passed."""
+    h, G, Rq, hd = q.shape
+    Rk = k.shape[2]
     mask = mask.float().contiguous()
     _masked_kernel_checks("masked_attention", (q, k, v, mask))
     out = torch.empty_like(q)
@@ -792,12 +794,14 @@ def masked_attention_bwd(g, q, k, v, mask, scale):
     mask = mask.float().contiguous()
     _masked_kernel_checks("masked_attention_bwd", (q, k, v, g, mask))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse, dsum = (torch.empty((h, G, Rq), dtype=torch.float32, device=q.device)
-                 for _ in range(2))
+    # the query side's softmax statistics: row max and log-sum ([2, h, G,
+    # Rq]) and D_i ([h, G, Rq])
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats, dsum = torch.empty((2, h, G, Rq), **f32), torch.empty((h, G, Rq), **f32)
     err = _native.library("masked_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), _DTYPE_CODES[q.dtype], G,
+        stats.data_ptr(), dsum.data_ptr(), _DTYPE_CODES[q.dtype], G,
         mask.shape[0], h, Rq, Rk, hd, float(scale), _native.stream())
     _native.check_launch("masked_attention_bwd", err)
     masked_attention_bwd.launches += 1

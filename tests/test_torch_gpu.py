@@ -14,7 +14,9 @@ ragged stripes too) and against themselves (two launches, the same bits),
 K1b also on the sharded step's tiles.
 The tap-MSDA kernel (B5) is held against its plain version, the dense tap
 sum, at the forward tolerances.  The masked attention B6 and its backward
-B6b, and K1/K1b on a tile's row offset, are held at the same tolerances;
+B6b (at the serving and training shapes, on ragged shapes at every head
+dim, and B6b against itself), and K1/K1b on a tile's row offset, are held
+at the same tolerances;
 the sharded path runs on a 1 x 2 grid with both ranks on the card (gloo)
 and, given four cards, on a 2 x 2 grid over NCCL.  The fully fused window
 backward B7 (the ``NMRF_FUSED_POS=1`` path) is held against its plain
@@ -315,23 +317,9 @@ def _stripe_tile_mask(tile, device):
                            device=device)[None]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mask_kind", ["tile0", "tile1", "per-group"])
-def test_masked_kernels_match_plain(cuda, dtype, mask_kind):
-    """B6 against its plain version and B6b against autograd through it, at
-    the sharded path's shape (2 heads of 32, Rq 96, Rk 192, G 156)."""
-    g = torch.Generator(device=cuda).manual_seed(7)
-    G = 156
-    q, gout = (torch.randn(2, G, 96, 32, generator=g, device=cuda).to(dtype)
-               for _ in range(2))
-    k, v = (torch.randn(2, G, 192, 32, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
-    if mask_kind == "per-group":
-        mask = torch.randn(G, 96, 192, generator=g, device=cuda)
-    else:
-        mask = _stripe_tile_mask(int(mask_kind[-1]), cuda)
-    scale = 32 ** -0.5
+def _check_masked_kernels(q, k, v, mask, gout, scale):
+    """B6 against its plain version and B6b against autograd through it,
+    one launch each."""
     before = A.launch_counts()
     with torch.inference_mode():
         got = A.masked_attention(q, k, v, mask, scale)
@@ -340,14 +328,80 @@ def test_masked_kernels_match_plain(cuda, dtype, mask_kind):
     after = A.launch_counts()
     assert after["masked_attention"] == before["masked_attention"] + 1
     assert after["masked_attention_bwd"] == before["masked_attention_bwd"] + 1
-    atol, rtol = _GPU_TOL[dtype]
+    atol, rtol = _GPU_TOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
     dwant = torch.autograd.grad(A.masked_attention_plain(*qkv, mask, scale),
                                 qkv, gout)
-    atol, rtol = _GPU_BWD_TOL[dtype]
+    atol, rtol = _GPU_BWD_TOL[q.dtype]
     for a, b in zip(dgot, dwant):
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["tile0", "tile1", "per-group"])
+@pytest.mark.parametrize("G", [156, 768])
+def test_masked_kernels_match_plain(cuda, dtype, mask_kind, G):
+    """B6 against its plain version and B6b against autograd through it, at
+    the sharded path's shape (2 heads of 32, Rq 96, Rk 192; G 156 serving,
+    768 training; bf16: the tensor-core kernels, Gm 1 and Gm = G)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, gout = (torch.randn(2, G, 96, 32, generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(2, G, 192, 32, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    if mask_kind == "per-group":
+        mask = torch.randn(G, 96, 192, generator=g, device=cuda)
+    else:
+        mask = _stripe_tile_mask(int(mask_kind[-1]), cuda)
+    _check_masked_kernels(q, k, v, mask, gout, 32 ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(40, 72, "per-group"), (136, 40, "one"),
+                                   (20, 130, "one"), (128, 400, "one"),
+                                   (800, 100, "one")],
+                         ids=["ragged", "two-row-tiles", "ragged-keys",
+                              "mask-rows-in-memory", "strip-in-memory"])
+def test_masked_kernels_ragged_shapes_and_head_dims(cuda, dtype, hd, shape):
+    """B6 and B6b on ragged row and key tiles at every head dim (bf16: the
+    tensor-core kernels), with random masks holding -1e9 entries and one
+    query row masked everywhere (the plain version's uniform softmax);
+    Rq 136 takes two query-row tiles, and at (128, 400) and (800, 100) the
+    staged mask rows or the key side's strip do not fit in shared memory,
+    so the kernels read the mask from device memory."""
+    Rq, Rk, kind = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    h, G = 2, 3
+    q, gout = (torch.randn(h, G, Rq, hd, generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(h, G, Rk, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    Gm = G if kind == "per-group" else 1
+    mask = torch.where(torch.rand(Gm, Rq, Rk, generator=g, device=cuda) < 0.3,
+                       -1e9, torch.randn(Gm, Rq, Rk, generator=g, device=cuda))
+    mask[:, 1] = -1e9
+    _check_masked_kernels(q, k, v, mask, gout, hd ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [156, 768])
+def test_masked_bwd_kernel_is_deterministic(cuda, G):
+    """Two B6b launches on the same bf16 inputs (the sharded path's shapes,
+    tile-1 mask) give the same bits: every row has one owner."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, gout = (torch.randn(2, G, 96, 32, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, G, 192, 32, generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mask = _stripe_tile_mask(1, cuda)
+    first = A.masked_attention_bwd(gout, q, k, v, mask, 32 ** -0.5)
+    second = A.masked_attention_bwd(gout, q, k, v, mask, 32 ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
