@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
-    python3 chip_smoke.py --compare-old DIR  # B6/B6b vs DIR's sources
+    python3 chip_smoke.py --compare-old DIR  # K1/B5 vs DIR's sources
+    python3 chip_smoke.py --k1-stages        # K1's time by stage
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -12,8 +13,9 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels must not spill registers at head dim 32 (``NO_SPILL``);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, in float32 (TF32 off) and bfloat16: the forward
-   kernels K1 and K2 at the KITTI serving shapes (K2 also at the training
-   shapes, bf16 at the training batch, and on a sharded rank's tile), the
+   kernels K1 and K2 at the KITTI serving shapes (both also at the
+   training shapes, bf16 at the training batch; K2 on a sharded rank's
+   tile), the
    backward kernels K1b, K2b and B7 (the fully fused window backward of
    the NMRF_FUSED_POS=1 training path) at the training shapes (batch 1,
    and bf16 at the training batch of 8) and the KITTI shapes; B7 also against K1b on the
@@ -62,11 +64,15 @@ Phases (any failure exits non-zero before the last line is printed):
    and K1/K1b/B7 at a tile's row offset, against their plain versions.
 
 With ``--compare-old DIR`` it builds the kernels and DIR's
-``masked_attention.cu`` and ``masked_attention_bwd.cu`` (earlier versions
-of B6 and B6b, with DIR's headers) and times the two versions in turns
-(old, new, new, old) at the sharded path's shapes: B6 at G 156 and 768,
-B6b at G 768, each beside SDPA (its backward for B6b) and the bound;
-nothing else runs (the unsharded steps launch neither kernel).
+``window_attention.cu`` and ``msda_taps.cu`` (earlier versions of K1 and
+B5, with DIR's headers) and times the two versions in turns (old, new,
+new, old): K1 at the KITTI windows (batch 1) and the training windows
+(batch 8), B5 at the four extractor shapes of a swin KITTI request, each
+beside SDPA (K1) or ``grid_sample`` (B5) and the bound, then the default
+and the NMRF_FUSED_POS=1 training steps; nothing else runs.  With
+``--k1-stages`` it builds K1's source with one stage of its tensor-core
+kernel cut out at a time and times each beside the whole kernel, at a
+KITTI and a training window of Inference and Refinement (``K1_CUTS``).
 
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
@@ -164,8 +170,9 @@ def ptxas_kernels(text):
     return out
 
 
-# the tensor-core kernels at the main paths' head dim (32): each must build
-# without spilling registers to local memory
+# the tensor-core kernels at the main paths' head dim (32), and B5's vector
+# kernel at the swin neck's (bf16, D 8): each must build without spilling
+# registers to local memory
 NO_SPILL = {
     "stripe_attention": ("stripe_attention_mma_kernel<bf16,32>",),
     "stripe_attention_bwd": ("stripe_bwd_dq_mma_kernel<bf16,32>",
@@ -177,6 +184,9 @@ NO_SPILL = {
     "masked_attention": ("masked_attention_mma_kernel<bf16,32>",),
     "masked_attention_bwd": ("masked_bwd_dq_mma_kernel<bf16,32>",
                              "masked_bwd_dkv_mma_kernel<bf16,32>"),
+    "window_attention": ("window_attention_mma_kernel<bf16,32,1>",
+                         "window_attention_mma_kernel<bf16,32,9>"),
+    "msda_taps": ("msda_taps_vec_kernel<bf16,8>",),
 }
 
 
@@ -379,6 +389,44 @@ def kernel_phase(gen):
             lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias), 20)
         entry["bytes_ms"], entry["ops_ms"] = window_bound(1, Hp, Wp, N, ws, C,
                                                           heads)
+        results["window_attention"].append(entry)
+        log(f"kernel window_attention {label}: " + json.dumps(entry))
+    # the training windows: checked in f32 at batch 1 and in bf16 at batch
+    # TRAIN_BATCH, timed per training step (bf16, TRAIN_BATCH); count 0
+    # keeps them out of the per-frame sums of the kernels line
+    B = TRAIN_BATCH
+    for label, Hp, Wp, N, ws, shift, cand, per_step in TRAIN_WINDOW_CASES:
+        table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                  device=dev)
+        entry = {"shape": label, "count": 0, "unit": "step",
+                 "step_count": per_step}
+        for dtype_name, dt, b in (("float32", torch.float32, 1),
+                                  ("bfloat16", torch.bfloat16, B)):
+            qkv = torch.randn(b, Hp, Wp, N, 3 * C, generator=gen, device=dev,
+                              dtype=dt)
+            got = A.window_attention(qkv, table, shift, (ws, ws), heads, cand)
+            torch.cuda.synchronize()
+            want = A.window_attention_plain(qkv, table, shift, (ws, ws), heads,
+                                            cand)
+            key = "max_abs_err_float32" if b == 1 else "max_abs_err_bfloat16_batch8"
+            entry[key] = check_close(f"window_attention {label} batch {b}", got,
+                                     want, dtype_name)
+            del got, want
+        entry["ms"] = cuda_ms(lambda: A.window_attention(
+            qkv, table, shift, (ws, ws), heads, cand), 20)
+        entry["plain_ms"] = cuda_ms(lambda: A.window_attention_plain(
+            qkv, table, shift, (ws, ws), heads, cand), 3, warmup=1)
+        T, hd = ws * ws * N, C // heads
+        G = B * (Hp // ws) * (Wp // ws)
+        qs, ks, vs = (torch.randn(G, heads, T, hd, generator=gen, device=dev,
+                                  dtype=torch.bfloat16) for _ in range(3))
+        bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        entry["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias), 20)
+        entry["bytes_ms"], entry["ops_ms"] = window_bound(B, Hp, Wp, N, ws, C,
+                                                          heads)
+        del qs, ks, vs, bias
         results["window_attention"].append(entry)
         log(f"kernel window_attention {label}: " + json.dumps(entry))
 
@@ -1128,14 +1176,15 @@ def train_phase(fused=False):
 
 
 KERNEL_GROUPS = (
-    ("msda_taps (B5)", ("msda_taps_kernel",)),
+    ("msda_taps (B5)", ("msda_taps_kernel", "msda_taps_vec_kernel")),
     ("masked_attention_bwd (B6b)", ("masked_bwd_",)),
     ("masked_attention (B6)", ("masked_attention_kernel",
                                "masked_attention_mma_kernel")),
     ("window_attention_pos_bwd (B7)", B7_MAIN + B7_SUM),
     ("window_attention_bwd (K1b)", K1B_MAIN + K1B_DVE),
     ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq", "stripe_bwd_dkv")),
-    ("window_attention (K1)", ("window_attention_kernel",)),
+    ("window_attention (K1)", ("window_attention_kernel",
+                               "window_attention_mma_kernel")),
     ("stripe_attention (K2)", ("stripe_attention_kernel",
                                "stripe_attention_mma_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
@@ -1687,11 +1736,12 @@ def _sharded_train(mesh, fused):
 
 
 # --------------------------------------------------------------------------- #
-# --compare-old DIR: the redesigned B6 and B6b against given sources of the
+# --compare-old DIR: the redesigned K1 and B5 against given sources of the
 # versions they replace, in turns in one process on one card
 # --------------------------------------------------------------------------- #
 
-REDESIGNED = ("masked_attention", "masked_attention_bwd")
+REDESIGNED = ("window_attention", "msda_taps")
+COMPARE_STEPS = 5
 
 
 def old_libraries(src_dir):
@@ -1725,91 +1775,233 @@ def old_libraries(src_dir):
     return fns
 
 
-# (kernel, G, unit, launches per unit): B6 per sharded frame (serving) and
-# per sharded step (the forward of the training step), B6b per sharded step
+# (kernel, unit, batch, cases): K1 per KITTI frame (batch 1) and per
+# training step (batch TRAIN_BATCH), B5 per swin KITTI frame (batch 2, the
+# left and right images); each case's last field is its launches per unit
 COMPARE_CASES = [
-    ("masked_attention", 156, "frame", 5),
-    ("masked_attention", 768, "step", 5),
-    ("masked_attention_bwd", 768, "step", 5),
+    ("window_attention", "frame", 1, WINDOW_CASES),
+    ("window_attention", "step", TRAIN_BATCH, TRAIN_WINDOW_CASES),
+    ("msda_taps", "frame", 2, [c for c in MSDA_CASES if c[2]]),
 ]
 
 
 def compare_phase(src_dir, gen):
-    """Time old and new B6 and B6b in turns (old, new, new, old) at the
-    sharded path's shapes (bf16, Rq 96, Rk 192, 2 heads of 32, the tile-1
-    stripe mask): B6 at G 156 and G 768, B6b at G 768, each beside one SDPA
-    with the same additive mask (its backward for B6b) and the bound.  The
-    wrappers stay the same: only the library each one launches is swapped.
-    The unsharded steps launch neither kernel, so no step is timed."""
+    """Time old and new K1 and B5 in turns (old, new, new, old): K1 at the
+    KITTI windows (batch 1) and the training windows (batch TRAIN_BATCH),
+    B5 at the four extractor shapes of a swin KITTI request, each beside
+    one SDPA with an additive [G, h, T, T] mask (K1) or ``F.grid_sample``
+    (B5) and the bound; then the default and the NMRF_FUSED_POS=1 training
+    step (COMPARE_STEPS steps per turn).  The wrappers stay the same: only
+    the library each one launches is swapped."""
     import torch
     import torch.nn.functional as F
 
     from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import msda
 
     old = old_libraries(src_dir)
     new = {name: _native.library(name) for name in REDESIGNED}
     turns = (("old", old), ("new", new), ("new", new), ("old", old))
-    h, Rq, Rk, hd = MASKED_HEADS, MASKED_RQ, MASKED_RK, MASKED_HD
-    scale = hd ** -0.5
-    mask = tile_stripe_mask(1)
-    bmask = mask.to(torch.bfloat16)
+    dev = "cuda"
     entries = []
-    for name, G, unit, count in COMPARE_CASES:
-        q, g = (torch.randn(h, G, Rq, hd, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(h, G, Rk, hd, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
-        backward = name == "masked_attention_bwd"
-        entry = {"name": name, "shape": f"G{G}", "unit": unit, "count": count}
-        entry["bytes_ms"], entry["ops_ms"] = masked_bound(G, Rq, Rk, h, hd, 1,
-                                                          backward)
-        if backward:
-            fn = lambda: A.masked_attention_bwd(g, q, k, v, mask, scale)  # noqa: E731
-            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)
-            entry["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                out, (qs, ks, vs), g, retain_graph=True), 20)
-            del out, qs, ks, vs
-        else:
-            fn = lambda: A.masked_attention(q, k, v, mask, scale)  # noqa: E731
-            with torch.inference_mode():
-                entry["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bmask), 50)
+
+    def timed(entry, fn, iters):
         ms = {"old": [], "new": []}
-        with torch.inference_mode():
-            for tag, libs in turns:
-                _native._loaded.update(libs)
-                ms[tag].append(cuda_ms(fn, 20))
-                if backward and f"{tag}_kernel_ms" not in entry:
-                    entry[f"{tag}_kernel_ms"] = split_ms(fn, ms[tag][-1], B6B_SPLIT)
+        for tag, libs in turns:
+            _native._loaded.update(libs)
+            ms[tag].append(cuda_ms(fn, iters))
         _native._loaded.update(new)
         entry.update(old_ms=ms["old"], new_ms=ms["new"])
         entries.append(entry)
         log("phase 8 old vs new: " + json.dumps(entry))
 
+    with torch.inference_mode():
+        C, heads = 128, 4
+        for name, unit, B, cases in COMPARE_CASES[:2]:
+            for label, Hp, Wp, N, ws, shift, cand, count in cases:
+                qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
+                                  dtype=torch.bfloat16)
+                table = 0.5 * torch.randn((2 * ws - 1) ** 2, 3 * C, generator=gen,
+                                          device=dev)
+                T, G = ws * ws * N, B * (Hp // ws) * (Wp // ws)
+                qs, ks, vs = (torch.randn(G, heads, T, C // heads, generator=gen,
+                                          device=dev, dtype=torch.bfloat16)
+                              for _ in range(3))
+                bias = torch.randn(G, heads, T, T, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+                entry = {"name": name, "shape": label, "unit": unit,
+                         "count": count, "library_ms": cuda_ms(
+                             lambda: F.scaled_dot_product_attention(
+                                 qs, ks, vs, attn_mask=bias), 20)}
+                del qs, ks, vs, bias
+                entry["bytes_ms"], entry["ops_ms"] = window_bound(
+                    B, Hp, Wp, N, ws, C, heads)
+                timed(entry, lambda: A.window_attention(
+                    qkv, table, shift, (ws, ws), heads, cand), 20)
+
+        M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
+        Hq, Wq = MSDA_Q
+        name, unit, B, cases = COMPARE_CASES[2]
+        for label, f, count, spread in cases:
+            Hl, Wl = Hq // f, Wq // f
+            v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
+            v = v32.to(torch.bfloat16)
+            dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=gen, device=dev)
+                       * 2 - 1) * spread for _ in range(2))
+            aw = torch.softmax(torch.randn(B, Hq, Wq, M, P, generator=gen,
+                                           device=dev), -1).reshape(B, Hq, Wq, M * P)
+            base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
+            base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
+            gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
+            gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
+            grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
+            grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
+            vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
+            vh = vh.reshape(B * M, D, Hl, Wl)
+            w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
+            w = w.reshape(B * M, 1, Hq * Wq, P)
+            entry = {"name": name, "shape": label, "unit": unit, "count": count,
+                     "library_ms": cuda_ms(lambda: (F.grid_sample(
+                         vh, grid, align_corners=False) * w).sum(-1), 20)}
+            entry["bytes_ms"], entry["ops_ms"] = msda_bound(B, Hq, Wq, f, M, P, D, 2)
+            timed(entry, lambda: msda.msda_taps(v, dx, dy, aw, M, r), 50)
+
     totals = {}
-    for e in entries:
-        key = f"{e['name']} per {e['unit']} (G {e['shape'][1:]})"
-        totals[key] = {
-            "old_ms": float(np.mean(e["old_ms"])) * e["count"],
-            "new_ms": float(np.mean(e["new_ms"])) * e["count"],
-            "library_ms": e["library_ms"] * e["count"],
-            "bound_ms": max(e["bytes_ms"], e["ops_ms"]) * e["count"]}
-        for tag in ("old", "new"):
-            for part in ("dq", "dkv"):
-                if f"{tag}_kernel_ms" in e:
-                    totals[key][f"{tag}_{part}_ms"] = e[f"{tag}_kernel_ms"][part] * e["count"]
+    for name, unit, _, _ in COMPARE_CASES:
+        rows = [e for e in entries if e["name"] == name and e["unit"] == unit]
+        key = f"{name} per {unit}"
+        totals[key] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
+                       for k in ("old_ms", "new_ms", "library_ms")}
+        totals[key]["bound_ms"] = sum(
+            max(e["bytes_ms"], e["ops_ms"]) * e["count"] for e in rows)
     slower = [f"{e['name']} {e['shape']}" for e in entries
               if max(e["new_ms"]) >= min(e["old_ms"])]
-    return {"per_unit": totals, "new_not_faster_on": slower, "shapes": entries}
+
+    _, step, batch = train_setup()
+    step(batch)  # warm-up
+    steps = {}
+    for flagged in (False, True):
+        key = "NMRF_FUSED_POS=1" if flagged else "default"
+        steps[key] = {"old": [], "new": []}
+        with fused_pos() if flagged else contextlib.nullcontext():
+            for tag, libs in turns:
+                _native._loaded.update(libs)
+                step(batch)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(COMPARE_STEPS):
+                    step(batch)
+                end.record()
+                torch.cuda.synchronize()
+                steps[key][tag].append(start.elapsed_time(end) / COMPARE_STEPS)
+    _native._loaded.update(new)
+    return {"per_unit": totals, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
+            "new_not_faster_on": slower, "shapes": entries}
+
+
+# --------------------------------------------------------------------------- #
+# --k1-stages: K1's tensor-core kernel with one stage cut out at a time
+# (outputs wrong, only timed): the cut's time saved is that stage's share
+# --------------------------------------------------------------------------- #
+
+K1_CUTS = {
+    # the positional blocks qr and kr (stage 2)
+    "positional": ("    // ---- 2. positional blocks: Q and K against every table row ----",
+                   "    __syncthreads();  // kr[j, .] is read by the warps of the query rows",
+                   None),
+    # the logits' positional loads, region loads and masks (stage 3)
+    "logit_terms": ("""            float x = s[c][e] * p.scale + sqr[ri[r] * P + pj] + skr[(base + j) * P + pr[r]];
+            if ((p.candidate_mask && pj == pr[r] && j != ti[r]) ||
+                (p.shift > 0 && reg_i[r] != sreg[base + j]))
+              x += kNegInf;""", None,
+                    "            float x = s[c][e] * p.scale + (0 * (j + pj + r));"),
+    # the mass rescale to the final max (end of stage 3)
+    "mass_rescale": ("        sqr[row * P + s] *= __expf(smx[row * MT + ((s << nshift) >> 4)] - "
+                     "smx[row * MT + MT - 1]);", None, "        (void)row; (void)s;"),
+    # the value-table product Wm VE (stage 4)
+    "value_table": ("      for (int tp = 0; tp < TR / 16; ++tp) {\n        float w[2][4];", None,
+                    "      for (int tp = 0; tp < 0; ++tp) {\n        float w[2][4];"),
+}
+K1_STAGE_CASES = [c[:1] + (1,) + c[1:7] for c in WINDOW_CASES[1::2]] \
+    + [c[:1] + (TRAIN_BATCH,) + c[1:7] for c in TRAIN_WINDOW_CASES[1::2]]
+
+
+def k1_stage_phase(gen):
+    """Build window_attention.cu with each of K1_CUTS cut out (besides the
+    whole kernel), and time each at a KITTI and a training window of
+    Inference and Refinement (bf16, shifted), in two passes: us per
+    launch."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from nmrf_tpu_torch.ops import _native
+    from nmrf_tpu_torch.ops import attention as A
+
+    src = (_native.CSRC / "window_attention.cu").read_text()
+    variants = {"whole": src}
+    for name, (start, end, repl) in K1_CUTS.items():
+        if start not in src or (end and end not in src):
+            fail(f"--k1-stages: the {name} stage's text is not in window_attention.cu")
+        variants[name] = (src[:src.index(start)] + src[src.index(end):] if end
+                          else src.replace(start, repl))
+    root = _native.BUILD_DIR / "k1_stages"
+    procs = {}
+    for name, text in variants.items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        for h in _native.CSRC.glob("*.cuh"):
+            shutil.copy(h, d / h.name)
+        (d / "window_attention.cu").write_text(text)
+        procs[name] = (subprocess.Popen(
+            _native._command("window_attention", root / f"lib_{name}.so", d),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            root / f"lib_{name}.so")
+    fns = {}
+    for name, (proc, target) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"--k1-stages: {name} did not build:\n{text}")
+        symbol, argtypes = _native._SIGNATURES["window_attention"]
+        fn = getattr(ctypes.CDLL(str(target)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    new = _native.library("window_attention")
+    out = {}
+    with torch.inference_mode():
+        for label, B, Hp, Wp, N, ws, shift, cand in K1_STAGE_CASES:
+            qkv = torch.randn(B, Hp, Wp, N, 384, generator=gen, device="cuda",
+                              dtype=torch.bfloat16)
+            table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=gen,
+                                      device="cuda")
+            us = {name: [] for name in fns}
+            for _ in range(2):
+                for name, fn in fns.items():
+                    _native._loaded["window_attention"] = fn
+                    us[name].append(1e3 * cuda_ms(lambda: A.window_attention(
+                        qkv, table, shift, (ws, ws), 4, cand), 30))
+            _native._loaded["window_attention"] = new
+            whole = float(np.mean(us["whole"]))
+            out[f"{label} batch {B}"] = {
+                "whole_us": us["whole"],
+                "saved_us": {n: whole - float(np.mean(v)) for n, v in us.items()
+                             if n != "whole"}}
+            log(f"phase 9 K1 stages {label} batch {B}: " + json.dumps(out[f"{label} batch {B}"]))
+    return out
 
 
 def kernels_line(kernel_results, counts):
     """The kernels JSON line.  Times are per unit of each kernel's main
     path: per KITTI frame for K1/K2/B5 (serving) and B6 (sharded serving,
     one rank), per training step for K1b/K2b, B7 (NMRF_FUSED_POS=1) and
-    B6b (sharded, one rank)."""
+    B6b (sharded, one rank).  K1 also carries its time, plain time, SDPA
+    time and bound per training step (its 10 launches at batch
+    TRAIN_BATCH, from the entries of unit "step")."""
     units = {
         "window_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
@@ -1832,6 +2024,12 @@ def kernels_line(kernel_results, counts):
         timed = [e for e in entries if e["count"]]
         agg = {k: sum(e[k] * e["count"] for e in timed)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+        per_step = [e for e in entries if e.get("unit") == "step"]
+        if per_step:  # K1 in the training step, beside its per-frame unit
+            agg["per_step"] = {k: sum(e[k] * e["step_count"] for e in per_step)
+                               for k in ("ms", "plain_ms", "library_ms")}
+            agg["per_step"]["bound_ms"] = sum(
+                max(e["bytes_ms"], e["ops_ms"]) * e["step_count"] for e in per_step)
         line.append({
             "name": name, "route": "cuda",
             "source": f"nmrf_tpu_torch/csrc/{name}.cu",
@@ -1846,6 +2044,7 @@ def kernels_line(kernel_results, counts):
             "bound_by": "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations",
             "library_ms": agg["library_ms"],
             "unit": units[name],
+            **({"per_training_step": agg["per_step"]} if "per_step" in agg else {}),
             "shapes": entries,
         })
     return {"kernels": line}
@@ -1866,10 +2065,12 @@ def main(argv=None):
                         help="phase 7's backend: gloo (ranks may share a "
                              "card) or nccl (a card per rank)")
     parser.add_argument("--compare-old", metavar="DIR",
-                        help="build the kernels and time B6 and B6b against "
-                             "DIR's masked_attention.cu and "
-                             "masked_attention_bwd.cu (with DIR's headers), "
-                             "in turns")
+                        help="build the kernels and time K1 and B5 against "
+                             "DIR's window_attention.cu and msda_taps.cu "
+                             "(with DIR's headers), in turns")
+    parser.add_argument("--k1-stages", action="store_true",
+                        help="build the kernels and time K1's tensor-core "
+                             "kernel with each stage cut out in turn")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1892,6 +2093,15 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.k1_stages:
+        stages = k1_stage_phase(torch.Generator(device="cuda").manual_seed(0))
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"k1_stages": stages}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.compare_old:
         compare = compare_phase(args.compare_old,
                                 torch.Generator(device="cuda").manual_seed(0))

@@ -40,4 +40,24 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16
 enum DType { kF32 = 0, kBF16 = 1 };
 
+// shared memory attributes of a kernel taking smem dynamic bytes, and the
+// blocks of its grid over `units`: as many as run at once on the card
+template <typename Kernel>
+inline cudaError_t launch_config(Kernel kernel, int threads, int smem, int units, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = units < per_sm * sms ? units : per_sm * sms;
+  return cudaSuccess;
+}
+
 }  // namespace nmrf

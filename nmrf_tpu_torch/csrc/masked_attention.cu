@@ -326,7 +326,7 @@ int launch_mma(const void* q, const void* k, const void* v, const float* mask, v
   const int threads = t.q_rows / 16 * 32;
   int blocks = 0;
   const cudaError_t err =
-      masked_launch_config(masked_attention_mma_kernel<HD>, threads, smem, t.units, &blocks);
+      launch_config(masked_attention_mma_kernel<HD>, threads, smem, t.units, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   masked_attention_mma_kernel<HD><<<blocks, threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,

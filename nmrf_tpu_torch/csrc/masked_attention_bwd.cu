@@ -653,10 +653,9 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const float* mas
   const int threads1 = t1.q_rows / 16 * 32;
   int blocks1 = 0, blocks2 = 0;
   cudaError_t err =
-      masked_launch_config(masked_bwd_dq_mma_kernel<HD>, threads1, smem1, t1.units, &blocks1);
+      launch_config(masked_bwd_dq_mma_kernel<HD>, threads1, smem1, t1.units, &blocks1);
   if (err == cudaSuccess)
-    err = masked_launch_config(masked_bwd_dkv_mma_kernel<HD>, kMmaThreads, smem2, t2.units,
-                               &blocks2);
+    err = launch_config(masked_bwd_dkv_mma_kernel<HD>, kMmaThreads, smem2, t2.units, &blocks2);
   if (err != cudaSuccess) return static_cast<int>(err);
   masked_bwd_dq_mma_kernel<HD><<<blocks1, threads1, smem1, stream>>>(
       q_, k_, v_, mask, g_, static_cast<bf16*>(dq), lse, dsum, p, t1);

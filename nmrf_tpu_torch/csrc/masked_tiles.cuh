@@ -90,25 +90,4 @@ inline int masked_mask_ld(int Rk) { return (Rk + 15) / 16 * 16 + 8; }
 // a lane quad, 8 key columns j = gq) fall in distinct banks
 constexpr int kMaskStripLd = kMmaRows + 4;
 
-// shared memory attributes of a kernel taking smem dynamic bytes, and the
-// blocks of its grid over `units`: as many as run at once on the card
-template <typename Kernel>
-inline cudaError_t masked_launch_config(Kernel kernel, int threads, int smem, int units,
-                                        int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = units < per_sm * sms ? units : per_sm * sms;
-  return cudaSuccess;
-}
-
 }  // namespace nmrf

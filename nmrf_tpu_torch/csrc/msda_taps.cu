@@ -16,19 +16,32 @@
 // (2r+1)^2-tap hat sum keeps.
 //
 // Design: the TPU kernel walks all (2r+1)^2 taps because the TPU has no
-// vector gather; here every thread gathers its 4 corners directly, as
-// upstream's CUDA im2col does.  One block per kQ consecutive query pixels,
-// one thread per (query, output channel): blockDim = (M*D, kQ).  The block
-// stages the dx/dy/aw rows of its queries (contiguous in memory) in shared
-// memory with coalesced loads; each thread then walks its head's P points
-// and reads v channel-last, so the D threads of a head read D consecutive
-// channels of one level pixel.  Sums in f32, one store per output channel.
+// vector gather; here every thread gathers the 4 corners of its samples
+// directly, as upstream's CUDA im2col does.  Two kernels, chosen by shape:
+//   * the vector kernel, when a head's D channels are 8 or 16 (a whole
+//     number of 16-byte vectors in either dtype), P is a multiple of 4 and
+//     every pointer is 16-byte aligned (the swin neck: M 8, P 4, D 8).  One thread per (query, head), consecutive
+//     threads on consecutive heads of a query: it reads its head's P
+//     displacements and weights with 16-byte loads straight from the
+//     [.., M*P] f32 rows (contiguous per head, so a warp reads 512
+//     contiguous bytes of each), gathers each bilinear corner's D channels
+//     with one 16-byte load (two for f32 at D 8), keeps D f32 sums in
+//     registers and writes them with one 16-byte store;
+//   * otherwise the scalar kernel: one block per kQ consecutive query
+//     pixels, one thread per (query, output channel), blockDim = (M*D,
+//     kQ); the block stages the dx/dy/aw rows of its queries in shared
+//     memory with coalesced loads, and each thread walks its head's P
+//     points, the D threads of a head reading D consecutive channels.
+// Both sum points and corners in one order (point, corner row, corner
+// column), with the same weights, in f32.
 //
 // Bound on the H100 (bf16, one extractor of a swin KITTI request, batch 2,
 // query grid 96 x 312, M 8, P 4, D 8): bytes.  dx/dy/aw are 23.0 MB (f32),
 // v 7.7 MB at f 1 down to 0.12 MB at f 8, the output 7.7 MB: about 9-11 us
 // at 3.35 TB/s.  The arithmetic (about 60 MFLOP) is negligible, and v is
 // small enough to stay in the 50 MB L2 across the gathers.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -97,9 +110,118 @@ __global__ void msda_taps_kernel(const T* __restrict__ v, const float* __restric
   out[static_cast<long long>(q) * p.MD + c] = from_float<T>(acc);
 }
 
+constexpr int kVecThreads = 256;
+
+// one 16-byte vector of channels, to and from f32
+__device__ __forceinline__ void load_vec16(const float* src, float* dst) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+}
+__device__ __forceinline__ void load_vec16(const __nv_bfloat16* src, float* dst) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    dst[2 * k] = f.x;
+    dst[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store_vec16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+}
+__device__ __forceinline__ void store_vec16(__nv_bfloat16* dst, const float* src) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// one thread per (query, head); D channels, V = 16 / sizeof(T) per vector
+template <typename T, int D>
+__global__ void __launch_bounds__(kVecThreads)
+msda_taps_vec_kernel(const T* __restrict__ v, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ aw,
+                     T* __restrict__ out, MsdaParams p) {
+  constexpr int V = 16 / sizeof(T);
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(p.nq) * p.M) return;
+  const int q = static_cast<int>(idx / p.M), m = static_cast<int>(idx % p.M);
+  const int qx = q % p.Wq;
+  const int qy = (q / p.Wq) % p.Hq;
+  const int b = q / (p.Wq * p.Hq);
+  const int base_y = (2 * qy + 1 + p.f) / (2 * p.f) - 1;
+  const int base_x = (2 * qx + 1 + p.f) / (2 * p.f) - 1;
+  const T* vb = v + static_cast<long long>(b) * p.Hl * p.Wl * p.MD + m * D;
+  const long long row = static_cast<long long>(q) * p.MP + m * p.P;
+  const float reach = static_cast<float>(p.r) + 1.f;
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int p0 = 0; p0 < p.P; p0 += 4) {
+    float ddx[4], ddy[4], a[4];
+    load_vec16(dx + row + p0, ddx);
+    load_vec16(dy + row + p0, ddy);
+    load_vec16(aw + row + p0, a);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      // beyond r + 1 every corner is dropped (and the int cast stays in range)
+      if (!(fabsf(ddx[u]) <= reach) || !(fabsf(ddy[u]) <= reach)) continue;
+      const int y0 = static_cast<int>(floorf(ddy[u]));
+      const int x0 = static_cast<int>(floorf(ddx[u]));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int ty = y0 + i;
+        const int ly = base_y + ty;
+        if (ty < -p.r || ty > p.r || ly < 0 || ly >= p.Hl) continue;
+        const float wy = a[u] * fmaxf(0.f, 1.f - fabsf(ddy[u] - static_cast<float>(ty)));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int tx = x0 + j;
+          const int lx = base_x + tx;
+          if (tx < -p.r || tx > p.r || lx < 0 || lx >= p.Wl) continue;
+          const float w = wy * fmaxf(0.f, 1.f - fabsf(ddx[u] - static_cast<float>(tx)));
+          const T* src = vb + (static_cast<long long>(ly) * p.Wl + lx) * p.MD;
+#pragma unroll
+          for (int k = 0; k < D / V; ++k) {
+            float c[V];
+            load_vec16(src + k * V, c);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[k * V + e] += w * c[e];
+          }
+        }
+      }
+    }
+  }
+  T* dst = out + static_cast<long long>(q) * p.MD + m * D;
+#pragma unroll
+  for (int k = 0; k < D / V; ++k) store_vec16(dst + k * V, acc + k * V);
+}
+
+template <typename T, int D>
+int launch_vec(const void* v, const void* dx, const void* dy, const void* aw, void* out,
+               MsdaParams p, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(p.nq) * p.M;
+  const unsigned grid = static_cast<unsigned>((threads + kVecThreads - 1) / kVecThreads);
+  msda_taps_vec_kernel<T, D><<<grid, kVecThreads, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<const float*>(dx), static_cast<const float*>(dy),
+      static_cast<const float*>(aw), static_cast<T*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* v, const void* dx, const void* dy, const void* aw, void* out,
            MsdaParams p, cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dx) |
+                         reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(aw) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (p.P % 4 == 0 && (addr & 15) == 0) {
+    if (p.D == 8) return launch_vec<T, 8>(v, dx, dy, aw, out, p, stream);
+    if (p.D == 16) return launch_vec<T, 16>(v, dx, dy, aw, out, p, stream);
+  }
   const int kq = p.MD >= 256 ? 1 : 256 / p.MD;
   const size_t smem = 3 * static_cast<size_t>(kq) * p.MP * sizeof(float);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);

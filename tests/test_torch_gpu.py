@@ -24,7 +24,11 @@ version at the backward tolerances (its tensor-core kernel also at the
 training batch of 8 and on tiles), against K1b in f32, and against itself
 (two launches, the same bits).  K2's tensor-core kernel is held at the
 serving and training stripes at batch 1 and 8, and on ragged tiny stripes
-at every head dim.
+at every head dim.  K1's tensor-core kernel is held at the serving,
+training and tile windows at batch 1 and 8, and the CUDA-core kernel at
+shapes outside its set; B5's vector kernel at the four extractor shapes
+and its scalar kernel off them.  Which kernel ran is read from
+torch.profiler's device events.
 """
 
 from pathlib import Path
@@ -580,6 +584,141 @@ def test_window_attention_grads_through_b7(cuda, monkeypatch, setting):
             if use_kernels else {}))
     for a, b in zip(grads[True], grads[False]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---- K1's tensor-core kernel and B5's vector kernel ---- #
+
+def _device_kernels(fn):
+    """fn()'s result, the names of the device kernels it ran (torch.profiler's
+    CUDA events) and the number of calls made.  The profiler now and then
+    returns no device event at all for a short call; fn() is then profiled
+    again, at most twice more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for calls in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return out, names, calls
+
+
+def _ran(names, kernel):
+    return any(kernel in name for name in names)
+
+
+# (Hp, Wp, N, ws, shift, candidate_mask, row0, hp_total): the KITTI serving
+# windows, the training windows, and a sharded rank's tiles
+_K1_MMA_CASES = {
+    "kitti-inference-shift0": (48, 156, 4, 6, 0, True, 0, None),
+    "kitti-inference-shift3": (48, 156, 4, 6, 3, True, 0, None),
+    "kitti-refinement-shift0": (96, 312, 1, 4, 0, False, 0, None),
+    "kitti-refinement-shift2": (96, 312, 1, 4, 2, False, 0, None),
+    "train-inference-shift0": (48, 96, 4, 6, 0, True, 0, None),
+    "train-inference-shift3": (48, 96, 4, 6, 3, True, 0, None),
+    "train-refinement-shift0": (96, 192, 1, 4, 0, False, 0, None),
+    "train-refinement-shift2": (96, 192, 1, 4, 2, False, 0, None),
+    "inference-tile1": (24, 96, 4, 6, 3, True, 24, 48),
+    "refinement-tile1": (48, 192, 1, 4, 2, False, 48, 96),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("case", list(_K1_MMA_CASES))
+def test_window_mma_kernel_matches_plain(cuda, case, batch):
+    """K1 in bf16 at the serving, training and tile windows (T 144 and 16)
+    runs its tensor-core kernel, once per call, and matches its plain
+    version."""
+    Hp, Wp, N, ws, shift, cand, row0, hp_total = _K1_MMA_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(18)
+    qkv = torch.randn(batch, Hp, Wp, N, 384, generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    args = (qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
+    before = A.window_attention.launches
+    with torch.inference_mode():
+        got, names, calls = _device_kernels(lambda: A.window_attention(*args))
+        want = A.window_attention_plain(*args)
+    assert A.window_attention.launches == before + calls
+    assert _ran(names, "window_attention_mma_kernel"), names
+    assert not _ran(names, "window_attention_kernel"), names
+    atol, rtol = _GPU_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(12, 36, 2, 6, 3, True), (8, 12, 3, 4, 2, False),
+                                  (12, 12, 4, 6, 3, True)],
+                         ids=["N2-T72", "N3-T48", "T144"])
+def test_window_kernel_outside_the_mma_set(cuda, dtype, case):
+    """K1 on the CUDA-core kernel: f32 at any window, and bf16 where T is
+    not 16 or 144 or N not a power of two up to 8; the bf16 T 144 case
+    takes the tensor-core kernel.  Each matches its plain version."""
+    Hp, Wp, N, ws, shift, cand = case
+    g = torch.Generator(device=cuda).manual_seed(19)
+    qkv = torch.randn(2, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
+    args = (qkv, table, shift, (ws, ws), 4, cand)
+    with torch.inference_mode():
+        got, names, _ = _device_kernels(lambda: A.window_attention(*args))
+        want = A.window_attention_plain(*args)
+    mma = dtype == torch.bfloat16 and ws * ws * N == 144
+    assert _ran(names, "window_attention_mma_kernel") == mma, names
+    assert _ran(names, "window_attention_kernel") != mma, names
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_msda_vector_kernel_at_the_extractor_shapes(cuda, dtype, f):
+    """B5 at the swin neck's four extractors (query grid 96 x 312, batch 2,
+    M 8, P 4, D 8, r 5) runs its vector kernel, once per call, and matches
+    its plain version, with samples up to r + 3 level pixels away: beyond
+    the radius (dropped) and past the level map's borders (zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    Hq, Wq = 96, 312
+    vmap = torch.randn(2, Hq // f, Wq // f, 64, generator=g, device=cuda).to(dtype)
+    dx, dy = ((torch.rand(2, Hq, Wq, 32, generator=g, device=cuda) * 2 - 1) * 8.0
+              for _ in range(2))
+    aw = torch.rand(2, Hq, Wq, 32, generator=g, device=cuda)
+    assert bool(((dx.abs() > 5) | (dy.abs() > 5)).any())
+    before = msda.msda_taps.launches
+    with torch.inference_mode():
+        got, names, calls = _device_kernels(lambda: msda.msda_taps(vmap, dx, dy, aw, 8, 5))
+        want = msda.msda_taps_plain(vmap, dx, dy, aw, 8, 5)
+    assert msda.msda_taps.launches == before + calls
+    assert _ran(names, "msda_taps_vec_kernel") and not _ran(names, "msda_taps_kernel"), names
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 4, 6), (8, 3, 8)], ids=["D6", "P3"])
+def test_msda_scalar_kernel_off_the_vector_shapes(cuda, dtype, shape):
+    """B5 where a head's channels are no whole 16-byte vectors (D 6) or P
+    is not a multiple of 4 runs the scalar kernel and matches its plain
+    version (samples beyond r and past the borders)."""
+    M, P, D = shape
+    g = torch.Generator(device=cuda).manual_seed(21)
+    Hq, Wq, f = 24, 40, 2
+    vmap = torch.randn(2, Hq // f, Wq // f, M * D, generator=g, device=cuda).to(dtype)
+    dx, dy = ((torch.rand(2, Hq, Wq, M * P, generator=g, device=cuda) * 2 - 1) * 7.0
+              for _ in range(2))
+    aw = torch.rand(2, Hq, Wq, M * P, generator=g, device=cuda)
+    with torch.inference_mode():
+        got, names, _ = _device_kernels(lambda: msda.msda_taps(vmap, dx, dy, aw, M, 4))
+        want = msda.msda_taps_plain(vmap, dx, dy, aw, M, 4)
+    assert _ran(names, "msda_taps_kernel") and not _ran(names, "msda_taps_vec_kernel"), names
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 def _gloo_cuda_worker(rank, out_dir):
