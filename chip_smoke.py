@@ -23,7 +23,10 @@ Phases (any failure exits non-zero before the last line is printed):
    on the same inputs must give the same bits;
    The tap-MSDA kernel B5 is held against its plain version at the four
    extractor shapes of a swin KITTI request, and once with samples beyond
-   its radius and past the borders;
+   its radius and past the borders; its backward B5b at the four extractor
+   shapes of a swin training step (batch 16, the left and right images of
+   8 pairs), also beyond the radius and past the borders, and against a
+   second launch (same bits);
 3. drive the serving paths: the default-config resnet model and the swin
    model (``configs/sceneflow_swint.yaml``: Swin-T and the deformable neck),
    each at full width and depth (bf16, tanh GELU, random seeded weights),
@@ -34,21 +37,30 @@ Phases (any failure exits non-zero before the last line is printed):
 4. hold the float32 gradients of the Propagation, Inference and Refinement
    stages (full width, training shape, batch 1) through the kernels against
    the same stages on the plain versions, and those of the Inference and
-   Refinement stages again with NMRF_FUSED_POS=1 (K1 and B7);
+   Refinement stages again with NMRF_FUSED_POS=1 (K1 and B7); then the
+   float32 parameter gradients of the swin backbone and deformable neck
+   (training crop, one pair, drop-path on with the same masks on both
+   sides) through B5 and B5b against the plain versions;
 5. drive the training path: the default-config model at full width and
    depth (bf16) takes one warm-up and 10 timed training steps at crop
    384x768, batch 8, on a fixed batch of synthetic pairs (disparities up to
    192 on whole 1/8-resolution bins), with every launch counter read around
    the timed steps, and its loss must fall; then the same config, batch
    and seed again with NMRF_FUSED_POS=1 (B7 in place of K1b), its step
-   time and peak memory beside the first run's;
+   time and peak memory beside the first run's; then the swin model
+   (``configs/sceneflow_swint.yaml``: drop-path 0.4, tap radius 5) takes
+   1 + 30 steps on the same kind of batch with the tap-path monitor on
+   (``msda_tap_oob`` reported, 0 at init), 4 B5 and 4 B5b launches a step
+   beside the NMP stages' 10 of each;
 6. time each kernel beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, its backward for K1b,
-   B7, K2b and B6b; ``grid_sample`` for B5) at the same shapes (K1b also
+   B7, K2b and B6b; ``grid_sample`` for B5 and its backward for B5b) at
+   the same shapes (K1b also
    by kernel: its main kernel, its d(ve) kernels and the plain products of
    ``_window_bwd_finish``; B7 its main kernel and its partial sum), and
-   break a request of each model, a training step and a NMRF_FUSED_POS=1
-   training step down by device kernel with ``torch.profiler``;
+   break a request of each model, a training step, a NMRF_FUSED_POS=1
+   training step and a swin training step down by device kernel with
+   ``torch.profiler``;
 7. drive the H-sharded path: two processes on the one card (a 1 x 2
    (data, spatial) grid over gloo, ``nmrf_tpu_torch.parallel``) serve 4
    KITTI pairs padded to 384x1248 through ``make_sharded_forward`` (bf16,
@@ -90,6 +102,10 @@ import numpy as np
 H_KITTI, W_KITTI = 375, 1242
 REQUESTS = 4
 TRAIN_STEPS = 10
+# the swin step's loss rises over its first 5-7 steps at this recipe and
+# batch (through the kernels, the plain versions and in f32 alike) and falls
+# after: its falling-loss test takes a window that covers that
+SWIN_TRAIN_STEPS = 30
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
@@ -110,6 +126,8 @@ REPLACES = {
     "masked_attention": "nmrf_tpu/ops/pallas/attention.py:59",
     "masked_attention_bwd": "nmrf_tpu/ops/pallas/attention.py:135",
     "window_attention_pos_bwd": "nmrf_tpu/ops/pallas/attention.py:1210",
+    # not a pallas_call: the JAX package's jnp backward of B5 (_tap_bwd)
+    "msda_taps_bwd": "nmrf_tpu/ops/msda.py:163",
 }
 
 
@@ -170,8 +188,9 @@ def ptxas_kernels(text):
     return out
 
 
-# the tensor-core kernels at the main paths' head dim (32), and B5's vector
-# kernel at the swin neck's (bf16, D 8): each must build without spilling
+# the tensor-core kernels at the main paths' head dim (32), and B5's and
+# B5b's vector-path kernels at the swin neck's (bf16, D 8): each must build
+# without spilling
 # registers to local memory
 NO_SPILL = {
     "stripe_attention": ("stripe_attention_mma_kernel<bf16,32>",),
@@ -187,6 +206,8 @@ NO_SPILL = {
     "window_attention": ("window_attention_mma_kernel<bf16,32,1>",
                          "window_attention_mma_kernel<bf16,32,9>"),
     "msda_taps": ("msda_taps_vec_kernel<bf16,8>",),
+    "msda_taps_bwd": ("msda_bwd_sample_kernel<bf16,8>",
+                      "msda_bwd_value_kernel<bf16,8>"),
 }
 
 
@@ -277,6 +298,46 @@ def msda_bound(B, Hq, Wq, f, M, P, D, esize):
     nbytes = (3 * samples * 4 + B * (Hq // f) * (Wq // f) * M * D * esize
               + B * Hq * Wq * M * D * esize)
     ops = samples * 4 * (2 * D + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+# swin training (crop 384x768, batch 8): the neck's query grid is 96 x 192
+# at batch 16 (left and right images); one B5b launch per extractor and step.
+# (label, f, launches per step, sample spread in level pixels)
+MSDA_TRAIN_Q = (96, 192)
+MSDA_BWD_CASES = [
+    ("train extractor0/f1", 1, 1, MSDA_R - 0.5),
+    ("train extractor1/f2", 2, 1, MSDA_R - 0.5),
+    ("train extractor2/f4", 4, 1, MSDA_R - 0.5),
+    ("train extractor3/f8", 8, 1, MSDA_R - 0.5),
+    ("train f8, beyond r and past the borders", 8, 0, MSDA_R + 3),
+    ("train f1, beyond r and past the borders", 1, 0, MSDA_R + 3),
+]
+
+
+def kept_corners(dx, dy, r):
+    """Bilinear corners of these samples within r of their base cells: the
+    corners whose terms B5b computes (map borders not subtracted)."""
+    import torch
+
+    def axis(d):
+        d0 = torch.floor(d)
+        return (d0.abs() <= r).int() + ((d0 + 1).abs() <= r).int()
+
+    inside = (dx.abs() <= r + 1) & (dy.abs() <= r + 1)
+    return int((axis(dx) * axis(dy) * inside).sum())
+
+
+def msda_bwd_bound(B, Hq, Wq, f, M, P, D, esize, corners):
+    """(bytes ms, ops ms) of one B5b launch: the level map, dx, dy, aw (f32)
+    and g read once, d value (value's dtype) and d dx, d dy, d aw (f32)
+    written once; per kept corner the D-channel dot product with g, the
+    hat weights and slopes and three products, and the D multiply-adds of
+    d value, in f32 on the CUDA cores."""
+    samples = B * Hq * Wq * M * P
+    level = B * (Hq // f) * (Wq // f) * M * D * esize
+    nbytes = 6 * samples * 4 + 2 * level + B * Hq * Wq * M * D * esize
+    ops = corners * (4 * D + 16)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
@@ -778,6 +839,77 @@ def msda_phase(gen):
     return {"msda_taps": entries}
 
 
+def msda_bwd_phase(gen):
+    """Phase 2 for B5b: against its plain version in f32 and bf16 at the
+    four extractor shapes of a swin training step (batch 16, query grid
+    96 x 192, displacements within r) and two cases reaching beyond r and
+    past the borders; two launches give the same bits.  Its timings of
+    phase 6 (bf16, as the training path runs it) beside the backward of the
+    exact path's ``F.grid_sample`` on the same samples (f32, heads folded
+    into the batch, with the weighted sum over the points)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch.ops import msda
+
+    dev = "cuda"
+    M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
+    Hq, Wq = MSDA_TRAIN_Q
+    B = 2 * TRAIN_BATCH
+    entries = []
+    for label, f, per_step, spread in MSDA_BWD_CASES:
+        Hl, Wl = Hq // f, Wq // f
+        v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
+        dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=gen, device=dev)
+                   * 2 - 1) * spread for _ in range(2))
+        aw = torch.softmax(torch.randn(B, Hq, Wq, M, P, generator=gen,
+                                       device=dev), -1).reshape(B, Hq, Wq, M * P)
+        g32 = torch.randn(B, Hq, Wq, M * D, generator=gen, device=dev)
+        entry = {"shape": label, "count": per_step,
+                 "beyond_r_share": ((dx.abs() > r) | (dy.abs() > r)).float()
+                 .mean().item()}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            args = (v32.to(dt), dx, dy, aw, g32.to(dt), M, r)
+            got = msda.msda_taps_bwd(*args)
+            torch.cuda.synchronize()
+            want = msda.msda_taps_bwd_plain(*args)
+            entry[f"max_abs_err_{dtype_name}"] = max(
+                check_close(f"msda_taps_bwd {label} d{name}", a, b, dtype_name,
+                            TOL_BWD)
+                for name, a, b in zip(("value", "dx", "dy", "aw"), got, want))
+            check_repeat(f"msda_taps_bwd {label} {dtype_name}", got,
+                         msda.msda_taps_bwd(*args))
+            del got, want
+        if per_step:
+            args = (v32.to(torch.bfloat16), dx, dy, aw, g32.to(torch.bfloat16),
+                    M, r)
+            entry["ms"] = cuda_ms(lambda: msda.msda_taps_bwd(*args), 20)
+            entry["plain_ms"] = cuda_ms(lambda: msda.msda_taps_bwd_plain(*args),
+                                        2, warmup=1)
+            base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
+            base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
+            gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
+            gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
+            grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
+            grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
+            vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
+            vh = vh.reshape(B * M, D, Hl, Wl).requires_grad_()
+            grid.requires_grad_()
+            w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
+            w = w.reshape(B * M, 1, Hq * Wq, P).requires_grad_()
+            out = (F.grid_sample(vh, grid, align_corners=False) * w).sum(-1)
+            cot = torch.randn(out.shape, generator=gen, device=dev)
+            entry["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, (vh, grid, w), cot, retain_graph=True), 10)
+            del out
+            entry["bytes_ms"], entry["ops_ms"] = msda_bwd_bound(
+                B, Hq, Wq, f, M, P, D, 2, kept_corners(dx, dy, r))
+        entries.append(entry)
+        log(f"kernel msda_taps_bwd {label}: " + json.dumps(entry))
+    return {"msda_taps_bwd": entries}
+
+
 # H-sharded path (1 x 2 grid): the CSWin vertical stripe of a tile attends
 # its 24 of 48 rows at 1/8 to the gathered stripe: Rq = 24 x 4 = 96 query
 # rows, Rk = 48 x 4 = 192 key rows, 2 heads of 32, G = batch x 1/8 width
@@ -1090,9 +1222,10 @@ def serve_phase(swin=False):
         "disp_mean": float(np.mean([d.mean() for d in disps]))}
 
 
-def train_setup():
+def train_setup(swin=False):
     """(cfg, step, batch) of the training path: the full-width default
-    model, bf16, its optimizer and step, and a fixed synthetic batch at the
+    model, or with ``swin`` the swin variant's with the tap-path monitor
+    on, bf16, its optimizer and step, and a fixed synthetic batch at the
     config's crop (384x768) and batch (8)."""
     import torch
 
@@ -1100,12 +1233,12 @@ def train_setup():
                                 make_train_step)
     from nmrf_tpu_torch.data import synthetic_batch
 
-    cfg = main_path_cfg("bfloat16", False, True)
+    cfg = main_path_cfg("bfloat16", False, True, swin)
     model = build_model(cfg)
     optimizer, scheduler = build_optimizer(model, cfg)
     step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
                            cfg.SOLVER.ACCUM_STEPS,
-                           grad_clip=cfg.SOLVER.GRAD_CLIP)
+                           grad_clip=cfg.SOLVER.GRAD_CLIP, monitor_oob=swin)
     B = cfg.SOLVER.IMS_PER_BATCH
     H, W = cfg.DATASETS.CROP_SIZE
     # disparities on whole 1/8-resolution cost-volume bins, as the JAX
@@ -1117,17 +1250,21 @@ def train_setup():
     return cfg, step, batch
 
 
-def train_phase(fused=False):
+def train_phase(fused=False, swin=False):
     """Phase 5: training steps of the full-width default model, bf16, crop
     384x768, batch 8, on a fixed synthetic batch; ``fused``: run inside
-    ``fused_pos()``, where B7 takes K1b's launches."""
+    ``fused_pos()``, where B7 takes K1b's launches; ``swin``: the swin
+    variant (drop-path 0.4) over SWIN_TRAIN_STEPS timed steps, 4 B5 and 4
+    B5b launches a step more, and ``msda_tap_oob`` reported by every step,
+    0 at init."""
     import torch
 
     from nmrf_tpu_torch.ops import attention as A
 
-    cfg, step, batch = train_setup()
+    cfg, step, batch = train_setup(swin)
     B = cfg.SOLVER.IMS_PER_BATCH
     H, W = cfg.DATASETS.CROP_SIZE
+    steps = SWIN_TRAIN_STEPS if swin else TRAIN_STEPS
     t0 = time.perf_counter()
     history = [step(batch)]  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -1138,14 +1275,14 @@ def train_phase(fused=False):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    history += [step(batch) for _ in range(TRAIN_STEPS)]
+    history += [step(batch) for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
     counts = A.launch_counts()
-    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    step_ms = start.elapsed_time(end) / steps
 
     rows = [{k: float(v) for k, v in h.items()} for h in history]
-    tag = " (NMRF_FUSED_POS=1)" if fused else ""
+    tag = " (NMRF_FUSED_POS=1)" if fused else " (swin)" if swin else ""
     for i, row in enumerate(rows):
         log(f"train step {i}{tag}: total {row['total']:.4f} epe_train "
             f"{row['epe_train']:.4f} loss_prop {row['loss_prop']:.4f} "
@@ -1153,19 +1290,27 @@ def train_phase(fused=False):
             f"{row['loss_coarse_disp_4']:.4f} grad_norm {row['grad_norm']:.4f}")
         if not all(np.isfinite(v) for v in row.values()):
             fail(f"train step {i}{tag}: non-finite loss or gradient norm {row}")
-    fwd = (2 if cfg.TPU.REMAT else 1) * 10 * TRAIN_STEPS
+    fwd = (2 if cfg.TPU.REMAT else 1) * 10 * steps
     window_bwd = "window_attention_pos_bwd" if fused else "window_attention_bwd"
-    _expect_launches(counts, f"{TRAIN_STEPS} steps", window_attention=fwd,
-                     stripe_attention=fwd, stripe_attention_bwd=10 * TRAIN_STEPS,
-                     **{window_bwd: 10 * TRAIN_STEPS})
+    taps = {"msda_taps": 4 * steps, "msda_taps_bwd": 4 * steps} if swin else {}
+    _expect_launches(counts, f"{steps} steps{tag}", window_attention=fwd,
+                     stripe_attention=fwd, stripe_attention_bwd=10 * steps,
+                     **{window_bwd: 10 * steps}, **taps)
+    oob = {}
+    if swin:
+        oob["msda_tap_oob"] = [r.get("msda_tap_oob") for r in rows]
+        if None in oob["msda_tap_oob"] or oob["msda_tap_oob"][0] != 0.0:
+            fail(f"swin steps: msda_tap_oob {oob['msda_tap_oob']}, expected "
+                 "one a step and 0.0 at init")
+        oob["msda_tap_oob_read"] = step.read_oob()
     timed = [r["total"] for r in rows[1:]]
     first, last = float(np.mean(timed[:3])), float(np.mean(timed[-3:]))
     if not last < first:
         fail(f"loss did not fall{tag}: mean total {first:.4f} over the first 3 "
              f"timed steps, {last:.4f} over the last 3")
     return step, batch, {
-        "fused_pos": fused,
-        "batch": B, "crop": [H, W], "steps": TRAIN_STEPS, "step_ms": step_ms,
+        "fused_pos": fused, "model": "swin" if swin else "resnet", **oob,
+        "batch": B, "crop": [H, W], "steps": steps, "step_ms": step_ms,
         "frames_per_s": B / step_ms * 1e3, "warmup_s": warmup_s,
         "remat": bool(cfg.TPU.REMAT), "launches": counts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1176,6 +1321,7 @@ def train_phase(fused=False):
 
 
 KERNEL_GROUPS = (
+    ("msda_taps_bwd (B5b)", ("msda_bwd_",)),
     ("msda_taps (B5)", ("msda_taps_kernel", "msda_taps_vec_kernel")),
     ("masked_attention_bwd (B6b)", ("masked_bwd_",)),
     ("masked_attention (B6)", ("masked_attention_kernel",
@@ -1404,6 +1550,56 @@ def stage_grad_phase():
         kern.zero_grad(set_to_none=True)
         plain.zero_grad(set_to_none=True)
     return report
+
+
+def swin_grad_phase():
+    """Phase 4b: float32 parameter gradients of the swin backbone and
+    deformable neck (``SwinAdaptor`` in train mode, one pair at the
+    training crop, 384x768: batch 2 through the backbone) through B5 and B5b
+    (``TapLevel`` on the kernels) against the same modules on the plain
+    versions, identical weights and inputs; drop-path is on, both models
+    drawing the same masks (their generators reseeded alike).  The
+    cotangents are N(0, 1) / sqrt(output rows), so every gradient is of
+    order one: atol = rtol = 1e-4."""
+    import torch
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.ops import attention as A
+
+    kern = build_model(main_path_cfg("float32", False, True, swin=True))
+    plain = build_model(main_path_cfg("float32", False, False, swin=True))
+    plain.load_state_dict(kern.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    H, W = 384, 768
+    images = torch.rand(2, H, W, 3, generator=gen, device="cuda") * 255
+    grads, cots, launches = {}, None, None
+    for tag, model in (("kernels", kern), ("plain", plain)):
+        net = model.backbone.train()
+        model.drop_path_masks.generator.manual_seed(7)
+        A.reset_launch_counts()
+        outs = net(images)
+        if cots is None:
+            cots = [torch.randn(o.shape, generator=gen, device="cuda")
+                    * (o.numel() / o.shape[-1]) ** -0.5 for o in outs]
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
+        torch.cuda.synchronize()
+        counts = A.launch_counts()
+        if tag == "kernels":
+            launches = counts
+        elif any(counts.values()):
+            fail(f"swin backbone on the plain versions launched {counts}")
+        grads[tag] = {k: p.grad for k, p in net.named_parameters()}
+    _expect_launches(launches, "swin backbone gradient", msda_taps=4,
+                     msda_taps_bwd=4)
+    missing = [k for k, g in grads["plain"].items()
+               if g is None or grads["kernels"][k] is None]
+    if missing:
+        fail(f"swin backbone: parameters without a gradient: {missing}")
+    worst = max(check_close(f"swin backbone gradient {k}", grads["kernels"][k],
+                            g, "float32")
+                for k, g in grads["plain"].items())
+    return {"max_abs_err": worst, "leaves": len(grads["plain"]),
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 # --------------------------------------------------------------------------- #
@@ -2018,6 +2214,9 @@ def kernels_line(kernel_results, counts):
         "window_attention_pos_bwd": f"per NMRF_FUSED_POS=1 training step: 10 "
                                     f"launches at batch {TRAIN_BATCH}, 384x768, "
                                     f"bf16",
+        "msda_taps_bwd": f"per swin training step: the 4 launches at batch "
+                         f"{2 * TRAIN_BATCH} (the left and right images of "
+                         f"{TRAIN_BATCH} pairs, query grid 96x192), bf16",
     }
     line = []
     for name, entries in kernel_results.items():
@@ -2131,6 +2330,7 @@ def main(argv=None):
         kernel_results.update(msda_phase(gen))
     kernel_results.update(bwd_kernel_phase(gen))
     kernel_results.update(pos_bwd_kernel_phase(gen))
+    kernel_results.update(msda_bwd_phase(gen))
     kernel_results.update(masked_phase(gen))
     row0_fwd, row0_bwd, row0_pos = row0_phase(gen)
     kernel_results["window_attention"] += row0_fwd
@@ -2162,6 +2362,10 @@ def main(argv=None):
     stages = stage_grad_phase()
     log("phase 4 stage gradients, kernels vs plain versions (f32): "
         + json.dumps(stages))
+    swin_grads = swin_grad_phase()
+    log("phase 4 swin backbone gradients, kernels vs plain versions (f32): "
+        + json.dumps(swin_grads))
+    torch.cuda.empty_cache()
 
     step, batch, train = train_phase()
     log("phase 5 training path: " + json.dumps(train))
@@ -2178,6 +2382,12 @@ def main(argv=None):
                                     lambda: step(batch))
         log("phase 6 NMRF_FUSED_POS=1 training-step breakdown: "
             + json.dumps(pos_profile))
+    del step, batch
+    torch.cuda.empty_cache()
+    step, batch, swin_train = train_phase(swin=True)
+    log("phase 5 swin training path: " + json.dumps(swin_train))
+    swin_step_profile = profile_phase("swin train step", lambda: step(batch))
+    log("phase 6 swin training-step breakdown: " + json.dumps(swin_step_profile))
     del step, batch
     torch.cuda.empty_cache()
 
@@ -2198,6 +2408,7 @@ def main(argv=None):
         sharded[0]["train"]["launches"]["masked_attention_bwd"]
     counts["window_attention_pos_bwd"] = \
         train_pos["launches"]["window_attention_pos_bwd"]
+    counts["msda_taps_bwd"] = swin_train["launches"]["msda_taps_bwd"]
     log(gpu_identity())
     log(json.dumps(kernels_line(kernel_results, counts)))
     print(json.dumps({"ok": True, "device": {

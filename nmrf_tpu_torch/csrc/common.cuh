@@ -2,6 +2,8 @@
 // sm_90a into plain-C shared libraries, loaded with ctypes).
 #pragma once
 
+#include <stdint.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -35,6 +37,34 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// one 16-byte vector of channels (4 f32 or 8 bf16), to and from f32
+__device__ __forceinline__ void load_vec16(const float* src, float* dst) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+}
+__device__ __forceinline__ void load_vec16(const __nv_bfloat16* src, float* dst) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    dst[2 * k] = f.x;
+    dst[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store_vec16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+}
+__device__ __forceinline__ void store_vec16(__nv_bfloat16* dst, const float* src) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16

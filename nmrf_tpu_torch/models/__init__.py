@@ -5,7 +5,8 @@ from torch import nn
 
 from . import swin
 from .adaptor import ConvFFN, MSDeformAttn, offset_bias_init
-from .layers import Conv1d, Conv2d, LayerNorm, Linear
+from .layers import (Conv1d, Conv2d, DropPathMasks, LayerNorm, Linear,
+                     set_drop_path_masks)
 from .losses import Criterion
 from .nmp import WindowAttention
 from .nmrf import NMRF
@@ -93,8 +94,9 @@ def build_model(cfg, device=None, mesh=None):
     training), on ``device`` (CUDA unless given; raises when CUDA is
     absent).  Weights are random from ``cfg.SEED``; load trained ones with
     ``load_state_dict``.  ``BACKBONE.DROP_PATH`` (the swin backbone's
-    stochastic depth) is accepted; it acts only in training, which the port
-    does not have for the swin variant yet (``models/layers.py:DropPath``).
+    stochastic depth) acts in training: its keep masks come from
+    ``model.drop_path_masks``, a ``layers.DropPathMasks`` over a generator
+    on the model's device seeded from ``cfg.SEED``.
 
     mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
     1 the model's decode region runs on H tiles of the features over the
@@ -148,7 +150,11 @@ def build_model(cfg, device=None, mesh=None):
         spatial=spatial,
     )
     init_weights(model, cfg.SEED)
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    model.drop_path_masks = DropPathMasks(
+        torch.Generator(device=device).manual_seed(max(int(cfg.SEED), 0)))
+    set_drop_path_masks(model, model.drop_path_masks)
+    return model
 
 
 def build_criterion(cfg):

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.msda import ms_deform_attn, ms_deform_attn_taps
+from ..ops.msda import (ms_deform_attn, ms_deform_attn_taps,
+                        tap_out_of_range_fraction)
 from .layers import (GELU, Conv2d, DropPath, LayerNorm, Linear,
                      instance_norm_2d, to_dtype)
 from .swin import SwinTransformer
@@ -42,13 +43,19 @@ class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention (reference ``ms_deform_attn.py:28-130``).
     The sampling offsets and attention weights run in float32 on the
     float32-cast query, whatever the compute dtype; the weights are cast to
-    the value dtype before the sampling, as in the JAX package."""
+    the value dtype before the sampling, as in the JAX package.
+
+    With ``monitor_oob`` set (the train step's ``monitor_oob``), a forward
+    on the tap path leaves in ``oob`` the share of its samples beyond the
+    tap radius (``tap_out_of_range_fraction``, a device scalar), as the JAX
+    package sows ``msda_tap_oob``; otherwise nothing is computed."""
 
     def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4,
                  ratio=1.0, tap_radius=0, use_kernels=False, dtype=None):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
         self.tap_radius, self.use_kernels = tap_radius, use_kernels
+        self.monitor_oob, self.oob = False, None
         self.v_dim = int(d_model * ratio)
         self.value_proj = Linear(d_model, self.v_dim, dtype=dtype)
         self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2)
@@ -94,6 +101,11 @@ class MSDeformAttn(nn.Module):
                                            spatial_shapes)
         weights = weights.to(value.dtype)
         if self.uses_taps(Lq, spatial_shapes, query_shape):
+            if self.monitor_oob:
+                with torch.no_grad():
+                    self.oob = tap_out_of_range_fraction(
+                        locations, spatial_shapes, tuple(query_shape),
+                        self.tap_radius)
             out = ms_deform_attn_taps(value, spatial_shapes, locations, weights,
                                       tuple(query_shape), self.tap_radius,
                                       self.use_kernels)

@@ -100,22 +100,53 @@ class GELU(nn.Module):
         return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
+class DropPathMasks:
+    """The source of drop-path's per-sample keep masks: one explicit
+    ``torch.Generator`` (no global RNG), shared by every :class:`DropPath`
+    of a model (``build_model`` seeds it from ``cfg.SEED`` on the model's
+    device).  ``draw`` is the one place a mask comes from, so a test may
+    replace it to replay given masks."""
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def draw(self, batch, keep):
+        """[batch] bool, each True with probability ``keep``."""
+        return torch.rand(batch, generator=self.generator,
+                          device=self.generator.device) < keep
+
+
+def set_drop_path_masks(module, masks):
+    """Give every :class:`DropPath` under ``module`` the mask source
+    ``masks``."""
+    for m in module.modules():
+        if isinstance(m, DropPath):
+            m.masks = masks
+
+
 class DropPath(nn.Module):
     """Stochastic depth per sample (``nmrf_tpu/models/layers.py:DropPath``):
-    the identity in eval mode or at rate 0.  Training with a positive rate
-    is not ported yet: it raises rather than draw random numbers that no
-    test holds against the JAX package."""
+    the identity in eval mode or at rate 0; in training each call draws a
+    keep mask of shape (B,) + (1,) * (ndim - 1) from its
+    :class:`DropPathMasks` and returns ``where(mask, x / keep, 0)`` in x's
+    dtype.  Draw outside any ``torch.utils.checkpoint`` region: a recompute
+    restores the default generators only, not an explicit one."""
 
     def __init__(self, rate=0.0):
         super().__init__()
         self.rate = float(rate)
+        self.masks = None
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        raise NotImplementedError(
-            f"drop-path at rate {self.rate} in training: the port's swin "
-            "training slice adds it; serving (eval mode) does not need it")
+        if self.masks is None:
+            raise RuntimeError("DropPath in training needs a mask source: "
+                               "build_model sets one (set_drop_path_masks)")
+        keep = 1.0 - self.rate
+        mask = self.masks.draw(x.shape[0], keep).to(x.device)
+        mask = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / keep, 0.0)
 
 
 def instance_norm_2d(x, eps=1e-5):

@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("window_attention", "stripe_attention", "window_attention_bwd",
            "stripe_attention_bwd", "msda_taps", "masked_attention",
-           "masked_attention_bwd", "window_attention_pos_bwd")
+           "masked_attention_bwd", "window_attention_pos_bwd", "msda_taps_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +47,7 @@ _SIGNATURES = {
                              [_P] * 10 + [_I] * 7 + [_F, _P]),
     "window_attention_pos_bwd": ("nmrf_window_attention_pos_bwd",
                                  [_P] * 6 + [_I] * 14 + [_F, _P]),
+    "msda_taps_bwd": ("nmrf_msda_taps_bwd", [_P] * 9 + [_I] * 10 + [_P]),
 }
 # dtype codes of the kernels' ``dtype`` argument (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

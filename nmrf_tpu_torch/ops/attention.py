@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import _native
-from .msda import msda_taps
+from .msda import msda_taps, msda_taps_bwd
 
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
 _DTYPE_CODES = _native.DTYPE_CODES
@@ -74,12 +74,13 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
 def _wrappers():
     return (window_attention, stripe_attention, window_attention_bwd,
             stripe_attention_bwd, msda_taps, masked_attention,
-            masked_attention_bwd, window_attention_pos_bwd)
+            masked_attention_bwd, window_attention_pos_bwd, msda_taps_bwd)
 
 
 def reset_launch_counts():
     """Set the launch count of every kernel wrapper of the port to 0 (K1,
-    K2, K1b, K2b, B6, B6b and B7 here and B5, ``ops/msda.py:msda_taps``)."""
+    K2, K1b, K2b, B6, B6b and B7 here and B5 and B5b,
+    ``ops/msda.py:msda_taps`` and ``msda_taps_bwd``)."""
     for fn in _wrappers():
         fn.launches = 0
 

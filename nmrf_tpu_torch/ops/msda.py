@@ -19,6 +19,13 @@ tap-MSDA kernel B5.
   (``_tap_level_reference``).  The kernel gathers the 4 corners of each
   sample instead, so holding one against the other checks one formulation
   against the other.
+* ``msda_taps_bwd`` is the wrapper of kernel B5b (``csrc/msda_taps_bwd.cu``),
+  the backward of one level, in the same way: its plain version
+  ``msda_taps_bwd_plain`` is the port's copy of the JAX package's manual,
+  rematerializing backward (``nmrf_tpu/ops/msda.py:_tap_bwd``, a jnp scan
+  over the taps, not a Pallas kernel).  :class:`TapLevel` joins the two
+  into one autograd function, which ``ms_deform_attn_taps`` takes when a
+  gradient is needed.
 """
 
 import numpy as np
@@ -161,8 +168,8 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
       weights, points in (head, point) order; Hq = f*Hl and Wq = f*Wl.
     Every bilinear corner more than ``radius`` level pixels from the base
     cell along either axis is dropped.  Returns [B, Hq, Wq, M*D] in
-    value_map's dtype, summed in f32.  Not differentiable (the swin
-    training slice adds the backward).
+    value_map's dtype, summed in f32.  Not differentiable itself:
+    :class:`TapLevel` is its autograd function.
     """
     B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
     tensors = (value_map, dx, dy, aw)
@@ -193,6 +200,123 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
 msda_taps.launches = 0
 
 
+def msda_taps_bwd_plain(value_map, dx, dy, aw, g, num_heads, radius):
+    """Plain PyTorch version of :func:`msda_taps_bwd`: the JAX package's
+    manual backward ``_tap_bwd``, a loop over the (2r+1)^2 taps that keeps
+    only the gradient accumulators and recomputes each tap's hat weights,
+    then the halo map's gather transposed by two index sums.  At a hat kink
+    it takes ``_tap_bwd``'s choice: a tap's hat derivative is -sign(z) where
+    |z| < 1 and 0 elsewhere, so 0 at z = 0 and at |z| = 1."""
+    B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
+    M = num_heads
+    P, D = MP // M, MD // M
+    f = Hq // Hl
+    r = int(radius)
+    taps = 2 * r + 1
+    U = _halo_map(value_map, f, r).float()
+    g5 = g.reshape(B, Hq, Wq, M, D).float()
+    dx5 = dx.reshape(B, Hq, Wq, M, P)
+    dy5 = dy.reshape(B, Hq, Wq, M, P)
+    aw5 = aw.reshape(B, Hq, Wq, M, P)
+    ddx = torch.zeros_like(dx5)
+    ddy = torch.zeros_like(dx5)
+    daw = torch.zeros_like(dx5)
+    dU = torch.zeros_like(U)
+    for t in range(taps * taps):
+        ty, tx = t // taps - r, t % taps - r
+        zy, zx = dy5 - ty, dx5 - tx
+        hy = (1.0 - zy.abs()).clamp_min(0.0)
+        hx = (1.0 - zx.abs()).clamp_min(0.0)
+        y0, x0 = (ty + r) * f, (tx + r) * f
+        u5 = U[:, y0:y0 + Hq, x0:x0 + Wq].reshape(g5.shape)
+        s = (g5 * u5).sum(-1, keepdim=True)
+        daw = daw + hy * hx * s
+        gy = torch.where(zy.abs() < 1.0, -torch.sign(zy), 0.0)
+        gx = torch.where(zx.abs() < 1.0, -torch.sign(zx), 0.0)
+        ddy = ddy + aw5 * hx * gy * s
+        ddx = ddx + aw5 * hy * gx * s
+        w = (aw5 * hy * hx).sum(-1)
+        dU[:, y0:y0 + Hq, x0:x0 + Wq] += (w[..., None] * g5).reshape(B, Hq, Wq, MD)
+    # the halo gather transposed: dvpad[i] = sum of dU[j] over iy[j] = i
+    iy, ix = _halo_index_maps(Hq, Wq, f, r)
+    dev = value_map.device
+    Hp, Wp = Hl + 2 * (r + 1), Wl + 2 * (r + 1)
+    rows = dU.new_zeros((B, Hp, dU.shape[2], MD)).index_add_(
+        1, torch.as_tensor(iy, device=dev), dU)
+    dvpad = dU.new_zeros((B, Hp, Wp, MD)).index_add_(
+        2, torch.as_tensor(ix, device=dev), rows)
+    dvalue = dvpad[:, r + 1:r + 1 + Hl, r + 1:r + 1 + Wl].to(value_map.dtype)
+    return (dvalue, ddx.reshape(dx.shape), ddy.reshape(dy.shape),
+            daw.reshape(aw.shape))
+
+
+def msda_taps_bwd(value_map, dx, dy, aw, g, num_heads, radius):
+    """Backward of :func:`msda_taps` for one level (kernel B5b).
+
+    value_map, dx, dy, aw: the forward's inputs; g: [B, Hq, Wq, M*D], the
+    gradient of its output, in value_map's dtype.  Returns (d value_map in
+    its dtype, d dx, d dy, d aw in float32), summed in f32, with the
+    forward's rules: a corner more than ``radius`` level pixels from the
+    base cell, or past the map, adds nothing to any of them.  For CUDA
+    tensors it launches the kernel or raises, counting launches in
+    ``msda_taps_bwd.launches``; for CPU tensors it takes
+    :func:`msda_taps_bwd_plain`.
+    """
+    B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
+    if not isinstance(g, torch.Tensor) or g.shape != (B, Hq, Wq, MD):
+        raise ValueError(f"g must be a [{B}, {Hq}, {Wq}, {MD}] tensor")
+    if g.dtype != value_map.dtype:
+        raise TypeError(f"g must be {value_map.dtype}, got {g.dtype}")
+    tensors = (value_map, dx, dy, aw, g)
+    if all(t.device.type == "cpu" for t in tensors):
+        return msda_taps_bwd_plain(value_map, dx, dy, aw, g, num_heads, radius)
+    dev = value_map.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("msda_taps_bwd: inputs must be on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("msda_taps_bwd: inputs must be contiguous")
+    dvalue = torch.empty_like(value_map)
+    ddx, ddy, daw = (torch.empty_like(dx) for _ in range(3))
+    if dx.numel() == 0:
+        return dvalue.zero_(), ddx, ddy, daw
+    M = num_heads
+    err = _native.library("msda_taps_bwd")(
+        value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
+        g.data_ptr(), dvalue.data_ptr(), ddx.data_ptr(), ddy.data_ptr(),
+        daw.data_ptr(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq,
+        Wq, M, MD // M, MP // M, int(radius), _native.stream())
+    _native.check_launch("msda_taps_bwd", err)
+    msda_taps_bwd.launches += 1
+    return dvalue, ddx, ddy, daw
+
+
+msda_taps_bwd.launches = 0
+
+
+class TapLevel(torch.autograd.Function):
+    """One level of the tap path as an autograd function (the JAX
+    package's ``_tap_level_op`` custom VJP): the forward is
+    :func:`msda_taps`, the backward :func:`msda_taps_bwd` (their plain
+    versions with ``use_kernels`` False).  It saves only its four inputs
+    and recomputes the rest in the backward."""
+
+    @staticmethod
+    def forward(ctx, value_map, dx, dy, aw, num_heads, radius, use_kernels):
+        ctx.save_for_backward(value_map, dx, dy, aw)
+        ctx.num_heads, ctx.radius, ctx.use_kernels = num_heads, radius, use_kernels
+        level = msda_taps if use_kernels else msda_taps_plain
+        return level(value_map, dx, dy, aw, num_heads, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        value_map = ctx.saved_tensors[0]
+        bwd = msda_taps_bwd if ctx.use_kernels else msda_taps_bwd_plain
+        grads = bwd(*ctx.saved_tensors, g.to(value_map.dtype).contiguous(),
+                    ctx.num_heads, ctx.radius)
+        return (*grads, None, None, None)
+
+
 def ms_deform_attn_taps(value, spatial_shapes, sampling_locations,
                         attention_weights, query_shape, radius,
                         use_kernels=True):
@@ -200,12 +324,15 @@ def ms_deform_attn_taps(value, spatial_shapes, sampling_locations,
     :func:`ms_deform_attn` plus the query grid (Hq, Wq), Lq = Hq * Wq.
     Exact while every sample lies within ``radius`` level pixels of its
     query's base cell per axis; contributions beyond it are dropped.
-    ``use_kernels`` False takes the plain version on every device."""
+    ``use_kernels`` False takes the plain versions on every device.  When a
+    gradient is needed each level goes through :class:`TapLevel`; without
+    one (serving, ``torch.no_grad``) it calls the forward alone."""
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     Hq, Wq = query_shape
     assert Lq == Hq * Wq
-    level = msda_taps if use_kernels else msda_taps_plain
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, sampling_locations, attention_weights))
     out = None
     start = 0
     for lid, (Hl, Wl) in enumerate(spatial_shapes):
@@ -214,7 +341,12 @@ def ms_deform_attn_taps(value, spatial_shapes, sampling_locations,
         dx, dy, aw = tap_level_inputs(sampling_locations[:, :, :, lid],
                                       attention_weights[:, :, :, lid],
                                       (Hl, Wl), query_shape)
-        o = level(vmap.contiguous(), dx, dy, aw, M, radius)
+        if grad:
+            o = TapLevel.apply(vmap.contiguous(), dx, dy, aw, M, radius,
+                               use_kernels)
+        else:
+            level = msda_taps if use_kernels else msda_taps_plain
+            o = level(vmap.contiguous(), dx, dy, aw, M, radius)
         out = o if out is None else out + o
     return out.reshape(B, Lq, M * D).to(value.dtype)
 

@@ -20,7 +20,7 @@ def param_group(name):
     the JAX package's ``label_params`` on its flax paths)."""
     parts = name.split(".")
     leaf = parts[-1]
-    if name.startswith("backbone.backbone."):  # swin backbone (not ported)
+    if name.startswith("backbone.backbone."):  # the swin backbone
         return "backbone_rpb" if "relative_position_bias_table" in leaf \
             else "backbone"
     if "sampling_offsets" in name:

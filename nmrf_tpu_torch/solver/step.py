@@ -6,11 +6,12 @@ update as ``optax.MultiSteps`` takes them; on one device, or over a
 
 import torch
 
+from ..models.adaptor import MSDeformAttn
 from ..parallel.mesh import spatial_sharded_apply, sum_gradients
 
 
 def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
-                    grad_clip, mesh=None):
+                    grad_clip, mesh=None, monitor_oob=False):
     """Returns ``step(batch) -> losses``.
 
     batch: dict of tensors on the model's device, ``img1``/``img2``
@@ -33,23 +34,55 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
     before the clip the gradients are summed over the world
     (``parallel.sum_gradients`` says why a sum), so every rank applies the
     same update.
+
+    monitor_oob: the swin variant's tap-path diagnostic
+    (``nmrf_tpu/parallel/mesh.py:make_train_step``).  losses then also hold
+    ``msda_tap_oob``, the largest share of samples beyond the tap radius
+    over the neck's extractors, as its maximum over the interval since the
+    last ``step.read_oob()``: a device scalar, with no host sync per step,
+    so a spike between two readbacks is not lost.  ``step.read_oob(guard=
+    None)`` reads it back (one sync), starts a new interval and returns the
+    float (None when no step reported one).  Given a
+    ``utils.guards.TapOOBGuard`` it passes the value to ``guard.check``;
+    when that requests the fallback, every ``MSDeformAttn`` of the model is
+    switched in place to the exact gather path (tap radius 0) and the
+    monitoring stops.  In place, because the optimizer holds the parameter
+    objects and their state: the step goes on with both as they are.
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    attns = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
     micro = 0
+    oob = {"monitor": monitor_oob, "max": None}
+
+    def forward(batch):
+        if mesh is None:
+            return model(batch["img1"], batch["img2"])
+        return spatial_sharded_apply(model, mesh, batch["img1"], batch["img2"])
 
     def step(batch):
         nonlocal micro
         model.train()
-        if mesh is None:
-            out = model(batch["img1"], batch["img2"])
+        if oob["monitor"]:
+            for m in attns:
+                m.monitor_oob, m.oob = True, None
+            try:
+                out = forward(batch)
+            finally:
+                for m in attns:
+                    m.monitor_oob = False
+            fracs = [m.oob for m in attns if m.oob is not None]
         else:
-            out = spatial_sharded_apply(model, mesh, batch["img1"],
-                                        batch["img2"])
+            out, fracs = forward(batch), []
         losses = criterion(out, {"disp": batch["disp"],
                                  "valid": batch["valid"]})
         (losses["total"] / accum_steps).backward()
         micro += 1
         result = {k: v.detach().float() for k, v in losses.items()}
+        if fracs:
+            frac = torch.stack(fracs).max()
+            if oob["max"] is not None:
+                frac = torch.maximum(frac, oob["max"])
+            oob["max"] = result["msda_tap_oob"] = frac
         if micro == accum_steps:
             if mesh is not None:
                 sum_gradients(params, mesh)
@@ -61,4 +94,14 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
             micro = 0
         return result
 
+    def read_oob(guard=None):
+        value = None if oob["max"] is None else float(oob["max"])
+        oob["max"] = None
+        if value is not None and guard is not None and guard.check(value):
+            for m in attns:
+                m.tap_radius = 0
+            oob["monitor"] = False
+        return value
+
+    step.read_oob = read_oob
     return step

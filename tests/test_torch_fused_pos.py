@@ -255,7 +255,8 @@ def test_flag_unset_keeps_the_default_path(setting, monkeypatch, b7_calls):
     assert A.launch_counts() == dict.fromkeys(
         ("window_attention", "stripe_attention", "window_attention_bwd",
          "stripe_attention_bwd", "msda_taps", "masked_attention",
-         "masked_attention_bwd", "window_attention_pos_bwd"), 0)
+         "masked_attention_bwd", "window_attention_pos_bwd", "msda_taps_bwd"),
+        0)
 
 
 # ---- (e) ---- #

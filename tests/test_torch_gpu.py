@@ -27,8 +27,11 @@ serving and training stripes at batch 1 and 8, and on ragged tiny stripes
 at every head dim.  K1's tensor-core kernel is held at the serving,
 training and tile windows at batch 1 and 8, and the CUDA-core kernel at
 shapes outside its set; B5's vector kernel at the four extractor shapes
-and its scalar kernel off them.  Which kernel ran is read from
-torch.profiler's device events.
+and its scalar kernel off them.  The tap-MSDA backward B5b is held
+against its plain version at the swin training step's four extractor
+shapes and off them (backward tolerances), against itself (same bits), and
+through the autograd function against the plain versions' gradients.
+Which kernel ran is read from torch.profiler's device events.
 """
 
 from pathlib import Path
@@ -209,7 +212,7 @@ def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
     after = A.launch_counts()
     assert {k: after[k] - counts[k] for k in after} == dict(
         dict.fromkeys(after, 1), msda_taps=0, masked_attention=0,
-        masked_attention_bwd=0, window_attention_pos_bwd=0)
+        masked_attention_bwd=0, window_attention_pos_bwd=0, msda_taps_bwd=0)
     q2 = q.detach().clone().requires_grad_()
     A.stripe_attention_plain(q2, q2, q2, 4, 1, 2).square().sum().backward()
     torch.testing.assert_close(q.grad, q2.grad, atol=1e-4, rtol=1e-4)
@@ -246,7 +249,8 @@ def test_train_steps_through_kernels_match_plain(cuda):
         assert A.launch_counts() == dict(dict.fromkeys(A.launch_counts(), want),
                                          msda_taps=0, masked_attention=0,
                                          masked_attention_bwd=0,
-                                         window_attention_pos_bwd=0)
+                                         window_attention_pos_bwd=0,
+                                         msda_taps_bwd=0)
     for got, ref in zip(losses[True], losses[False]):
         for key, value in ref.items():
             assert torch.isfinite(got[key])
@@ -306,7 +310,8 @@ def test_swin_forward_through_kernels_matches_plain(cuda):
                                      "msda_taps": want,
                                      "masked_attention": 0,
                                      "masked_attention_bwd": 0,
-                                     "window_attention_pos_bwd": 0}
+                                     "window_attention_pos_bwd": 0,
+                                     "msda_taps_bwd": 0}
     for key in ("prob", "proposal", "initial_proposal"):
         torch.testing.assert_close(outs[True][key], outs[False][key],
                                    atol=2e-4, rtol=1e-3)
@@ -719,6 +724,99 @@ def test_msda_scalar_kernel_off_the_vector_shapes(cuda, dtype, shape):
     assert _ran(names, "msda_taps_kernel") and not _ran(names, "msda_taps_vec_kernel"), names
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# ---- B5b, the tap-MSDA backward ---- #
+
+def _msda_bwd_case(cuda, seed, B, Hq, Wq, f, M, P, D, spread, dtype):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    vmap = torch.randn(B, Hq // f, Wq // f, M * D, generator=g, device=cuda).to(dtype)
+    dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=g, device=cuda) * 2 - 1)
+              * spread for _ in range(2))
+    aw = torch.rand(B, Hq, Wq, M * P, generator=g, device=cuda)
+    gout = torch.randn(B, Hq, Wq, M * D, generator=g, device=cuda).to(dtype)
+    return vmap, dx, dy, aw, gout
+
+
+def _check_msda_bwd(got, want, dtype):
+    atol, rtol = _GPU_BWD_TOL[dtype]
+    for name, a, b in zip(("dv", "ddx", "ddy", "daw"), got, want):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("spread", [4.0, 8.0], ids=["within_r", "beyond_r"])
+def test_msda_bwd_kernel_at_the_training_shapes(cuda, dtype, f, spread):
+    """B5b at the swin training step's four extractors (batch 16: the left
+    and right images of 8 pairs; query grid 96 x 192, M 8, P 4, D 8, r 5)
+    runs its two vector-path kernels, counts one launch a call, matches its
+    plain version at the backward tolerances, with samples up to ``spread``
+    level pixels away (beyond the radius and past the borders in the second
+    case), and gives the same bits on a second launch."""
+    args = _msda_bwd_case(cuda, 30 + f, 16, 96, 192, f, 8, 4, 8, spread, dtype)
+    before = msda.msda_taps_bwd.launches
+    names, calls = set(), 0
+    for _ in range(3):  # the profiler now and then drops a kernel's event
+        got, seen, n = _device_kernels(lambda: msda.msda_taps_bwd(*args, 8, 5))
+        names, calls = names | seen, calls + n
+        if _ran(names, "msda_bwd_sample_kernel") and _ran(names, "msda_bwd_value_kernel"):
+            break
+    assert msda.msda_taps_bwd.launches == before + calls
+    assert _ran(names, "msda_bwd_sample_kernel") and _ran(names, "msda_bwd_value_kernel")
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 5), dtype)
+    for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 5)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 4, 6), (8, 3, 8), (2, 5, 16)],
+                         ids=["D6", "P3", "D16"])
+def test_msda_bwd_kernel_off_the_training_shapes(cuda, dtype, shape):
+    """B5b on its scalar path (D 6; P 3) and at D 16, level factor 3, on
+    ragged grids, with samples beyond r and past the borders."""
+    M, P, D = shape
+    args = _msda_bwd_case(cuda, 40, 2, 27, 33, 3, M, P, D, 7.0, dtype)
+    got = msda.msda_taps_bwd(*args, M, 4)
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, M, 4), dtype)
+
+
+@pytest.mark.gpu
+def test_tap_level_gradients_through_the_kernels(cuda):
+    """ms_deform_attn_taps with gradients on the card: through TapLevel on
+    the kernels (one B5 and one B5b launch per level) and on the plain
+    versions, the same gradients of value, locations and weights (f32)."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    levels, (Hq, Wq), M, D, P = [(24, 48), (12, 24)], (24, 48), 8, 8, 4
+    value = torch.randn(2, sum(h * w for h, w in levels), M, D, generator=g,
+                        device=cuda)
+    ry, rx = torch.meshgrid((torch.arange(Hq, device=cuda) + 0.5) / Hq,
+                            (torch.arange(Wq, device=cuda) + 0.5) / Wq,
+                            indexing="ij")
+    ref = torch.stack([rx.reshape(-1), ry.reshape(-1)], -1)
+    norm = torch.tensor([[w, h] for h, w in levels], device=cuda)
+    offs = (torch.rand(2, Hq * Wq, M, 2, P, 2, generator=g, device=cuda) * 2 - 1) * 4.5
+    locs = ref[None, :, None, None, None] + offs / norm[:, None]
+    w = torch.softmax(torch.randn(2, Hq * Wq, M, 2 * P, generator=g, device=cuda), -1)
+    w = w.reshape(2, Hq * Wq, M, 2, P)
+    cot = torch.randn(2, Hq * Wq, M * D, generator=g, device=cuda)
+    grads = {}
+    for use_kernels in (True, False):
+        inputs = [t.clone().requires_grad_() for t in (value, locs, w)]
+        before = A.launch_counts()
+        msda.ms_deform_attn_taps(inputs[0], levels, inputs[1], inputs[2],
+                                 (Hq, Wq), 5, use_kernels).backward(cot)
+        after = A.launch_counts()
+        want = 2 if use_kernels else 0
+        assert after["msda_taps"] - before["msda_taps"] == want
+        assert after["msda_taps_bwd"] - before["msda_taps_bwd"] == want
+        grads[use_kernels] = [t.grad for t in inputs]
+    for a, b in zip(grads[True], grads[False]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 def _gloo_cuda_worker(rank, out_dir):

@@ -147,4 +147,5 @@ def test_cpu_wrappers_do_not_count_launches():
                                         "msda_taps": 0,
                                         "masked_attention": 0,
                                         "masked_attention_bwd": 0,
-                                        "window_attention_pos_bwd": 0}
+                                        "window_attention_pos_bwd": 0,
+                                        "msda_taps_bwd": 0}

@@ -1,0 +1,262 @@
+"""The tap-MSDA backward B5b on the CPU: the port against the JAX package
+(float32).
+
+* ``msda_taps_bwd_plain`` against ``nmrf_tpu.ops.msda._tap_bwd`` at every
+  level factor of the swin neck and radii 2 and 5, with samples beyond the
+  radius and past the borders, displacements at least 1e-3 from the hat's
+  kinks: atol 1e-5 (the same f32 sums in another order);
+* ``TapLevel`` (the autograd function, here on its plain versions)
+  against ``jax.vjp`` of ``_tap_level_op`` (the Pallas B5 in interpret
+  mode and ``_tap_bwd``) at atol 2e-5, rtol 1e-5
+  (``tests/test_torch_msda.py``'s), and ``ms_deform_attn_taps``'s gradients
+  against the JAX one's at atol 1e-4 (the locations' gradients carry the
+  level width, up to 16, as a factor);
+* a model of ``csrc/msda_taps_bwd.cu`` in PyTorch, its corner walk per
+  sample and its base-cell walk per level pixel, against the plain version
+  on ragged shapes, with a share of the displacements on whole pixels (the
+  kinks, where both take 0): atol 1e-5.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nmrf_tpu.ops import msda as msda_jax
+from nmrf_tpu_torch.ops import attention as A
+from nmrf_tpu_torch.ops import msda
+
+from .test_torch_swin_train import few_threads  # noqa: F401
+
+TOL = dict(atol=1e-5, rtol=0)
+TOL_OP = dict(atol=2e-5, rtol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _off_kinks(x, margin=1e-3):
+    """x moved at least ``margin`` away from every integer."""
+    frac = x - np.floor(x)
+    return (np.floor(x) + np.clip(frac, margin, 1 - margin)).astype(np.float32)
+
+
+def _case(rng, f, r, B=2, Hq=16, Wq=24, M=2, D=4, P=3, whole=0.0):
+    """Level map, displacements up to r + 2 (some beyond the radius, and
+    base + d past the border for edge queries), weights and a cotangent;
+    ``whole``: the share of displacements put on whole pixels, else every
+    displacement is kept 1e-3 off the kinks."""
+    vmap = rng.randn(B, Hq // f, Wq // f, M * D).astype(np.float32)
+    dx, dy = (_off_kinks(rng.uniform(-r - 2, r + 2, (B, Hq, Wq, M * P)))
+              for _ in range(2))
+    for d in (dx, dy):
+        on = rng.rand(*d.shape) < whole
+        d[on] = np.round(d[on])
+    aw = rng.rand(B, Hq, Wq, M * P).astype(np.float32)
+    g = rng.randn(B, Hq, Wq, M * D).astype(np.float32)
+    return vmap, dx, dy, aw, g
+
+
+@pytest.mark.parametrize("r", [2, 5])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_bwd_plain_matches_jax(f, r):
+    rng = np.random.RandomState(100 + 10 * f + r)
+    vmap, dx, dy, aw, g = _case(rng, f, r)
+    assert (np.abs(dx) > r + 1).any() and (np.abs(dy) > r + 1).any()
+    want = msda_jax._tap_bwd(2, r, tuple(jnp.asarray(x) for x in
+                                         (vmap, dx, dy, aw)), jnp.asarray(g))
+    got = msda.msda_taps_bwd_plain(_t(vmap), _t(dx), _t(dy), _t(aw), _t(g), 2, r)
+    for name, a, b in zip(("dv", "ddx", "ddy", "daw"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
+                                   err_msg=f"{name} f={f} r={r}")
+
+
+@pytest.mark.parametrize("f", [1, 4])
+def test_tap_level_function_matches_jax_vjp(f):
+    """TapLevel's forward and its four gradients against jax.vjp of
+    ``_tap_level_op`` (the Pallas kernel's forward, ``_tap_bwd``)."""
+    r = 3
+    rng = np.random.RandomState(f)
+    vmap, dx, dy, aw, g = _case(rng, f, r, Hq=8, Wq=16)
+    args = tuple(jnp.asarray(x) for x in (vmap, dx, dy, aw))
+    want_out, vjp = jax.vjp(lambda *a: msda_jax._tap_level_op(*a, 2, r), *args)
+    want = vjp(jnp.asarray(g))
+    inputs = [_t(x).requires_grad_() for x in (vmap, dx, dy, aw)]
+    out = msda.TapLevel.apply(*inputs, 2, r, True)
+    out.backward(_t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **TOL_OP)
+    for name, x, b in zip(("dv", "ddx", "ddy", "daw"), inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(b), **TOL_OP,
+                                   err_msg=name)
+
+
+def test_ms_deform_attn_taps_gradients_match_jax():
+    """The whole tap op (two levels, f 1 and 2) differentiated through
+    value, sampling locations and weights on both sides."""
+    rng = np.random.RandomState(3)
+    levels, (Hq, Wq), M, D, P, r = [(8, 16), (4, 8)], (8, 16), 2, 4, 2, 3
+    value = rng.randn(2, sum(h * w for h, w in levels), M, D).astype(np.float32)
+    ry, rx = np.meshgrid((np.arange(Hq) + 0.5) / Hq, (np.arange(Wq) + 0.5) / Wq,
+                         indexing="ij")
+    ref = np.stack([rx.reshape(-1), ry.reshape(-1)], -1)
+    norm = np.array([[w, h] for h, w in levels], np.float64)
+    offs = _off_kinks(rng.uniform(-2.5, 2.5, (2, Hq * Wq, M, 2, P, 2)))
+    locs = (ref[None, :, None, None, None] + offs / norm[:, None]).astype(np.float32)
+    w = rng.rand(2, Hq * Wq, M, 2, P).astype(np.float32)
+    g = rng.randn(2, Hq * Wq, M * D).astype(np.float32)
+    _, vjp = jax.vjp(lambda v, l, a: msda_jax.ms_deform_attn_taps(
+        v, levels, l, a, (Hq, Wq), r), *(jnp.asarray(x) for x in (value, locs, w)))
+    want = vjp(jnp.asarray(g))
+    inputs = [_t(x).requires_grad_() for x in (value, locs, w)]
+    msda.ms_deform_attn_taps(*inputs[:1], levels, *inputs[1:], (Hq, Wq), r) \
+        .backward(_t(g))
+    for name, x, b in zip(("value", "locations", "weights"), inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_serving_calls_the_forward_alone(monkeypatch):
+    """Without a gradient (inference mode, no_grad, or no input that needs
+    one) the tap op does not go through the autograd function."""
+    def refuse(*args):
+        raise AssertionError("TapLevel used without a gradient")
+
+    monkeypatch.setattr(msda.TapLevel, "apply", refuse)
+    rng = np.random.RandomState(4)
+    value = _t(rng.randn(1, 32, 2, 4).astype(np.float32))
+    locs = _t(rng.rand(1, 32, 2, 1, 2, 2).astype(np.float32))
+    w = _t(rng.rand(1, 32, 2, 1, 2).astype(np.float32))
+    with torch.inference_mode():
+        msda.ms_deform_attn_taps(value, [(4, 8)], locs, w, (4, 8), 2)
+    with torch.no_grad():
+        msda.ms_deform_attn_taps(value.requires_grad_(), [(4, 8)], locs, w,
+                                 (4, 8), 2)
+
+
+def test_cpu_bwd_wrapper_takes_the_plain_version_and_counts_no_launch():
+    A.reset_launch_counts()
+    rng = np.random.RandomState(5)
+    vmap, dx, dy, aw, g = (_t(x) for x in _case(rng, 2, 2))
+    got = msda.msda_taps_bwd(vmap, dx, dy, aw, g, 2, 2)
+    want = msda.msda_taps_bwd_plain(vmap, dx, dy, aw, g, 2, 2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert A.launch_counts()["msda_taps_bwd"] == 0
+    with pytest.raises(ValueError, match="g must be"):
+        msda.msda_taps_bwd(vmap, dx, dy, aw, g[:, :4], 2, 2)
+    with pytest.raises(TypeError, match="g must be"):
+        msda.msda_taps_bwd(vmap, dx, dy, aw, g.double(), 2, 2)
+    with pytest.raises(ValueError, match="whole"):
+        msda.msda_taps_bwd(vmap[:, :, :5], dx, dy, aw, g, 2, 2)
+
+
+# ---- a model of csrc/msda_taps_bwd.cu ---- #
+
+def _base(q, f):
+    return (2 * q + 1 + f) // (2 * f) - 1
+
+
+def _first_query(b, f, n):
+    """The .cu's first_query: the first q in [0, n] with base(q) >= b."""
+    num = 2 * f * (b + 1) - 1 - f
+    return torch.where(num <= 0, 0, torch.clamp((num + 1) // 2, max=n))
+
+
+def _hat_slope(z):
+    return torch.where(z.abs() < 1, torch.where(z > 0, -1.0, torch.where(
+        z < 0, 1.0, 0.0)), 0.0)
+
+
+def _sample_model(v, dx, dy, aw, g, M, r):
+    """The sample kernel: per (query, head, point) its two corner rows and
+    columns, each kept corner gathered and dotted with g."""
+    B, Hl, Wl, MD = v.shape
+    _, Hq, Wq, MP = dx.shape
+    P, D, f = MP // M, MD // M, Hq // Hl
+    shape = (B, Hq, Wq, M, P)
+    dx5, dy5, aw5 = (t.reshape(shape) for t in (dx, dy, aw))
+    g5 = g.reshape(B, Hq, Wq, M, 1, D)
+    by = _base(torch.arange(Hq), f)[None, :, None, None, None]
+    bx = _base(torch.arange(Wq), f)[None, None, :, None, None]
+    ok = (dx5.abs() <= r + 1) & (dy5.abs() <= r + 1)
+    y0 = torch.where(ok, dy5, 0.0).floor().long()
+    x0 = torch.where(ok, dx5, 0.0).floor().long()
+    bi = torch.arange(B)[:, None, None, None, None]
+    mi = torch.arange(M)[None, None, None, :, None]
+    v5 = v.reshape(B, Hl, Wl, M, D)
+    out = [torch.zeros(shape) for _ in range(3)]
+    for i in range(2):
+        for j in range(2):
+            ty, tx = y0 + i, x0 + j
+            ly, lx = by + ty, bx + tx
+            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (ly >= 0) \
+                & (ly < Hl) & (lx >= 0) & (lx < Wl)
+            zy, zx = dy5 - ty, dx5 - tx
+            hy, hx = (1 - zy.abs()).clamp_min(0), (1 - zx.abs()).clamp_min(0)
+            corner = v5[bi, ly.clamp(0, Hl - 1), lx.clamp(0, Wl - 1), mi]
+            s = torch.where(keep, (g5 * corner).sum(-1), 0.0)
+            out[0] += hy * hx * s
+            out[1] += aw5 * hx * _hat_slope(zy) * s
+            out[2] += aw5 * hy * _hat_slope(zx) * s
+    return [o.reshape(dx.shape) for o in (out[2], out[1], out[0])]
+
+
+def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
+    """The value kernel: each level pixel walks the base cells within r of
+    it, each cell's query range per axis from first_query, and takes the
+    samples with a corner on the pixel."""
+    B, Hq, Wq, MP = dx.shape
+    MD = g.shape[-1]
+    P, D, f = MP // M, MD // M, Hq // Hl
+    dx5, dy5, aw5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy, aw))
+    g5 = g.reshape(B, Hq, Wq, M, D)
+    py = torch.arange(Hl)[:, None].expand(Hl, Wl)
+    px = torch.arange(Wl)[None, :].expand(Hl, Wl)
+    acc = torch.zeros(B, Hl, Wl, M, D)
+    for cy in range(2 * r + 1):
+        by, ty = py - r + cy, r - cy
+        qy0, qy1 = _first_query(by, f, Hq), _first_query(by + 1, f, Hq)
+        assert ((qy1 - qy0) <= f).all()
+        for cx in range(2 * r + 1):
+            bx, tx = px - r + cx, r - cx
+            qx0, qx1 = _first_query(bx, f, Wq), _first_query(bx + 1, f, Wq)
+            for ky in range(f):
+                for kx in range(f):
+                    qy, qx = qy0 + ky, qx0 + kx
+                    valid = (qy < qy1) & (qx < qx1)
+                    if not valid.any():
+                        continue
+                    qy, qx = qy.clamp(max=Hq - 1), qx.clamp(max=Wq - 1)
+                    sdx, sdy, saw = (t[:, qy, qx] for t in (dx5, dy5, aw5))
+                    ok = (sdx.abs() <= r + 1) & (sdy.abs() <= r + 1)
+                    y0 = torch.where(ok, sdy, 0.0).floor()
+                    x0 = torch.where(ok, sdx, 0.0).floor()
+                    hit = ok & valid[None, :, :, None, None] \
+                        & ((y0 == ty) | (y0 + 1 == ty)) & ((x0 == tx) | (x0 + 1 == tx))
+                    hy = (1 - (sdy - ty).abs()).clamp_min(0)
+                    hx = (1 - (sdx - tx).abs()).clamp_min(0)
+                    w = torch.where(hit, saw * hy * hx, 0.0)  # [B, Hl, Wl, M, P]
+                    acc += w.sum(-1, keepdim=True) * g5[:, qy, qx]
+    return acc.reshape(B, Hl, Wl, MD)
+
+
+@pytest.mark.parametrize("f,r,shape", [
+    (1, 2, (9, 13, 3, 5, 3)),   # Hq, Wq, M, D, P: ragged everything
+    (2, 5, (10, 14, 2, 4, 2)),
+    (3, 2, (9, 12, 1, 3, 5)),
+    (8, 5, (16, 24, 2, 8, 4)),  # the swin neck's D 8, P 4 at its coarsest level
+])
+def test_kernel_walk_model_matches_plain(f, r, shape):
+    Hq, Wq, M, D, P = shape
+    rng = np.random.RandomState(7 * f + r)
+    v, dx, dy, aw, g = (_t(x) for x in _case(rng, f, r, Hq=Hq, Wq=Wq, M=M, D=D,
+                                               P=P, whole=0.2))
+    want = msda.msda_taps_bwd_plain(v, dx, dy, aw, g, M, r)
+    got_dv = _value_model(dx, dy, aw, g, Hq // f, Wq // f, M, r)
+    got = [got_dv] + _sample_model(v, dx, dy, aw, g, M, r)
+    for name, a, b in zip(("dv", "ddx", "ddy", "daw"), got, want):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"{name}: {m}")
+    # every term of d v was found: the walk covers each kept corner once
+    assert want[0].abs().sum() > 0

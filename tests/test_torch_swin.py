@@ -30,6 +30,7 @@ from nmrf_tpu.models import swin as swin_jax
 from nmrf_tpu.utils.checkpoint import convert_torch_state_dict
 from nmrf_tpu_torch import build_model, get_cfg, predict
 from nmrf_tpu_torch.models import adaptor, swin
+from nmrf_tpu_torch.models.layers import DropPath, DropPathMasks
 from nmrf_tpu_torch.utils.convert import params_from_jax
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -388,16 +389,36 @@ def test_predict_pads_to_32_and_unpads(port_model, size):
     assert np.isfinite(disp).all() and (disp >= 0).all()
 
 
-def test_drop_path_is_accepted_for_serving_and_refused_in_training(port_model,
-                                                                   images):
-    """``BACKBONE.DROP_PATH 0.4`` builds (serving is eval mode, where
-    drop-path is the identity); a training forward raises until the swin
-    training slice ports it."""
-    assert port_model.backbone.backbone.layers[3].blocks[1].drop_path.rate \
-        == pytest.approx(0.4)
-    port_model.train()
-    try:
-        with pytest.raises(NotImplementedError, match="swin training"):
-            port_model(*(torch.from_numpy(x) for x in images))
-    finally:
-        port_model.eval()
+def test_drop_path_is_accepted_for_serving_and_refused_in_training(port_model):
+    """``BACKBONE.DROP_PATH 0.4``: rates rise from 0 to 0.4 over the Swin
+    blocks and every drop-path of the model draws from its seeded mask
+    source.  A drop-path is the identity in eval mode and at rate 0; in
+    training each call draws its own per-sample mask of shape (B, 1, ...)
+    and returns x / keep where kept and 0 elsewhere, in x's dtype; without a
+    mask source it raises rather than fall back to a global generator."""
+    blocks = [b for layer in port_model.backbone.backbone.layers
+              for b in layer.blocks]
+    assert blocks[0].drop_path.rate == 0.0
+    assert blocks[-1].drop_path.rate == pytest.approx(0.4)
+    assert all(m.masks is port_model.drop_path_masks
+               for m in port_model.modules() if isinstance(m, DropPath))
+    x = torch.randn(64, 3, 4, 5)
+    dp = DropPath(0.25)
+    dp.masks = DropPathMasks(torch.Generator().manual_seed(0))
+    assert dp.eval()(x) is x
+    assert DropPath(0.0).train()(x) is x
+    dp.train()
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        state = dp.masks.generator.get_state()
+        out = dp(xd)
+        want_mask = torch.rand(64, generator=torch.Generator().set_state(state)) < 0.75
+        assert out.dtype == dtype
+        kept = want_mask.reshape(64, 1, 1, 1)
+        torch.testing.assert_close(out, torch.where(kept, xd / 0.75, 0.0),
+                                   atol=0, rtol=0)
+        assert 0 < int(want_mask.sum()) < 64
+    assert not torch.equal(dp(x) == 0, dp(x) == 0)  # a new mask each call
+    dp.masks = None
+    with pytest.raises(RuntimeError, match="mask source"):
+        dp(x)

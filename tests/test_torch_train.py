@@ -7,13 +7,16 @@
 * (c) the optimizer: the parameters after each of 3 updates, and under
   ``ACCUM_STEPS 2``, equal the JAX ``build_optimizer``'s on identical
   gradients (rtol 1e-6), the schedule equals the JAX one, and every
-  parameter's group is the JAX ``label_params`` label of its leaf;
+  parameter's group is the JAX ``label_params`` label of its leaf, for the
+  resnet and the swin variant;
 * (d) one whole step at 64x128, batch 2, 2 layers per stage, on the same
   weights and batch: every loss term at rtol 1e-5, every gradient leaf at
   |d| <= 1e-4 max|g_jax| + 1e-6, with the JAX side on its XLA path and on
   its Pallas path (the backward kernels in interpret mode on the CPU);
 * (e) ``TPU.REMAT`` leaves the gradients as they are (rtol 1e-5).
 """
+
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -234,7 +237,8 @@ def test_optimizer_matches_jax(jax_params, accum):
                                        rtol=1e-6, atol=1e-7, err_msg=f"{i} {key}")
 
 
-def test_schedule_and_groups_match_jax(jax_params):
+@pytest.mark.parametrize("variant", ["resnet", "swin"])
+def test_schedule_and_groups_match_jax(jax_params, variant):
     cfg_j = get_cfg_jax()
     _, schedule_j = build_optimizer_jax(jax_params, cfg_j)
     total = cfg_j.SOLVER.MAX_ITER + 100
@@ -258,7 +262,13 @@ def test_schedule_and_groups_match_jax(jax_params):
         assert got[step]["offset"] == pytest.approx(
             0.1 * got[step]["default"], rel=1e-12), step
 
-    model = _port_model(jax_params)
+    if variant == "resnet":
+        model = _port_model(jax_params)
+    else:
+        cfg = _small(get_cfg())
+        cfg.merge_from_file(str(Path(__file__).resolve().parent.parent
+                                / "configs" / "sceneflow_swint.yaml"))
+        model = build_model(cfg, device="cpu")
     codes = {n: torch.full_like(p, float(GROUPS.index(param_group(n))))
              for n, p in model.named_parameters()}
     tree, unmatched = convert_torch_state_dict(codes)
@@ -269,7 +279,10 @@ def test_schedule_and_groups_match_jax(jax_params):
     for key, label in want.items():
         assert (got[key] == GROUPS.index(label)).all(), key
     groups = {param_group(n) for n in codes}
-    assert groups == {"default", "norm", "rpe"}  # resnet: no offset/backbone
+    if variant == "resnet":  # no sampling offsets, no swin backbone
+        assert groups == {"default", "norm", "rpe"}
+    else:
+        assert groups == set(GROUPS)
 
 
 # ---- (d), (e) ---- #
