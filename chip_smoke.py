@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
-    python3 chip_smoke.py --compare-old DIR  # K1/B5 vs DIR's sources
+    python3 chip_smoke.py --compare-old DIR  # K1/B5/B5b vs DIR's sources
     python3 chip_smoke.py --k1-stages        # K1's time by stage
 
 Phases (any failure exits non-zero before the last line is printed):
@@ -25,8 +25,9 @@ Phases (any failure exits non-zero before the last line is printed):
    extractor shapes of a swin KITTI request, and once with samples beyond
    its radius and past the borders; its backward B5b at the four extractor
    shapes of a swin training step (batch 16, the left and right images of
-   8 pairs), also beyond the radius and past the borders, and against a
-   second launch (same bits);
+   8 pairs), also beyond the radius and past the borders, each launch on
+   its vector path with the tap masks, and against a second launch (same
+   bits), and timed by kernel (sample, cell masks, value);
 3. drive the serving paths: the default-config resnet model and the swin
    model (``configs/sceneflow_swint.yaml``: Swin-T and the deformable neck),
    each at full width and depth (bf16, tanh GELU, random seeded weights),
@@ -51,11 +52,15 @@ Phases (any failure exits non-zero before the last line is printed):
    (``configs/sceneflow_swint.yaml``: drop-path 0.4, tap radius 5) takes
    1 + 30 steps on the same kind of batch with the tap-path monitor on
    (``msda_tap_oob`` reported, 0 at init), 4 B5 and 4 B5b launches a step
-   beside the NMP stages' 10 of each;
+   (their vector kernels, B5b with its tap masks) beside the NMP stages'
+   10 of each;
 6. time each kernel beside its plain version, its bound and one PyTorch
    library call (``scaled_dot_product_attention``, its backward for K1b,
    B7, K2b and B6b; ``grid_sample`` for B5 and its backward for B5b) at
-   the same shapes (K1b also
+   the same shapes (B5b on uniform displacements, and again on the
+   samples of its 4 launches in a swin training step with the level map
+   and g drawn N(0, 1), also checked there against its plain version; K1b
+   also
    by kernel: its main kernel, its d(ve) kernels and the plain products of
    ``_window_bwd_finish``; B7 its main kernel and its partial sum), and
    break a request of each model, a training step, a NMRF_FUSED_POS=1
@@ -74,14 +79,22 @@ Phases (any failure exits non-zero before the last line is printed):
    and its backward B6b (at the sharded serving and training shapes, G 156
    and 768, and on a ragged shape; two B6b launches give the same bits),
    and K1/K1b/B7 at a tile's row offset, against their plain versions.
+   Then two ranks on the card over gloo on a 2 x 1 grid (the data axis)
+   take 2 swin training steps of 4 pairs each (drop-path masks: rows of
+   one global draw; the tap monitor's shares averaged over the ranks):
+   both ranks must report the same losses and ``msda_tap_oob`` and keep
+   the same parameters, with 4 B5 and 4 B5b launches a step per rank.
 
-With ``--compare-old DIR`` it builds the kernels and DIR's
-``window_attention.cu`` and ``msda_taps.cu`` (earlier versions of K1 and
-B5, with DIR's headers) and times the two versions in turns (old, new,
-new, old): K1 at the KITTI windows (batch 1) and the training windows
-(batch 8), B5 at the four extractor shapes of a swin KITTI request, each
-beside SDPA (K1) or ``grid_sample`` (B5) and the bound, then the default
-and the NMRF_FUSED_POS=1 training steps; nothing else runs.  With
+With ``--compare-old DIR`` it builds the kernels and those of DIR's
+``window_attention.cu``, ``msda_taps.cu`` and ``msda_taps_bwd.cu`` that
+it holds (earlier versions of K1, B5 and B5b, with DIR's headers) and
+times the two versions in turns (old, new, new, old): K1 at the KITTI
+windows (batch 1) and the training windows (batch 8), B5 at the four
+extractor shapes of a swin KITTI request, B5b at the four of a swin
+training step, each beside SDPA (K1), ``grid_sample`` (B5) or its
+backward (B5b) and the bound, then the training steps that run them (the
+default and the NMRF_FUSED_POS=1 steps for K1, the swin step for B5 and
+B5b); nothing else runs.  With
 ``--k1-stages`` it builds K1's source with one stage of its tensor-core
 kernel cut out at a time and times each beside the whole kernel, at a
 KITTI and a training window of Inference and Refinement (``K1_CUTS``).
@@ -206,8 +219,11 @@ NO_SPILL = {
     "window_attention": ("window_attention_mma_kernel<bf16,32,1>",
                          "window_attention_mma_kernel<bf16,32,9>"),
     "msda_taps": ("msda_taps_vec_kernel<bf16,8>",),
-    "msda_taps_bwd": ("msda_bwd_sample_kernel<bf16,8>",
-                      "msda_bwd_value_kernel<bf16,8>"),
+    "msda_taps_bwd": ("msda_bwd_sample_kernel<bf16,8,1>",
+                      "msda_bwd_cell_mask_kernel",
+                      "msda_bwd_gather_kernel<bf16,8>",
+                      "msda_bwd_sample_kernel<bf16,8,0>",
+                      "msda_bwd_walk_kernel<bf16,8>"),
 }
 
 
@@ -591,6 +607,10 @@ def split_ms(fn, ms, groups, iters=3):
 
 
 K1B_SPLIT = (("main", K1B_MAIN), ("dve", K1B_DVE))
+# B5b's sample kernel (d dx, d dy, d aw and the tap masks), its cell-mask
+# pass and its value kernel (d v: the gather, or the walk past r 5)
+B5B_SPLIT = (("sample", ("msda_bwd_sample",)), ("cell_masks", ("msda_bwd_cell_mask",)),
+             ("value", ("msda_bwd_gather", "msda_bwd_walk")))
 B7_SPLIT = (("main", B7_MAIN), ("sum", B7_SUM))
 # B6b's query-side and key-side kernels
 B6B_SPLIT = (("dq", ("masked_bwd_dq",)), ("dkv", ("masked_bwd_dkv",)))
@@ -839,40 +859,90 @@ def msda_phase(gen):
     return {"msda_taps": entries}
 
 
-def msda_bwd_phase(gen):
-    """Phase 2 for B5b: against its plain version in f32 and bf16 at the
-    four extractor shapes of a swin training step (batch 16, query grid
-    96 x 192, displacements within r) and two cases reaching beyond r and
-    past the borders; two launches give the same bits.  Its timings of
-    phase 6 (bf16, as the training path runs it) beside the backward of the
-    exact path's ``F.grid_sample`` on the same samples (f32, heads folded
-    into the batch, with the weighted sum over the points)."""
+def msda_bwd_inputs(gen, B, f, spread):
+    """B5b's inputs at the swin training step's query grid and level f:
+    the level map and g (f32, N(0, 1)), displacements uniform within
+    +-spread level pixels, softmax weights."""
+    import torch
+
+    dev = "cuda"
+    M, P, D = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM
+    Hq, Wq = MSDA_TRAIN_Q
+    Hl, Wl = Hq // f, Wq // f
+    v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
+    dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=gen, device=dev)
+               * 2 - 1) * spread for _ in range(2))
+    aw = torch.softmax(torch.randn(B, Hq, Wq, M, P, generator=gen,
+                                   device=dev), -1).reshape(B, Hq, Wq, M * P)
+    g32 = torch.randn(B, Hq, Wq, M * D, generator=gen, device=dev)
+    return v32, dx, dy, aw, g32
+
+
+def msda_bwd_library_ms(gen, v32, dx, dy, aw, f):
+    """The backward of the exact path's ``F.grid_sample`` on B5b's samples
+    (f32, heads folded into the batch, with the weighted sum over the
+    points): one library call of the same function while every sample lies
+    within r."""
     import torch
     import torch.nn.functional as F
 
     from nmrf_tpu_torch.ops import msda
 
-    dev = "cuda"
+    M, P, D = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM
+    B, Hq, Wq, _ = dx.shape
+    Hl, Wl = Hq // f, Wq // f
+    dev = dx.device
+    base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
+    base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
+    gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
+    gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
+    grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
+    grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
+    vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
+    vh = vh.reshape(B * M, D, Hl, Wl).requires_grad_()
+    grid.requires_grad_()
+    w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
+    w = w.reshape(B * M, 1, Hq * Wq, P).requires_grad_()
+    out = (F.grid_sample(vh, grid, align_corners=False) * w).sum(-1)
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    return cuda_ms(lambda: torch.autograd.grad(out, (vh, grid, w), cot,
+                                               retain_graph=True), 10)
+
+
+def msda_bwd_phase(gen):
+    """Phase 2 for B5b: against its plain version in f32 and bf16 at the
+    four extractor shapes of a swin training step (batch 16, query grid
+    96 x 192, displacements within r) and two cases reaching beyond r and
+    past the borders, each launch on the vector path with the tap masks;
+    two launches give the same bits.  Its timings of phase 6 (bf16, as the
+    training path runs it), also by kernel (``B5B_SPLIT``: the sample
+    kernel, the cell masks and the value kernel apart), beside the backward
+    of the exact path's ``F.grid_sample`` on the same samples."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import msda
+
     M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
     Hq, Wq = MSDA_TRAIN_Q
     B = 2 * TRAIN_BATCH
     entries = []
     for label, f, per_step, spread in MSDA_BWD_CASES:
-        Hl, Wl = Hq // f, Wq // f
-        v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
-        dx, dy = ((torch.rand(B, Hq, Wq, M * P, generator=gen, device=dev)
-                   * 2 - 1) * spread for _ in range(2))
-        aw = torch.softmax(torch.randn(B, Hq, Wq, M, P, generator=gen,
-                                       device=dev), -1).reshape(B, Hq, Wq, M * P)
-        g32 = torch.randn(B, Hq, Wq, M * D, generator=gen, device=dev)
+        v32, dx, dy, aw, g32 = msda_bwd_inputs(gen, B, f, spread)
         entry = {"shape": label, "count": per_step,
+                 "inputs": f"uniform within +-{spread} level pixels",
                  "beyond_r_share": ((dx.abs() > r) | (dy.abs() > r)).float()
                  .mean().item()}
         for dtype_name, dt in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16)):
             args = (v32.to(dt), dx, dy, aw, g32.to(dt), M, r)
+            A.reset_launch_counts()
             got = msda.msda_taps_bwd(*args)
             torch.cuda.synchronize()
+            if A.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
+                fail(f"msda_taps_bwd {label} {dtype_name}: launched "
+                     f"{A.variant_counts()['msda_taps_bwd']}, expected the "
+                     "vector path with the tap masks")
             want = msda.msda_taps_bwd_plain(*args)
             entry[f"max_abs_err_{dtype_name}"] = max(
                 check_close(f"msda_taps_bwd {label} d{name}", a, b, dtype_name,
@@ -885,29 +955,102 @@ def msda_bwd_phase(gen):
             args = (v32.to(torch.bfloat16), dx, dy, aw, g32.to(torch.bfloat16),
                     M, r)
             entry["ms"] = cuda_ms(lambda: msda.msda_taps_bwd(*args), 20)
+            entry["split_ms"] = split_ms(lambda: msda.msda_taps_bwd(*args),
+                                         entry["ms"], B5B_SPLIT)
             entry["plain_ms"] = cuda_ms(lambda: msda.msda_taps_bwd_plain(*args),
                                         2, warmup=1)
-            base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
-            base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
-            gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
-            gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
-            grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
-            grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
-            vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
-            vh = vh.reshape(B * M, D, Hl, Wl).requires_grad_()
-            grid.requires_grad_()
-            w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
-            w = w.reshape(B * M, 1, Hq * Wq, P).requires_grad_()
-            out = (F.grid_sample(vh, grid, align_corners=False) * w).sum(-1)
-            cot = torch.randn(out.shape, generator=gen, device=dev)
-            entry["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                out, (vh, grid, w), cot, retain_graph=True), 10)
-            del out
+            entry["library_ms"] = msda_bwd_library_ms(gen, v32, dx, dy, aw, f)
             entry["bytes_ms"], entry["ops_ms"] = msda_bwd_bound(
                 B, Hq, Wq, f, M, P, D, 2, kept_corners(dx, dy, r))
         entries.append(entry)
         log(f"kernel msda_taps_bwd {label}: " + json.dumps(entry))
     return {"msda_taps_bwd": entries}
+
+
+def captured_msda_bwd_inputs(step, batch):
+    """The inputs of the B5b launches of one swin training step ``step(batch)``
+    (clones, in launch order: the extractors at f 1, 2, 4, 8)."""
+    import torch
+
+    from nmrf_tpu_torch.ops import msda
+
+    seen, launch = [], msda.msda_taps_bwd
+
+    def record(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return launch(*args)
+
+    # the wrapper counts its launches on the module's name, here record
+    record.launches, record.variants = 0, {}
+    msda.msda_taps_bwd = record
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        msda.msda_taps_bwd = launch
+    if len(seen) != 4:
+        fail(f"a swin step launched B5b {len(seen)} times, expected 4")
+    return seen
+
+
+def msda_bwd_main_path_phase(step, batch):
+    """B5b on the samples of the main path: the 4 launches of a swin
+    training step (bf16, the neck's samples at their random initial
+    weights), held against its plain version (TOL_BWD) and itself on the
+    step's own inputs, and again with the level map and g drawn N(0, 1)
+    (a step's g is small, so only these values hold the sparse masks'
+    path to the tolerance), timed on the latter (also by kernel,
+    ``B5B_SPLIT``) beside the plain version, ``grid_sample``'s backward on
+    the same samples and the bound of these samples' kept corners.  These
+    entries count no launches of the kernels line (``count`` 0): its B5b
+    times stay those of phase 2's uniform inputs, and these go to its
+    ``on_training_step_inputs`` field (``step_count``, ``unit``
+    "step_inputs")."""
+    import torch
+
+    from nmrf_tpu_torch.ops import msda
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    entries = []
+    for captured in captured_msda_bwd_inputs(step, batch):
+        v, dx, dy, aw, g, M, r = captured
+        B, Hq, Wq, _ = dx.shape
+        f = Hq // v.shape[1]
+        label = f"train step extractor/f{f}"
+        entry = {"shape": label, "count": 0, "unit": "step_inputs",
+                 "step_count": 1,
+                 "inputs": "a swin training step's dx, dy and aw; v and g as "
+                           "the step's and N(0, 1)",
+                 "beyond_r_share": ((dx.abs() > r) | (dy.abs() > r)).float()
+                 .mean().item()}
+        drawn = (torch.randn(v.shape, generator=gen, device=v.device).to(v.dtype),
+                 dx, dy, aw,
+                 torch.randn(g.shape, generator=gen, device=g.device).to(g.dtype),
+                 M, r)
+        for key, args in (("max_abs_err_step_values", captured),
+                          ("max_abs_err_bfloat16", drawn)):
+            got = msda.msda_taps_bwd(*args)
+            want = msda.msda_taps_bwd_plain(*args)
+            entry[key] = max(
+                check_close(f"msda_taps_bwd {label} ({key}) d{name}", a, b,
+                            "bfloat16", TOL_BWD)
+                for name, a, b in zip(("value", "dx", "dy", "aw"), got, want))
+            check_repeat(f"msda_taps_bwd {label} ({key})", got,
+                         msda.msda_taps_bwd(*args))
+            del got, want
+        args = drawn
+        entry["ms"] = cuda_ms(lambda: msda.msda_taps_bwd(*args), 20)
+        entry["split_ms"] = split_ms(lambda: msda.msda_taps_bwd(*args),
+                                     entry["ms"], B5B_SPLIT)
+        entry["plain_ms"] = cuda_ms(lambda: msda.msda_taps_bwd_plain(*args), 2,
+                                    warmup=1)
+        entry["library_ms"] = msda_bwd_library_ms(gen, args[0].float(), dx, dy,
+                                                  aw, f)
+        entry["bytes_ms"], entry["ops_ms"] = msda_bwd_bound(
+            B, Hq, Wq, f, M, MSDA_POINTS, MSDA_HEAD_DIM, 2, kept_corners(dx, dy, r))
+        entries.append(entry)
+        log(f"kernel msda_taps_bwd {label}: " + json.dumps(entry))
+    return entries
 
 
 # H-sharded path (1 x 2 grid): the CSWin vertical stripe of a tile attends
@@ -1298,6 +1441,12 @@ def train_phase(fused=False, swin=False):
                      **{window_bwd: 10 * steps}, **taps)
     oob = {}
     if swin:
+        variants = A.variant_counts()
+        if variants["msda_taps_bwd"] != {"vector_masks": 4 * steps} or \
+                variants["msda_taps"] != {"vector": 4 * steps}:
+            fail(f"swin steps: B5/B5b variants {variants}, expected only the "
+                 "vector kernels (B5b with its tap masks)")
+        oob["variants"] = variants
         oob["msda_tap_oob"] = [r.get("msda_tap_oob") for r in rows]
         if None in oob["msda_tap_oob"] or oob["msda_tap_oob"][0] != 0.0:
             fail(f"swin steps: msda_tap_oob {oob['msda_tap_oob']}, expected "
@@ -1931,19 +2080,116 @@ def _sharded_train(mesh, fused):
                        for r in rows]}
 
 
+SWIN_DATA_GRID = (2, 1)   # (data, spatial): the swin step, data-parallel
+SWIN_DATA_STEPS = 2
+
+
+def swin_data_phase():
+    """Phase 7 for the swin variant: two ranks on the one card over gloo, a
+    2 x 1 (data, spatial) grid, each with 4 of the 8 pairs, take
+    SWIN_DATA_STEPS training steps (drop-path masks: each rank's rows of
+    one global draw; the tap monitor on: each extractor's share averaged
+    over the ranks); every rank must report the same losses and the same
+    ``msda_tap_oob`` at every step, and keep the same parameters.  Returns
+    each rank's report."""
+    import tempfile
+
+    from nmrf_tpu_torch.parallel import spawn
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_swin_data_")
+    world = SWIN_DATA_GRID[0] * SWIN_DATA_GRID[1]
+    spawn(swin_data_worker, world, "gloo", args=(out,), timeout_s=600)
+    reports = []
+    for rank in range(world):
+        with open(f"{out}/swin_rank{rank}.json") as f:
+            reports.append(json.load(f))
+    for r in reports[1:]:
+        if r["losses"] != reports[0]["losses"]:
+            fail(f"swin data-parallel steps: rank {r['rank']}'s losses "
+                 f"{r['losses']} differ from rank 0's {reports[0]['losses']}")
+    return reports
+
+
+def swin_data_worker(rank, out_dir):
+    """One rank of the swin data-parallel steps (its own process)."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
+                                make_train_step)
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*SWIN_DATA_GRID, backend="gloo")
+    cfg = main_path_cfg("bfloat16", False, True, swin=True, grid=SWIN_DATA_GRID)
+    model = build_model(cfg, mesh=mesh)
+    optimizer, scheduler = build_optimizer(model, cfg)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg.SOLVER.ACCUM_STEPS, grad_clip=cfg.SOLVER.GRAD_CLIP,
+                           mesh=mesh, monitor_oob=True)
+    H, W = cfg.DATASETS.CROP_SIZE
+    batch = shard_batch(synthetic_batch(TRAIN_BATCH, H, W,
+                                        max_disp=cfg.SOLVER.MAX_DISP, seed=0,
+                                        disp_quantum=8), mesh)
+    dist.barrier()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = [step(batch) for _ in range(SWIN_DATA_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, variants = A.launch_counts(), A.variant_counts()
+    S = SWIN_DATA_STEPS
+    _expect_launches(counts, f"rank {rank}, {S} swin data-parallel steps",
+                     window_attention=10 * S, stripe_attention=10 * S,
+                     window_attention_bwd=10 * S, stripe_attention_bwd=10 * S,
+                     msda_taps=4 * S, msda_taps_bwd=4 * S)
+    if variants["msda_taps_bwd"] != {"vector_masks": 4 * S}:
+        fail(f"rank {rank}: B5b variants {variants['msda_taps_bwd']}")
+    rows = [{k: float(v) for k, v in h.items()} for h in history]
+    if not all(np.isfinite(v) for row in rows for v in row.values()) or \
+            any("msda_tap_oob" not in row for row in rows):
+        fail(f"rank {rank}, swin data-parallel steps: {rows}")
+    checksum = torch.stack([p.detach().double().sum() for p in model.parameters()])
+    sums = mesh.world.all_gather(checksum)
+    if not all(torch.equal(sums[0], s) for s in sums[1:]):
+        fail("swin data-parallel steps: the ranks' parameters diverged")
+    report = {"rank": rank, "grid": list(SWIN_DATA_GRID), "pairs_per_rank":
+              TRAIN_BATCH // SWIN_DATA_GRID[0], "crop": [H, W], "steps": S,
+              "seconds": seconds, "launches": counts, "variants": variants,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm",
+                                            "msda_tap_oob")} for r in rows]}
+    if rank == 0:
+        log("phase 7 swin data-parallel (rank 0): " + json.dumps(report))
+    with open(f"{out_dir}/swin_rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
 # --------------------------------------------------------------------------- #
-# --compare-old DIR: the redesigned K1 and B5 against given sources of the
+# --compare-old DIR: the redesigned kernels against given sources of the
 # versions they replace, in turns in one process on one card
 # --------------------------------------------------------------------------- #
 
-REDESIGNED = ("window_attention", "msda_taps")
+REDESIGNED = ("window_attention", "msda_taps", "msda_taps_bwd")
 COMPARE_STEPS = 5
+# the C entries of the versions REDESIGNED replaced take fewer arguments:
+# the new call's arguments -> the old call's (K1 and B5 before they
+# reported their variant; B5b before its scratch and its variant)
+OLD_ARGS = {
+    "window_attention": lambda a: a[:-1],
+    "msda_taps": lambda a: a[:-1],
+    "msda_taps_bwd": lambda a: a[:9] + a[11:-1],
+}
 
 
 def old_libraries(src_dir):
-    """Build ``src_dir``'s sources of the REDESIGNED kernels (with that
-    directory's headers) with the port's nvcc flags, load them, and return
-    {name: entry point}; their C signatures are the current ones."""
+    """Build the sources of the REDESIGNED kernels that ``src_dir`` holds
+    (with that directory's headers) with the port's nvcc flags, load them,
+    and return {name: entry point}, each taking the current entry's
+    arguments (``OLD_ARGS``)."""
     import ctypes
 
     from nmrf_tpu_torch.ops import _native
@@ -1951,10 +2197,14 @@ def old_libraries(src_dir):
     _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in REDESIGNED:
+        if not os.path.exists(os.path.join(src_dir, f"{name}.cu")):
+            continue
         target = _native.BUILD_DIR / f"libold_{name}.so"
         procs[name] = (subprocess.Popen(
             _native._command(name, target, src_dir), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), target)
+    if not procs:
+        fail(f"{src_dir} holds none of {REDESIGNED}")
     fns = {}
     for name, (proc, target) in procs.items():
         text, _ = proc.communicate()
@@ -1965,30 +2215,51 @@ def old_libraries(src_dir):
             for fn, regs, spills in ptxas_kernels(text)))
         symbol, argtypes = _native._SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(target)), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = OLD_ARGS[name](argtypes)
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = (lambda fn, cut: lambda *a: fn(*cut(a)))(fn, OLD_ARGS[name])
     return fns
 
 
 # (kernel, unit, batch, cases): K1 per KITTI frame (batch 1) and per
 # training step (batch TRAIN_BATCH), B5 per swin KITTI frame (batch 2, the
-# left and right images); each case's last field is its launches per unit
+# left and right images), B5b per swin training step (batch 2 x
+# TRAIN_BATCH); each case's last field is its launches per unit (B5b's its
+# third)
 COMPARE_CASES = [
     ("window_attention", "frame", 1, WINDOW_CASES),
     ("window_attention", "step", TRAIN_BATCH, TRAIN_WINDOW_CASES),
     ("msda_taps", "frame", 2, [c for c in MSDA_CASES if c[2]]),
+    ("msda_taps_bwd", "swin step", 2 * TRAIN_BATCH, [c for c in MSDA_BWD_CASES if c[2]]),
 ]
 
 
+@contextlib.contextmanager
+def uncounted_variants():
+    """An old library reports no variant: while its turn runs, the
+    wrappers count no variant."""
+    from nmrf_tpu_torch.ops import _native
+
+    count = _native.Variant.count
+    _native.Variant.count = lambda self, wrapper, names: None
+    try:
+        yield
+    finally:
+        _native.Variant.count = count
+
+
 def compare_phase(src_dir, gen):
-    """Time old and new K1 and B5 in turns (old, new, new, old): K1 at the
-    KITTI windows (batch 1) and the training windows (batch TRAIN_BATCH),
-    B5 at the four extractor shapes of a swin KITTI request, each beside
-    one SDPA with an additive [G, h, T, T] mask (K1) or ``F.grid_sample``
-    (B5) and the bound; then the default and the NMRF_FUSED_POS=1 training
-    step (COMPARE_STEPS steps per turn).  The wrappers stay the same: only
-    the library each one launches is swapped."""
+    """Time the old and new versions of each REDESIGNED kernel that
+    ``src_dir`` holds in turns (old, new, new, old): K1 at the KITTI
+    windows (batch 1) and the training windows (batch TRAIN_BATCH) beside
+    one SDPA with an additive [G, h, T, T] mask, B5 at the four extractor
+    shapes of a swin KITTI request beside ``F.grid_sample``, B5b at the
+    four extractor shapes of a swin training step beside ``grid_sample``'s
+    backward, each with its bound; then the training steps whose path runs
+    them (COMPARE_STEPS steps per turn): the default and the
+    NMRF_FUSED_POS=1 step for K1, the swin step for B5 and B5b.  The
+    wrappers stay the same: only the library each one launches is
+    swapped."""
     import torch
     import torch.nn.functional as F
 
@@ -1997,17 +2268,22 @@ def compare_phase(src_dir, gen):
     from nmrf_tpu_torch.ops import msda
 
     old = old_libraries(src_dir)
-    new = {name: _native.library(name) for name in REDESIGNED}
+    new = {name: _native.library(name) for name in old}
     turns = (("old", old), ("new", new), ("new", new), ("old", old))
     dev = "cuda"
     entries = []
 
-    def timed(entry, fn, iters):
+    def run_turns(fn):
         ms = {"old": [], "new": []}
         for tag, libs in turns:
             _native._loaded.update(libs)
-            ms[tag].append(cuda_ms(fn, iters))
+            with uncounted_variants() if tag == "old" else contextlib.nullcontext():
+                ms[tag].append(fn())
         _native._loaded.update(new)
+        return ms
+
+    def timed(entry, fn, iters):
+        ms = run_turns(lambda: cuda_ms(fn, iters))
         entry.update(old_ms=ms["old"], new_ms=ms["new"])
         entries.append(entry)
         log("phase 8 old vs new: " + json.dumps(entry))
@@ -2015,6 +2291,8 @@ def compare_phase(src_dir, gen):
     with torch.inference_mode():
         C, heads = 128, 4
         for name, unit, B, cases in COMPARE_CASES[:2]:
+            if name not in old:
+                continue
             for label, Hp, Wp, N, ws, shift, cand, count in cases:
                 qkv = torch.randn(B, Hp, Wp, N, 3 * C, generator=gen, device=dev,
                                   dtype=torch.bfloat16)
@@ -2039,7 +2317,7 @@ def compare_phase(src_dir, gen):
         M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
         Hq, Wq = MSDA_Q
         name, unit, B, cases = COMPARE_CASES[2]
-        for label, f, count, spread in cases:
+        for label, f, count, spread in cases if name in old else ():
             Hl, Wl = Hq // f, Wq // f
             v32 = torch.randn(B, Hl, Wl, M * D, generator=gen, device=dev)
             v = v32.to(torch.bfloat16)
@@ -2063,9 +2341,63 @@ def compare_phase(src_dir, gen):
             entry["bytes_ms"], entry["ops_ms"] = msda_bound(B, Hq, Wq, f, M, P, D, 2)
             timed(entry, lambda: msda.msda_taps(v, dx, dy, aw, M, r), 50)
 
+    name, unit, B, cases = COMPARE_CASES[3]
+    Hq, Wq = MSDA_TRAIN_Q
+    for label, f, count, spread in cases if name in old else ():
+        v32, dx, dy, aw, g32 = msda_bwd_inputs(gen, B, f, spread)
+        args = (v32.to(torch.bfloat16), dx, dy, aw, g32.to(torch.bfloat16), M, r)
+        entry = {"name": name, "shape": label, "unit": unit, "count": count,
+                 "library_ms": msda_bwd_library_ms(gen, v32, dx, dy, aw, f)}
+        entry["bytes_ms"], entry["ops_ms"] = msda_bwd_bound(
+            B, Hq, Wq, f, M, P, D, 2, kept_corners(dx, dy, r))
+        timed(entry, lambda: msda.msda_taps_bwd(*args), 20)
+        del v32, dx, dy, aw, g32, args
+
+    steps = {}
+    paths = []
+    if "window_attention" in old:
+        paths += [("default", False, False), ("NMRF_FUSED_POS=1", True, False)]
+    if "msda_taps" in old or "msda_taps_bwd" in old:
+        paths.append(("swin", False, True))
+    for key, flagged, swin in paths:
+        _, step, batch = train_setup(swin)
+        step(batch)  # warm-up
+        if swin and "msda_taps_bwd" in old:  # B5b on the step's own inputs
+            for args in captured_msda_bwd_inputs(step, batch):
+                f = args[1].shape[1] // args[0].shape[1]
+                entry = {"name": "msda_taps_bwd", "shape": f"train step extractor/f{f}",
+                         "unit": "swin step, its inputs", "count": 1,
+                         "library_ms": msda_bwd_library_ms(
+                             gen, args[0].float(), *args[1:4], f)}
+                entry["bytes_ms"], entry["ops_ms"] = msda_bwd_bound(
+                    *args[1].shape[:3], f, MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM,
+                    2, kept_corners(args[1], args[2], MSDA_R))
+                timed(entry, lambda: msda.msda_taps_bwd(*args), 20)
+
+        def timed_steps():
+            step(batch)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(COMPARE_STEPS):
+                step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / COMPARE_STEPS
+
+        with fused_pos() if flagged else contextlib.nullcontext():
+            steps[key] = run_turns(timed_steps)
+        log(f"phase 8 old vs new, {key} step: " + json.dumps(steps[key]))
+        del step, batch
+        torch.cuda.empty_cache()
     totals = {}
-    for name, unit, _, _ in COMPARE_CASES:
+    units = [(name, unit) for name, unit, _, _ in COMPARE_CASES]
+    units.append(("msda_taps_bwd", "swin step, its inputs"))
+    for name, unit in units:
         rows = [e for e in entries if e["name"] == name and e["unit"] == unit]
+        if not rows:
+            continue
         key = f"{name} per {unit}"
         totals[key] = {k: sum(float(np.mean(e[k])) * e["count"] for e in rows)
                        for k in ("old_ms", "new_ms", "library_ms")}
@@ -2074,26 +2406,6 @@ def compare_phase(src_dir, gen):
     slower = [f"{e['name']} {e['shape']}" for e in entries
               if max(e["new_ms"]) >= min(e["old_ms"])]
 
-    _, step, batch = train_setup()
-    step(batch)  # warm-up
-    steps = {}
-    for flagged in (False, True):
-        key = "NMRF_FUSED_POS=1" if flagged else "default"
-        steps[key] = {"old": [], "new": []}
-        with fused_pos() if flagged else contextlib.nullcontext():
-            for tag, libs in turns:
-                _native._loaded.update(libs)
-                step(batch)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(COMPARE_STEPS):
-                    step(batch)
-                end.record()
-                torch.cuda.synchronize()
-                steps[key][tag].append(start.elapsed_time(end) / COMPARE_STEPS)
-    _native._loaded.update(new)
     return {"per_unit": totals, "step_ms": steps, "steps_per_turn": COMPARE_STEPS,
             "new_not_faster_on": slower, "shapes": entries}
 
@@ -2216,19 +2528,32 @@ def kernels_line(kernel_results, counts):
                                     f"bf16",
         "msda_taps_bwd": f"per swin training step: the 4 launches at batch "
                          f"{2 * TRAIN_BATCH} (the left and right images of "
-                         f"{TRAIN_BATCH} pairs, query grid 96x192), bf16",
+                         f"{TRAIN_BATCH} pairs, query grid 96x192), bf16, "
+                         f"displacements uniform within +-{MSDA_R - 0.5} level "
+                         f"pixels; on_training_step_inputs: on the samples of "
+                         f"one step of the main path",
     }
     line = []
     for name, entries in kernel_results.items():
         timed = [e for e in entries if e["count"]]
         agg = {k: sum(e[k] * e["count"] for e in timed)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-        per_step = [e for e in entries if e.get("unit") == "step"]
-        if per_step:  # K1 in the training step, beside its per-frame unit
-            agg["per_step"] = {k: sum(e[k] * e["step_count"] for e in per_step)
-                               for k in ("ms", "plain_ms", "library_ms")}
-            agg["per_step"]["bound_ms"] = sum(
-                max(e["bytes_ms"], e["ops_ms"]) * e["step_count"] for e in per_step)
+        # K1 in the training step beside its per-frame unit, and B5b on a
+        # training step's samples beside its uniform ones
+        extra = {}
+        for unit, field in (("step", "per_training_step"),
+                            ("step_inputs", "on_training_step_inputs")):
+            sel = [e for e in entries if e.get("unit") == unit]
+            if not sel:
+                continue
+            extra[field] = {k: sum(e[k] * e["step_count"] for e in sel)
+                            for k in ("ms", "plain_ms", "library_ms")}
+            extra[field]["bound_ms"] = sum(
+                max(e["bytes_ms"], e["ops_ms"]) * e["step_count"] for e in sel)
+            if "split_ms" in sel[0]:
+                extra[field]["parts_ms"] = {
+                    k: sum(e["split_ms"][k] * e["step_count"] for e in sel)
+                    for k in sel[0]["split_ms"]}
         line.append({
             "name": name, "route": "cuda",
             "source": f"nmrf_tpu_torch/csrc/{name}.cu",
@@ -2236,14 +2561,17 @@ def kernels_line(kernel_results, counts):
             "launches": counts[name],
             "max_abs_err": max(e.get(k, 0.0) for e in entries for k in (
                 "max_abs_err_bfloat16", "max_abs_err_bfloat16_batch8")),
-            "max_abs_err_f32": max(e["max_abs_err_float32"] for e in entries),
+            "max_abs_err_f32": max(e.get("max_abs_err_float32", 0.0) for e in entries),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": sum(max(e["bytes_ms"], e["ops_ms"]) * e["count"]
                             for e in timed),
             "bound_by": "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations",
             "library_ms": agg["library_ms"],
             "unit": units[name],
-            **({"per_training_step": agg["per_step"]} if "per_step" in agg else {}),
+            **extra,
+            **({"parts_ms": {k: sum(e["split_ms"][k] * e["count"] for e in timed)
+                             for k in timed[0]["split_ms"]}}
+               if timed and "split_ms" in timed[0] else {}),
             "shapes": entries,
         })
     return {"kernels": line}
@@ -2264,9 +2592,10 @@ def main(argv=None):
                         help="phase 7's backend: gloo (ranks may share a "
                              "card) or nccl (a card per rank)")
     parser.add_argument("--compare-old", metavar="DIR",
-                        help="build the kernels and time K1 and B5 against "
-                             "DIR's window_attention.cu and msda_taps.cu "
-                             "(with DIR's headers), in turns")
+                        help="build the kernels and time K1, B5 and B5b "
+                             "against DIR's window_attention.cu, msda_taps.cu "
+                             "and msda_taps_bwd.cu, those it holds (with "
+                             "DIR's headers), in turns")
     parser.add_argument("--k1-stages", action="store_true",
                         help="build the kernels and time K1's tensor-core "
                              "kernel with each stage cut out in turn")
@@ -2388,6 +2717,7 @@ def main(argv=None):
     log("phase 5 swin training path: " + json.dumps(swin_train))
     swin_step_profile = profile_phase("swin train step", lambda: step(batch))
     log("phase 6 swin training-step breakdown: " + json.dumps(swin_step_profile))
+    kernel_results["msda_taps_bwd"] += msda_bwd_main_path_phase(step, batch)
     del step, batch
     torch.cuda.empty_cache()
 
@@ -2397,6 +2727,11 @@ def main(argv=None):
         + json.dumps([{k: r[k] for k in ("rank", "device", "serve", "train",
                                          "train_fused_pos")}
                       for r in sharded]))
+    t_swin = time.perf_counter()
+    swin_data = swin_data_phase()
+    log(f"phase 7 swin data-parallel path: {time.perf_counter() - t_swin:.1f} s; "
+        "both ranks report the same losses and msda_tap_oob: "
+        + json.dumps(swin_data[0]["losses"]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     counts = dict(serve["launches"])

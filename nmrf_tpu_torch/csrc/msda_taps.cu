@@ -33,7 +33,8 @@
 //     memory with coalesced loads, and each thread walks its head's P
 //     points, the D threads of a head reading D consecutive channels.
 // Both sum points and corners in one order (point, corner row, corner
-// column), with the same weights, in f32.
+// column), with the same weights, in f32.  The entry reports which one it
+// launched through ``variant``: 1 the vector kernel, 0 the scalar one.
 //
 // Bound on the H100 (bf16, one extractor of a swin KITTI request, batch 2,
 // query grid 96 x 312, M 8, P 4, D 8): bytes.  dx/dy/aw are 23.0 MB (f32),
@@ -186,14 +187,16 @@ int launch_vec(const void* v, const void* dx, const void* dy, const void* aw, vo
 
 template <typename T>
 int launch(const void* v, const void* dx, const void* dy, const void* aw, void* out,
-           MsdaParams p, cudaStream_t stream) {
+           MsdaParams p, cudaStream_t stream, int* variant) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dx) |
                          reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(aw) |
                          reinterpret_cast<uintptr_t>(out);
-  if (p.P % 4 == 0 && (addr & 15) == 0) {
+  if (p.P % 4 == 0 && (addr & 15) == 0 && (p.D == 8 || p.D == 16)) {
+    *variant = 1;
     if (p.D == 8) return launch_vec<T, 8>(v, dx, dy, aw, out, p, stream);
-    if (p.D == 16) return launch_vec<T, 16>(v, dx, dy, aw, out, p, stream);
+    return launch_vec<T, 16>(v, dx, dy, aw, out, p, stream);
   }
+  *variant = 0;
   const int kq = p.MD >= 256 ? 1 : 256 / p.MD;
   const size_t smem = 3 * static_cast<size_t>(kq) * p.MP * sizeof(float);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -209,7 +212,8 @@ int launch(const void* v, const void* dx, const void* dy, const void* aw, void* 
 
 extern "C" int nmrf_msda_taps(const void* v, const void* dx, const void* dy, const void* aw,
                               void* out, int dtype, int B, int Hl, int Wl, int Hq, int Wq,
-                              int M, int D, int P, int radius, void* stream) {
+                              int M, int D, int P, int radius, void* stream,
+                              int* variant) {
   using namespace nmrf;
   MsdaParams p;
   p.B = B; p.Hl = Hl; p.Wl = Wl; p.Hq = Hq; p.Wq = Wq;
@@ -218,7 +222,7 @@ extern "C" int nmrf_msda_taps(const void* v, const void* dx, const void* dy, con
   if (p.MD > 1024 || p.f < 1 || p.f * Hl != Hq || p.f * Wl != Wq)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch<float>(v, dx, dy, aw, out, p, s);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(v, dx, dy, aw, out, p, s);
+  if (dtype == kF32) return launch<float>(v, dx, dy, aw, out, p, s, variant);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(v, dx, dy, aw, out, p, s, variant);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -66,7 +66,9 @@
 // thread may then have hold it without spilling); 62,976 at Refinement.
 //
 // f32 (the phase 3 and 4 checks at 1e-4, which TF32 would not meet) and
-// bf16 at other shapes: the CUDA-core kernel, 8 warps, one block per group:
+// bf16 at other shapes (the entry reports which kernel it launched through
+// ``variant``: 1 the tensor-core kernel, 0 this one): the CUDA-core kernel,
+// 8 warps, one block per group:
 //   1. q, k, v rows of the group go to shared memory in the input's dtype;
 //   2. the head's qe|ke table columns are staged in shared memory, and the
 //      pixel-granular positional terms qr and kr computed once per block
@@ -623,7 +625,8 @@ int launch_mma(const void* qkv, const float* table, void* out, WindowParams p, i
 }
 
 template <typename T, int HD>
-int launch(const void* qkv, const float* table, void* out, WindowParams p, cudaStream_t stream) {
+int launch(const void* qkv, const float* table, void* out, WindowParams p, cudaStream_t stream,
+           int* variant) {
   const int P = p.wh * p.ww;
   const int Tw = P * p.N;
   const int trows = (2 * p.wh - 1) * (2 * p.ww - 1);
@@ -635,11 +638,13 @@ int launch(const void* qkv, const float* table, void* out, WindowParams p, cudaS
     size_t a, b, c, d, e;
     const size_t smem =
         mma_smem<HD>(p.wpb * Tw, P, mt, (trows + 15) / 16 * 16, &a, &b, &c, &d, &e);
-    if (nshift >= 0 && aligned && smem <= kMaxBlockSmem) {
+    if (nshift >= 0 && aligned && smem <= kMaxBlockSmem && (mt == 1 || mt == 9)) {
+      *variant = 1;
       if (mt == 1) return launch_mma<HD, 1>(qkv, table, out, p, nshift, smem, stream);
-      if (mt == 9) return launch_mma<HD, 9>(qkv, table, out, p, nshift, smem, stream);
+      return launch_mma<HD, 9>(qkv, table, out, p, nshift, smem, stream);
     }
   }
+  *variant = 0;
   const size_t smem = window_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows);
   cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -653,11 +658,11 @@ int launch(const void* qkv, const float* table, void* out, WindowParams p, cudaS
 
 template <typename T>
 int dispatch_hd(int hd, const void* qkv, const float* table, void* out, WindowParams p,
-                cudaStream_t s) {
+                cudaStream_t s, int* variant) {
   switch (hd) {
-    case 16: return launch<T, 16>(qkv, table, out, p, s);
-    case 32: return launch<T, 32>(qkv, table, out, p, s);
-    case 64: return launch<T, 64>(qkv, table, out, p, s);
+    case 16: return launch<T, 16>(qkv, table, out, p, s, variant);
+    case 32: return launch<T, 32>(qkv, table, out, p, s, variant);
+    case 64: return launch<T, 64>(qkv, table, out, p, s, variant);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -668,7 +673,7 @@ extern "C" int nmrf_window_attention(const void* qkv, const void* table, void* o
                                      int dtype, int B, int Hp, int Wp, int N, int C,
                                      int heads, int wh, int ww, int shift,
                                      int candidate_mask, int row0, int hp_total,
-                                     float scale, void* stream) {
+                                     float scale, void* stream, int* variant) {
   using namespace nmrf;
   WindowParams p;
   p.B = B; p.Hp = Hp; p.Wp = Wp; p.N = N; p.C = C; p.heads = heads;
@@ -681,7 +686,7 @@ extern "C" int nmrf_window_attention(const void* qkv, const void* table, void* o
   p.nwin = B * (Hp / wh) * (Wp / ww);
   const float* tbl = static_cast<const float*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch_hd<float>(C / heads, qkv, tbl, out, p, s);
-  if (dtype == kBF16) return dispatch_hd<__nv_bfloat16>(C / heads, qkv, tbl, out, p, s);
+  if (dtype == kF32) return dispatch_hd<float>(C / heads, qkv, tbl, out, p, s, variant);
+  if (dtype == kBF16) return dispatch_hd<__nv_bfloat16>(C / heads, qkv, tbl, out, p, s, variant);
   return static_cast<int>(cudaErrorInvalidValue);
 }

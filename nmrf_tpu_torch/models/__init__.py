@@ -96,7 +96,8 @@ def build_model(cfg, device=None, mesh=None):
     ``load_state_dict``.  ``BACKBONE.DROP_PATH`` (the swin backbone's
     stochastic depth) acts in training: its keep masks come from
     ``model.drop_path_masks``, a ``layers.DropPathMasks`` over a generator
-    on the model's device seeded from ``cfg.SEED``.
+    on the model's device seeded from ``cfg.SEED`` (on a mesh's data axis,
+    every rank's rows of one mask of the global batch).
 
     mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
     1 the model's decode region runs on H tiles of the features over the
@@ -152,7 +153,8 @@ def build_model(cfg, device=None, mesh=None):
     init_weights(model, cfg.SEED)
     model = model.to(device).eval()
     model.drop_path_masks = DropPathMasks(
-        torch.Generator(device=device).manual_seed(max(int(cfg.SEED), 0)))
+        torch.Generator(device=device).manual_seed(max(int(cfg.SEED), 0)),
+        *((mesh.data_index, mesh.data) if mesh is not None else ()))
     set_drop_path_masks(model, model.drop_path_masks)
     return model
 

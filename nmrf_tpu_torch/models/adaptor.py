@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msda import (ms_deform_attn, ms_deform_attn_taps,
-                        tap_out_of_range_fraction)
+                        tap_out_of_range_fractions)
 from .layers import (GELU, Conv2d, DropPath, LayerNorm, Linear,
                      instance_norm_2d, to_dtype)
 from .swin import SwinTransformer
@@ -47,8 +47,10 @@ class MSDeformAttn(nn.Module):
 
     With ``monitor_oob`` set (the train step's ``monitor_oob``), a forward
     on the tap path leaves in ``oob`` the share of its samples beyond the
-    tap radius (``tap_out_of_range_fraction``, a device scalar), as the JAX
-    package sows ``msda_tap_oob``; otherwise nothing is computed."""
+    tap radius per level (``tap_out_of_range_fractions``, a [L] device
+    tensor), whose largest the JAX package sows as ``msda_tap_oob``: kept
+    per level so that a data-parallel step can average each over the data
+    shards before the maximum; otherwise nothing is computed."""
 
     def __init__(self, d_model=256, n_levels=4, n_heads=8, n_points=4,
                  ratio=1.0, tap_radius=0, use_kernels=False, dtype=None):
@@ -103,7 +105,7 @@ class MSDeformAttn(nn.Module):
         if self.uses_taps(Lq, spatial_shapes, query_shape):
             if self.monitor_oob:
                 with torch.no_grad():
-                    self.oob = tap_out_of_range_fraction(
+                    self.oob = tap_out_of_range_fractions(
                         locations, spatial_shapes, tuple(query_shape),
                         self.tap_radius)
             out = ms_deform_attn_taps(value, spatial_shapes, locations, weights,

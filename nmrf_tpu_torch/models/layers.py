@@ -105,15 +105,36 @@ class DropPathMasks:
     ``torch.Generator`` (no global RNG), shared by every :class:`DropPath`
     of a model (``build_model`` seeds it from ``cfg.SEED`` on the model's
     device).  ``draw`` is the one place a mask comes from, so a test may
-    replace it to replay given masks."""
+    replace it (or ``draw_global``) to replay given masks.
 
-    def __init__(self, generator):
+    On a data axis of ``data_size`` ranks (``build_model(cfg, mesh=)``)
+    every rank seeds its generator alike and draws the mask of the global
+    batch, as the JAX package's one jit over the global batch draws it, and
+    keeps its own rows.  Every drop-path of the model lies in the backbone,
+    whose batch is the two images of each pair stacked
+    (``NMRF.extract_feature``: [img1; img2]), so the global batch is
+    [img1 of every rank; img2 of every rank] and a rank's rows are its own
+    slice of each half."""
+
+    def __init__(self, generator, data_index=0, data_size=1):
         self.generator = generator
+        self.data_index, self.data_size = data_index, data_size
 
-    def draw(self, batch, keep):
+    def draw_global(self, batch, keep):
         """[batch] bool, each True with probability ``keep``."""
         return torch.rand(batch, generator=self.generator,
                           device=self.generator.device) < keep
+
+    def draw(self, batch, keep):
+        """This rank's [batch] bool keep mask, each True with probability
+        ``keep``: rows of one global draw on a data axis."""
+        if self.data_size == 1:
+            return self.draw_global(batch, keep)
+        if batch % 2:
+            raise ValueError(f"batch {batch} is not the two images of pairs")
+        full = self.draw_global(batch * self.data_size, keep)
+        return full.reshape(2, self.data_size, batch // 2)[
+            :, self.data_index].reshape(batch)
 
 
 def set_drop_path_masks(module, masks):

@@ -30,10 +30,13 @@ KERNELS = ("window_attention", "stripe_attention", "window_attention_bwd",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argument types of each library's single entry point (pointers, dtype code,
-# shape ints, scale, stream)
+# shape ints, scale, stream; K1, B5 and B5b then the address of the int in
+# which they report the variant they launched, see ``Variant``)
 _SIGNATURES = {
-    "window_attention": ("nmrf_window_attention", [_P] * 3 + [_I] * 13 + [_F, _P]),
+    "window_attention": ("nmrf_window_attention",
+                         [_P] * 3 + [_I] * 13 + [_F, _P, _P]),
     "stripe_attention": ("nmrf_stripe_attention",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P]),
@@ -41,13 +44,14 @@ _SIGNATURES = {
                              [_P] * 9 + [_I] * 14 + [_F, _P]),
     "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
                              [_P] * 9 + [_I] * 9 + [_F, _P]),
-    "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P]),
+    "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P, _P]),
     "masked_attention": ("nmrf_masked_attention", [_P] * 5 + [_I] * 7 + [_F, _P]),
     "masked_attention_bwd": ("nmrf_masked_attention_bwd",
                              [_P] * 10 + [_I] * 7 + [_F, _P]),
     "window_attention_pos_bwd": ("nmrf_window_attention_pos_bwd",
                                  [_P] * 6 + [_I] * 14 + [_F, _P]),
-    "msda_taps_bwd": ("nmrf_msda_taps_bwd", [_P] * 9 + [_I] * 10 + [_P]),
+    "msda_taps_bwd": ("nmrf_msda_taps_bwd",
+                      [_P] * 10 + [_L] + [_I] * 10 + [_P, _P]),
 }
 # dtype codes of the kernels' ``dtype`` argument (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,3 +138,21 @@ def check_launch(kernel, err):
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+class Variant:
+    """The int an entry point that chooses among kernels writes the code of
+    the one it launched into.  Pass ``.address`` as its last argument, then
+    ``count(wrapper, names)`` adds one to ``wrapper.variants[names[code]]``
+    (raising if no known code was written)."""
+
+    def __init__(self):
+        self.value = ctypes.c_int(-1)
+        self.address = ctypes.addressof(self.value)
+
+    def count(self, wrapper, names):
+        name = names.get(self.value.value)
+        if name is None:
+            raise RuntimeError(f"{wrapper.__name__}: the kernel reported no "
+                               f"known variant ({self.value.value})")
+        wrapper.variants[name] = wrapper.variants.get(name, 0) + 1

@@ -9,7 +9,8 @@ Each function here has three parts:
   ``stripe_attention_bwd``), which checks its inputs and, for CUDA
   tensors, launches the hand-written kernel from
   ``nmrf_tpu_torch/csrc`` on the current stream, raising if the launch
-  fails.  It counts its launches in ``<wrapper>.launches``;
+  fails.  It counts its launches in ``<wrapper>.launches`` (K1's also
+  per kernel it launched, ``window_attention.variants``);
 * the plain PyTorch version (``*_plain``) of the same function.  The wrapper
   takes it only for tensors on the CPU; the tests and ``chip_smoke.py``
   hold the kernel against it.  The plain backward versions write the
@@ -41,6 +42,8 @@ from .msda import msda_taps, msda_taps_bwd
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
 _DTYPE_CODES = _native.DTYPE_CODES
 _KERNEL_HEAD_DIMS = (16, 32, 64)
+# K1's kernels by the code its entry reports (csrc/window_attention.cu)
+WINDOW_VARIANTS = {1: "mma", 0: "cuda_core"}
 # blocks of B7's main kernel over all heads: each writes one partial of the
 # table cotangent, so the count is a function of the shapes only (the sum
 # over partials then has one order on every card); two waves of one block
@@ -80,14 +83,25 @@ def _wrappers():
 def reset_launch_counts():
     """Set the launch count of every kernel wrapper of the port to 0 (K1,
     K2, K1b, K2b, B6, B6b and B7 here and B5 and B5b,
-    ``ops/msda.py:msda_taps`` and ``msda_taps_bwd``)."""
+    ``ops/msda.py:msda_taps`` and ``msda_taps_bwd``), and empty the
+    per-variant counts of K1, B5 and B5b."""
     for fn in _wrappers():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = {}
 
 
 def launch_counts():
     """{wrapper name: kernel launches since the last reset}."""
     return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
+def variant_counts():
+    """{wrapper name: {variant: launches}} of the wrappers whose entry
+    point chooses among kernels and reports the one it launched: K1
+    (``WINDOW_VARIANTS``), B5 and B5b (``ops/msda.py``)."""
+    return {fn.__name__: dict(fn.variants) for fn in _wrappers()
+            if hasattr(fn, "variants")}
 
 
 def _check_tensor(name, t, ndim):
@@ -343,14 +357,16 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
     wh, ww = window
     table = rel_table.detach().to(qkv.dtype).float().contiguous()
     out = torch.empty((B, Hp, Wp, N, C), dtype=qkv.dtype, device=qkv.device)
+    variant = _native.Variant()
     err = _native.library("window_attention")(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
         int(shift), int(bool(candidate_mask)), int(row0),
         Hp if hp_total is None else int(hp_total), (C // num_heads) ** -0.5,
-        _native.stream())
+        _native.stream(), variant.address)
     _native.check_launch("window_attention", err)
     window_attention.launches += 1
+    variant.count(window_attention, WINDOW_VARIANTS)
     return out
 
 
@@ -503,6 +519,7 @@ def window_attention_pos_bwd(g, qkv, rel_table, shift, window, num_heads,
 
 
 window_attention.launches = 0
+window_attention.variants = {}
 window_attention_bwd.launches = 0
 window_attention_pos_bwd.launches = 0
 

@@ -14,7 +14,8 @@ tap-MSDA kernel B5.
 * ``msda_taps`` is the wrapper of kernel B5 (``csrc/msda_taps.cu``, which
   replaces ``nmrf_tpu/ops/pallas/msda.py:_msda_tap_kernel``): for CUDA
   tensors it launches the kernel or raises, counting launches in
-  ``msda_taps.launches``; for CPU tensors it takes ``msda_taps_plain``, the
+  ``msda_taps.launches`` (and by kernel in ``msda_taps.variants``); for
+  CPU tensors it takes ``msda_taps_plain``, the
   port's copy of the JAX package's dense (2r+1)^2-tap hat sum
   (``_tap_level_reference``).  The kernel gathers the 4 corners of each
   sample instead, so holding one against the other checks one formulation
@@ -188,16 +189,35 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
     if out.numel() == 0:
         return out
     M = num_heads
+    variant = _native.Variant()
     err = _native.library("msda_taps")(
         value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
         out.data_ptr(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq,
-        Wq, M, MD // M, MP // M, int(radius), _native.stream())
+        Wq, M, MD // M, MP // M, int(radius), _native.stream(), variant.address)
     _native.check_launch("msda_taps", err)
     msda_taps.launches += 1
+    variant.count(msda_taps, MSDA_VARIANTS)
     return out
 
 
 msda_taps.launches = 0
+msda_taps.variants = {}
+# B5's and B5b's kernels by the code their entries report
+# (csrc/msda_taps.cu, csrc/msda_taps_bwd.cu: bit 0 the vector path, bit 1
+# B5b's tap masks)
+MSDA_VARIANTS = {1: "vector", 0: "scalar"}
+MSDA_BWD_VARIANTS = {3: "vector_masks", 2: "scalar_masks", 1: "vector_walk",
+                     0: "scalar_walk"}
+
+
+def msda_bwd_scratch_words(B, Hl, Wl, Hq, Wq, M):
+    """The int32 words of scratch B5b is given: the most its tap masks take
+    (``mask_words`` of ``csrc/msda_taps_bwd.cu``), 4 per (query, head) for
+    the query masks and, at a level factor above 1, 4 per (base cell,
+    head) for the cell masks, cells -1 .. Hl - 1 per axis.  The kernel
+    alone chooses between the masks and its walk, which takes none."""
+    cells = (Hl + 1) * (Wl + 1) if Hq > Hl else 0
+    return B * M * 4 * (Hq * Wq + cells)
 
 
 def msda_taps_bwd_plain(value_map, dx, dy, aw, g, num_heads, radius):
@@ -259,8 +279,10 @@ def msda_taps_bwd(value_map, dx, dy, aw, g, num_heads, radius):
     forward's rules: a corner more than ``radius`` level pixels from the
     base cell, or past the map, adds nothing to any of them.  For CUDA
     tensors it launches the kernel or raises, counting launches in
-    ``msda_taps_bwd.launches``; for CPU tensors it takes
-    :func:`msda_taps_bwd_plain`.
+    ``msda_taps_bwd.launches`` and by the variant its entry reports in
+    ``msda_taps_bwd.variants`` (``MSDA_BWD_VARIANTS``: the vector or scalar
+    path, the tap masks up to r 5 and f 8, else the walk); for
+    CPU tensors it takes :func:`msda_taps_bwd_plain`.
     """
     B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
     if not isinstance(g, torch.Tensor) or g.shape != (B, Hq, Wq, MD):
@@ -281,17 +303,24 @@ def msda_taps_bwd(value_map, dx, dy, aw, g, num_heads, radius):
     if dx.numel() == 0:
         return dvalue.zero_(), ddx, ddy, daw
     M = num_heads
+    scratch = torch.empty(
+        msda_bwd_scratch_words(B, Hl, Wl, Hq, Wq, M),
+        dtype=torch.int32, device=dev)
+    variant = _native.Variant()
     err = _native.library("msda_taps_bwd")(
         value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
         g.data_ptr(), dvalue.data_ptr(), ddx.data_ptr(), ddy.data_ptr(),
-        daw.data_ptr(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq,
-        Wq, M, MD // M, MP // M, int(radius), _native.stream())
+        daw.data_ptr(), scratch.data_ptr(), 4 * scratch.numel(),
+        _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq, Wq, M, MD // M,
+        MP // M, int(radius), _native.stream(), variant.address)
     _native.check_launch("msda_taps_bwd", err)
     msda_taps_bwd.launches += 1
+    variant.count(msda_taps_bwd, MSDA_BWD_VARIANTS)
     return dvalue, ddx, ddy, daw
 
 
 msda_taps_bwd.launches = 0
+msda_taps_bwd.variants = {}
 
 
 class TapLevel(torch.autograd.Function):
@@ -351,12 +380,13 @@ def ms_deform_attn_taps(value, spatial_shapes, sampling_locations,
     return out.reshape(B, Lq, M * D).to(value.dtype)
 
 
-def tap_out_of_range_fraction(sampling_locations, spatial_shapes, query_shape,
-                              radius):
-    """Share of the sampling points whose displacement from their query's
-    base cell exceeds ``radius`` along either axis, i.e. whose contribution
-    the tap path drops (the largest share over the levels).  0.0 means the
-    tap path is exact for these inputs."""
+def tap_out_of_range_fractions(sampling_locations, spatial_shapes,
+                               query_shape, radius):
+    """Per level, the share of the sampling points whose displacement from
+    their query's base cell exceeds ``radius`` along either axis, i.e.
+    whose contribution the tap path drops: a [L] float32 tensor, each a
+    mean over the batch, so that equal data shards' values average to the
+    whole batch's."""
     fracs = []
     for lid, (Hl, Wl) in enumerate(spatial_shapes):
         loc = sampling_locations[:, :, :, lid]
@@ -364,4 +394,12 @@ def tap_out_of_range_fraction(sampling_locations, spatial_shapes, query_shape,
                                      (Hl, Wl), query_shape)
         oob = (dx.abs() > radius) | (dy.abs() > radius)
         fracs.append(oob.float().mean())
-    return torch.stack(fracs).max()
+    return torch.stack(fracs)
+
+
+def tap_out_of_range_fraction(sampling_locations, spatial_shapes, query_shape,
+                              radius):
+    """The largest of :func:`tap_out_of_range_fractions` over the levels.
+    0.0 means the tap path is exact for these inputs."""
+    return tap_out_of_range_fractions(sampling_locations, spatial_shapes,
+                                      query_shape, radius).max()

@@ -40,13 +40,16 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
     ``msda_tap_oob``, the largest share of samples beyond the tap radius
     over the neck's extractors, as its maximum over the interval since the
     last ``step.read_oob()``: a device scalar, with no host sync per step,
-    so a spike between two readbacks is not lost.  ``step.read_oob(guard=
+    so a spike between two readbacks is not lost.  With a data axis each
+    extractor's share is the global batch's (its shards' mean, one
+    all-reduce), so every rank holds the same value.  ``step.read_oob(guard=
     None)`` reads it back (one sync), starts a new interval and returns the
     float (None when no step reported one).  Given a
     ``utils.guards.TapOOBGuard`` it passes the value to ``guard.check``;
     when that requests the fallback, every ``MSDeformAttn`` of the model is
     switched in place to the exact gather path (tap radius 0) and the
-    monitoring stops.  In place, because the optimizer holds the parameter
+    monitoring stops: on every rank of a mesh at once, since all read the
+    same value.  In place, because the optimizer holds the parameter
     objects and their state: the step goes on with both as they are.
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -79,7 +82,16 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
         micro += 1
         result = {k: v.detach().float() for k, v in losses.items()}
         if fracs:
-            frac = torch.stack(fracs).max()
+            frac = torch.cat(fracs)
+            if mesh is not None and mesh.data > 1:
+                # each rank's shares are means over its own images: their
+                # mean over the world is that over the global batch (the
+                # ranks of a spatial group hold one data shard's backbone
+                # alike), taken before the maximum over layers and levels
+                # as the JAX global step takes it; one all-reduce on the
+                # device, no host sync
+                frac = mesh.world.all_reduce(frac) / mesh.world.size
+            frac = frac.max()
             if oob["max"] is not None:
                 frac = torch.maximum(frac, oob["max"])
             oob["max"] = result["msda_tap_oob"] = frac

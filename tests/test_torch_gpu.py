@@ -29,9 +29,12 @@ training and tile windows at batch 1 and 8, and the CUDA-core kernel at
 shapes outside its set; B5's vector kernel at the four extractor shapes
 and its scalar kernel off them.  The tap-MSDA backward B5b is held
 against its plain version at the swin training step's four extractor
-shapes and off them (backward tolerances), against itself (same bits), and
-through the autograd function against the plain versions' gradients.
-Which kernel ran is read from torch.profiler's device events.
+shapes and off them (backward tolerances), with its tap masks and, past
+r 5, walking every cell, against itself (same bits), and through the
+autograd function against the plain versions' gradients.  Which kernel ran
+(K1's tensor-core or CUDA-core kernel, B5's and B5b's vector or scalar
+path, B5b's masks or walk) is read from the count each wrapper keeps of
+the variant its C entry reports launching.
 """
 
 from pathlib import Path
@@ -593,26 +596,14 @@ def test_window_attention_grads_through_b7(cuda, monkeypatch, setting):
 
 # ---- K1's tensor-core kernel and B5's vector kernel ---- #
 
-def _device_kernels(fn):
-    """fn()'s result, the names of the device kernels it ran (torch.profiler's
-    CUDA events) and the number of calls made.  The profiler now and then
-    returns no device event at all for a short call; fn() is then profiled
-    again, at most twice more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for calls in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
-        if names:
-            break
-    return out, names, calls
-
-
-def _ran(names, kernel):
-    return any(kernel in name for name in names)
+def _ran(wrapper, fn):
+    """fn()'s result and the kernels it launched through ``wrapper``:
+    {variant: launches}, from the count the wrapper keeps of the variant
+    its C entry reports (``wrapper.variants``)."""
+    before = dict(wrapper.variants)
+    out = fn()
+    return out, {k: n - before.get(k, 0) for k, n in wrapper.variants.items()
+                 if n != before.get(k, 0)}
 
 
 # (Hp, Wp, N, ws, shift, candidate_mask, row0, hp_total): the KITTI serving
@@ -646,11 +637,10 @@ def test_window_mma_kernel_matches_plain(cuda, case, batch):
     args = (qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
     before = A.window_attention.launches
     with torch.inference_mode():
-        got, names, calls = _device_kernels(lambda: A.window_attention(*args))
+        got, ran = _ran(A.window_attention, lambda: A.window_attention(*args))
         want = A.window_attention_plain(*args)
-    assert A.window_attention.launches == before + calls
-    assert _ran(names, "window_attention_mma_kernel"), names
-    assert not _ran(names, "window_attention_kernel"), names
+    assert A.window_attention.launches == before + 1
+    assert ran == {"mma": 1}, ran
     atol, rtol = _GPU_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -670,11 +660,10 @@ def test_window_kernel_outside_the_mma_set(cuda, dtype, case):
     table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
     args = (qkv, table, shift, (ws, ws), 4, cand)
     with torch.inference_mode():
-        got, names, _ = _device_kernels(lambda: A.window_attention(*args))
+        got, ran = _ran(A.window_attention, lambda: A.window_attention(*args))
         want = A.window_attention_plain(*args)
     mma = dtype == torch.bfloat16 and ws * ws * N == 144
-    assert _ran(names, "window_attention_mma_kernel") == mma, names
-    assert _ran(names, "window_attention_kernel") != mma, names
+    assert ran == {"mma" if mma else "cuda_core": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -696,10 +685,10 @@ def test_msda_vector_kernel_at_the_extractor_shapes(cuda, dtype, f):
     assert bool(((dx.abs() > 5) | (dy.abs() > 5)).any())
     before = msda.msda_taps.launches
     with torch.inference_mode():
-        got, names, calls = _device_kernels(lambda: msda.msda_taps(vmap, dx, dy, aw, 8, 5))
+        got, ran = _ran(msda.msda_taps, lambda: msda.msda_taps(vmap, dx, dy, aw, 8, 5))
         want = msda.msda_taps_plain(vmap, dx, dy, aw, 8, 5)
-    assert msda.msda_taps.launches == before + calls
-    assert _ran(names, "msda_taps_vec_kernel") and not _ran(names, "msda_taps_kernel"), names
+    assert msda.msda_taps.launches == before + 1
+    assert ran == {"vector": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -719,9 +708,9 @@ def test_msda_scalar_kernel_off_the_vector_shapes(cuda, dtype, shape):
               for _ in range(2))
     aw = torch.rand(2, Hq, Wq, M * P, generator=g, device=cuda)
     with torch.inference_mode():
-        got, names, _ = _device_kernels(lambda: msda.msda_taps(vmap, dx, dy, aw, M, 4))
+        got, ran = _ran(msda.msda_taps, lambda: msda.msda_taps(vmap, dx, dy, aw, M, 4))
         want = msda.msda_taps_plain(vmap, dx, dy, aw, M, 4)
-    assert _ran(names, "msda_taps_kernel") and not _ran(names, "msda_taps_vec_kernel"), names
+    assert ran == {"scalar": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -753,22 +742,48 @@ def _check_msda_bwd(got, want, dtype):
 def test_msda_bwd_kernel_at_the_training_shapes(cuda, dtype, f, spread):
     """B5b at the swin training step's four extractors (batch 16: the left
     and right images of 8 pairs; query grid 96 x 192, M 8, P 4, D 8, r 5)
-    runs its two vector-path kernels, counts one launch a call, matches its
-    plain version at the backward tolerances, with samples up to ``spread``
-    level pixels away (beyond the radius and past the borders in the second
-    case), and gives the same bits on a second launch."""
+    runs its vector path with the tap masks (sample, cell-mask at f > 1 and
+    gather kernels), counts one launch a call, matches its plain version at
+    the backward tolerances, with samples up to ``spread`` level pixels
+    away (beyond the radius and past the borders in the second case), and
+    gives the same bits on a second launch."""
     args = _msda_bwd_case(cuda, 30 + f, 16, 96, 192, f, 8, 4, 8, spread, dtype)
     before = msda.msda_taps_bwd.launches
-    names, calls = set(), 0
-    for _ in range(3):  # the profiler now and then drops a kernel's event
-        got, seen, n = _device_kernels(lambda: msda.msda_taps_bwd(*args, 8, 5))
-        names, calls = names | seen, calls + n
-        if _ran(names, "msda_bwd_sample_kernel") and _ran(names, "msda_bwd_value_kernel"):
-            break
-    assert msda.msda_taps_bwd.launches == before + calls
-    assert _ran(names, "msda_bwd_sample_kernel") and _ran(names, "msda_bwd_value_kernel")
+    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 5))
+    assert msda.msda_taps_bwd.launches == before + 1
+    assert ran == {"vector_masks": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 5), dtype)
     for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 5)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2])
+@pytest.mark.parametrize("seed", [61, 62, 63, 64, 65])
+def test_msda_bwd_kernel_more_seeds_near_the_borders(cuda, f, seed):
+    """B5b's gather at f 1 and 2 (f32, the training shapes, samples beyond
+    r and past the borders) on more seeds: at f 1 an earlier walk over each
+    tap row's columns kept a cell off the map at pixels within r of the
+    left border on the card alone (``nmrf_tpu_torch/tools/walk_probe.py``);
+    each seed puts a different set of bits on that edge."""
+    args = _msda_bwd_case(cuda, seed, 16, 96, 192, f, 8, 4, 8, 8.0, torch.float32)
+    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 5))
+    assert ran == {"vector_masks": 1}, ran
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 5), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 8])
+def test_msda_bwd_kernel_past_the_mask_radius(cuda, dtype, f):
+    """B5b at r 6, whose 169 taps exceed the masks' 128 bits, walks every
+    base cell (the vector path's walk kernel) at the training shapes, and
+    matches its plain version and itself."""
+    args = _msda_bwd_case(cuda, 50 + f, 16, 96, 192, f, 8, 4, 8, 8.0, dtype)
+    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 6))
+    assert ran == {"vector_walk": 1}, ran
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 6), dtype)
+    for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 6)):
         assert torch.equal(a, b)
 
 
@@ -776,13 +791,16 @@ def test_msda_bwd_kernel_at_the_training_shapes(cuda, dtype, f, spread):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 4, 6), (8, 3, 8), (2, 5, 16)],
                          ids=["D6", "P3", "D16"])
-def test_msda_bwd_kernel_off_the_training_shapes(cuda, dtype, shape):
-    """B5b on its scalar path (D 6; P 3) and at D 16, level factor 3, on
-    ragged grids, with samples beyond r and past the borders."""
+@pytest.mark.parametrize("r", [4, 6])
+def test_msda_bwd_kernel_off_the_training_shapes(cuda, dtype, shape, r):
+    """B5b on its scalar path (D 6; P 3; D 16 with P 5) at level factor 3
+    (9 queries a cell over 8 lanes), on ragged grids, with samples beyond
+    r and past the borders; with the masks at r 4 and walking at r 6."""
     M, P, D = shape
     args = _msda_bwd_case(cuda, 40, 2, 27, 33, 3, M, P, D, 7.0, dtype)
-    got = msda.msda_taps_bwd(*args, M, 4)
-    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, M, 4), dtype)
+    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, M, r))
+    assert ran == {"scalar_masks" if r <= 5 else "scalar_walk": 1}, ran
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, M, r), dtype)
 
 
 @pytest.mark.gpu

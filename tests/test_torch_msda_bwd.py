@@ -11,10 +11,16 @@
   (``tests/test_torch_msda.py``'s), and ``ms_deform_attn_taps``'s gradients
   against the JAX one's at atol 1e-4 (the locations' gradients carry the
   level width, up to 16, as a factor);
-* a model of ``csrc/msda_taps_bwd.cu`` in PyTorch, its corner walk per
-  sample and its base-cell walk per level pixel, against the plain version
-  on ragged shapes, with a share of the displacements on whole pixels (the
-  kinks, where both take 0): atol 1e-5.
+* a model of ``csrc/msda_taps_bwd.cu`` in PyTorch against the plain
+  version on ragged shapes, with a share of the displacements on whole
+  pixels (the kinks, where both take 0), atol 1e-5: the sample kernel's
+  corner walk per sample and its tap masks; up to r 5 the cell masks (the
+  OR of each base cell's query masks), the gather kernel's kept cells in
+  tap order, its lanes splitting each cell's queries (j mod L) with a
+  query's own mask bit tested at f > 1, and the xor butterfly over the
+  lanes; past r 5 the walk over every base cell within r.  With the swin
+  neck's samples (each head's points along one direction), the masks keep
+  only part of the cells and of their queries.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nmrf_tpu.ops import msda as msda_jax
 from nmrf_tpu_torch.ops import attention as A
@@ -203,10 +210,10 @@ def _sample_model(v, dx, dy, aw, g, M, r):
     return [o.reshape(dx.shape) for o in (out[2], out[1], out[0])]
 
 
-def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
-    """The value kernel: each level pixel walks the base cells within r of
-    it, each cell's query range per axis from first_query, and takes the
-    samples with a corner on the pixel."""
+def _walk_model(dx, dy, aw, g, Hl, Wl, M, r):
+    """The walk kernel (r > 5): each level pixel walks the base cells
+    within r of it, each cell's query range per axis from first_query, and
+    takes the samples with a corner on the pixel."""
     B, Hq, Wq, MP = dx.shape
     MD = g.shape[-1]
     P, D, f = MP // M, MD // M, Hq // Hl
@@ -229,17 +236,143 @@ def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
                     if not valid.any():
                         continue
                     qy, qx = qy.clamp(max=Hq - 1), qx.clamp(max=Wq - 1)
-                    sdx, sdy, saw = (t[:, qy, qx] for t in (dx5, dy5, aw5))
-                    ok = (sdx.abs() <= r + 1) & (sdy.abs() <= r + 1)
-                    y0 = torch.where(ok, sdy, 0.0).floor()
-                    x0 = torch.where(ok, sdx, 0.0).floor()
-                    hit = ok & valid[None, :, :, None, None] \
-                        & ((y0 == ty) | (y0 + 1 == ty)) & ((x0 == tx) | (x0 + 1 == tx))
-                    hy = (1 - (sdy - ty).abs()).clamp_min(0)
-                    hx = (1 - (sdx - tx).abs()).clamp_min(0)
-                    w = torch.where(hit, saw * hy * hx, 0.0)  # [B, Hl, Wl, M, P]
+                    w = _pixel_weight(dx5, dy5, aw5, qy, qx, ty, tx, r)
+                    w = torch.where(valid[None, :, :, None, None], w, 0.0)
                     acc += w.sum(-1, keepdim=True) * g5[:, qy, qx]
     return acc.reshape(B, Hl, Wl, MD)
+
+
+def _pixel_weight(dx5, dy5, aw5, qy, qx, ty, tx, r):
+    """Per (image, pixel, head, point): the weight of query (qy, qx)'s
+    sample on the pixel at tap (ty, tx) of its base cell (0 unless a corner
+    of the sample is there), [B, Hl, Wl, M, P]."""
+    sdx, sdy, saw = (t[:, qy, qx] for t in (dx5, dy5, aw5))
+    ok = (sdx.abs() <= r + 1) & (sdy.abs() <= r + 1)
+    y0 = torch.where(ok, sdy, 0.0).floor()
+    x0 = torch.where(ok, sdx, 0.0).floor()
+    hit = ok & ((y0 == ty) | (y0 + 1 == ty)) & ((x0 == tx) | (x0 + 1 == tx))
+    hy = (1 - (sdy - ty).abs()).clamp_min(0)
+    hx = (1 - (sdx - tx).abs()).clamp_min(0)
+    return torch.where(hit, saw * hy * hx, 0.0)
+
+
+def _tap_masks(dx, dy, Hl, Wl, M, r):
+    """The sample kernel's masks: [B, Hq, Wq, M, (2r+1)^2] bool, tap
+    (ty + r)(2r + 1) + tx + r set for each kept corner of the (query,
+    head)'s samples (within r + 1, |ty|, |tx| <= r, on the map)."""
+    B, Hq, Wq, MP = dx.shape
+    P, f, S = MP // M, Hq // Hl, 2 * r + 1
+    dx5, dy5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy))
+    by = _base(torch.arange(Hq), f)[None, :, None, None, None]
+    bx = _base(torch.arange(Wq), f)[None, None, :, None, None]
+    ok = (dx5.abs() <= r + 1) & (dy5.abs() <= r + 1)
+    y0 = torch.where(ok, dy5, 0.0).floor().long()
+    x0 = torch.where(ok, dx5, 0.0).floor().long()
+    masks = torch.zeros(B, Hq, Wq, M, S * S, dtype=torch.bool)
+    for i in range(2):
+        for j in range(2):
+            ty, tx = y0 + i, x0 + j
+            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (by + ty >= 0) \
+                & (by + ty < Hl) & (bx + tx >= 0) & (bx + tx < Wl)
+            t = torch.where(keep, (ty + r) * S + tx + r, 0)
+            hot = F.one_hot(t, S * S).bool() & keep[..., None]  # [.., P, taps]
+            masks |= hot.any(-2)
+    return masks
+
+
+def _cell_masks(qmask, Hl, Wl):
+    """The cell-mask kernel: per base cell (-o .. Hl - 1 per axis, o = 1
+    at f > 1) the OR of its queries' masks, [B, Hl + o, Wl + o, M, taps];
+    at f 1 the query masks themselves."""
+    B, Hq, Wq = qmask.shape[:3]
+    f = Hq // Hl
+    if f == 1:
+        return qmask, 0
+    cells = torch.zeros(B, Hl + 1, Wl + 1, *qmask.shape[3:], dtype=torch.bool)
+    for cy in range(Hl + 1):
+        y0, y1 = (int(_first_query(torch.tensor(c), f, Hq)) for c in (cy - 1, cy))
+        for cx in range(Wl + 1):
+            x0, x1 = (int(_first_query(torch.tensor(c), f, Wq)) for c in (cx - 1, cx))
+            cells[:, cy, cx] = qmask[:, y0:y1, x0:x1].flatten(1, 2).any(1)
+    return cells, 1
+
+
+def _gather_lanes(f):
+    """The gather kernel's lanes per job: the largest power of two up to
+    f^2 and 32."""
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= f * f:
+        lanes *= 2
+    return lanes
+
+
+def _gather_model(dx, dy, aw, g, Hl, Wl, M, r):
+    """The gather kernel (r <= 5, f <= 8): per (level pixel, head) the taps
+    whose base cell's mask holds the pixel; L lanes split each kept cell's
+    queries (slot j of the cell's f x f block, row j // f and column j % f,
+    goes to lane j mod L, at most 2 a lane; a border cell's block holds
+    fewer), at f > 1 each query's own mask bit is tested, a
+    lane sums its hits slot by slot in tap order, and the lanes' sums meet
+    in the xor butterfly.  Also returns the share of (pixel, head, tap)
+    cells kept and of candidate queries loaded."""
+    B, Hq, Wq, MP = dx.shape
+    MD = g.shape[-1]
+    P, D, f, S = MP // M, MD // M, Hq // Hl, 2 * r + 1
+    qmask = _tap_masks(dx, dy, Hl, Wl, M, r)
+    cmask, o = _cell_masks(qmask, Hl, Wl)
+    dx5, dy5, aw5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy, aw))
+    g5 = g.reshape(B, Hq, Wq, M, D)
+    L = _gather_lanes(f)
+    py = torch.arange(Hl)[:, None].expand(Hl, Wl)
+    px = torch.arange(Wl)[None, :].expand(Hl, Wl)
+    acc = torch.zeros(L, B, Hl, Wl, M, D)
+    bi = torch.arange(B)[:, None, None, None]
+    mi = torch.arange(M)[None, None, None, :]
+    kept_cells = loaded = candidates = 0
+    slots = -(-f * f // L)
+    assert slots <= 2  # the kernel's query slots a lane
+    for k in range(slots):  # a lane's hits by slot, then in tap order
+        for t in range(S * S):
+            ty, tx = t // S - r, t % S - r
+            by, bx = py - ty, px - tx
+            inside = (by + o >= 0) & (by < Hl) & (bx + o >= 0) & (bx < Wl)
+            cy, cx = (by + o).clamp(0, Hl + o - 1), (bx + o).clamp(0, Wl + o - 1)
+            kept = inside[None, :, :, None] & cmask[bi, cy[..., None], cx[..., None], mi, t]
+            kept_cells += int(kept.sum()) if k == 0 else 0
+            qy0, qx0 = _first_query(by, f, Hq), _first_query(bx, f, Wq)
+            qy1, qx1 = _first_query(by + 1, f, Hq), _first_query(bx + 1, f, Wq)
+            for lane in range(L):
+                j = lane + k * L  # slot j: row j // f, column j % f of the block
+                if j >= f * f:
+                    continue
+                qy, qx = qy0 + j // f, qx0 + j % f
+                valid = (qy < qy1) & (qx < qx1)
+                if not valid.any():
+                    continue
+                qy, qx = qy.clamp(max=Hq - 1), qx.clamp(max=Wq - 1)
+                use = kept & valid[None, :, :, None]
+                candidates += int(use.sum())
+                if f > 1:
+                    use &= qmask[bi, qy[..., None], qx[..., None], mi, t]
+                loaded += int(use.sum())
+                w = _pixel_weight(dx5, dy5, aw5, qy, qx, ty, tx, r)
+                w = torch.where(use[..., None], w, 0.0)
+                acc[lane] += w.sum(-1, keepdim=True) * g5[:, qy, qx]
+    o_ = 1
+    while o_ < L:  # lane l adds lane l ^ o_, for every lane at once
+        acc = acc + acc[torch.arange(L) ^ o_]
+        o_ <<= 1
+    share = (kept_cells / (B * Hl * Wl * M * S * S),
+             loaded / max(candidates, 1))
+    return acc[0].reshape(B, Hl, Wl, MD), share
+
+
+def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
+    """The value path of ``csrc/msda_taps_bwd.cu``: the tap masks and the
+    gather kernel up to r 5 and f 8, the walk kernel past them."""
+    if r <= 5 and dx.shape[1] // Hl <= 8:  # kMaskRadius, kSlotsPerLane lanes
+        return _gather_model(dx, dy, aw, g, Hl, Wl, M, r)[0]
+    return _walk_model(dx, dy, aw, g, Hl, Wl, M, r)
 
 
 @pytest.mark.parametrize("f,r,shape", [
@@ -247,6 +380,7 @@ def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
     (2, 5, (10, 14, 2, 4, 2)),
     (3, 2, (9, 12, 1, 3, 5)),
     (8, 5, (16, 24, 2, 8, 4)),  # the swin neck's D 8, P 4 at its coarsest level
+    (2, 6, (10, 14, 2, 4, 2)),  # past the masks' 128 taps: the walk
 ])
 def test_kernel_walk_model_matches_plain(f, r, shape):
     Hq, Wq, M, D, P = shape
@@ -260,3 +394,28 @@ def test_kernel_walk_model_matches_plain(f, r, shape):
         torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"{name}: {m}")
     # every term of d v was found: the walk covers each kept corner once
     assert want[0].abs().sum() > 0
+
+
+@pytest.mark.parametrize("f", [1, 8])
+def test_gather_model_skips_cells_and_queries_off_the_samples(f):
+    """With displacements as the swin neck draws them (each head's P points
+    within a pixel of one direction, up to 4 level pixels out), the cell
+    masks keep a small share of the (pixel, head, tap) cells, and at f 8
+    the query bits skip part of a kept cell's queries; d v still equals
+    the plain version's."""
+    r, M, P, D, Hq, Wq = 5, 8, 4, 8, 16, 24
+    rng = np.random.RandomState(11 + f)
+    angle = np.arange(M) * 2 * np.pi / M
+    step = np.arange(1, P + 1)[None, :]
+    base = np.stack([np.cos(angle)[:, None] * step, np.sin(angle)[:, None] * step])
+    jitter = rng.uniform(-0.45, 0.45, (2, 2, Hq, Wq, M, P))
+    dx, dy = (_off_kinks(base[k][None, None, None] + jitter[k]).reshape(2, Hq, Wq, M * P)
+              for k in range(2))
+    vmap, _, _, aw, g = _case(rng, f, r, Hq=Hq, Wq=Wq, M=M, D=D, P=P)
+    v, dx, dy, aw, g = (_t(x) for x in (vmap, dx, dy, aw, g))
+    got, (kept, loaded) = _gather_model(dx, dy, aw, g, Hq // f, Wq // f, M, r)
+    want = msda.msda_taps_bwd_plain(v, dx, dy, aw, g, M, r)[0]
+    torch.testing.assert_close(got, want, **TOL)
+    assert kept < (0.2 if f == 1 else 0.5), kept
+    if f > 1:
+        assert loaded < 0.9, loaded

@@ -1,8 +1,11 @@
-"""Process bodies of ``tests/test_torch_spatial.py``: each runs in a process
-of its own with torch.distributed initialised by
+"""Process bodies of ``tests/test_torch_spatial.py``,
+``tests/test_torch_spatial_fused.py`` and ``tests/test_torch_swin_mesh.py``:
+each runs in a process of its own with torch.distributed initialised by
 ``nmrf_tpu_torch.parallel.spawn`` (gloo, on the CPU), imports PyTorch and
 the port only, and saves what it computed to a directory the test reads.
 This module holds no tests."""
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -140,3 +143,98 @@ def fused_step_worker(rank, in_dir, out_dir):
     torch.save({"losses": {k: float(v.detach()) for k, v in losses.items()},
                 "grads": {k: p.grad for k, p in model.named_parameters()},
                 "calls": calls}, f"{out_dir}/fused_{rank}.pt")
+
+
+def swin_small_cfg(cfg):
+    """The swin test config of ``tests/test_torch_swin_train.py:swin_cfg``
+    on a config tree of either package (that function's module imports
+    JAX): ``configs/sceneflow_swint.yaml``, 2 layers per NMP stage, the tap
+    path with radius 5 through the kernels' functions."""
+    root = Path(__file__).resolve().parent.parent
+    cfg.merge_from_file(str(root / "configs" / "sceneflow_swint.yaml"))
+    cfg.NMP.NUM_PROP_LAYERS = 2
+    cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    cfg.SOLVER.LOSS_WEIGHTS = [1.0, 1.2, 1.4, 2.0]
+    cfg.TPU.USE_PALLAS = True
+    cfg.TPU.MSDA_TAP_RADIUS = 5
+    return cfg
+
+
+def swin_mesh_worker(rank, in_dir, out_dir):
+    """The swin model on a data x 1 grid (the test's weights, its global
+    batch and its global drop-path masks, replayed into each rank's
+    ``DropPathMasks.draw_global``) through ``make_train_step(..., mesh=,
+    monitor_oob=True)`` at lr 0 and no clip:
+
+    * ``masks``: this rank's rows of 3 draws of the model's own seeded
+      ``DropPathMasks`` (a backbone batch of 8: 4 pairs, keep 0.5), taken
+      before any replay;
+    * ``step``: the step's losses, the world-summed gradients it hands the
+      optimizer, and this rank's final proposal logits;
+    * ``pushed``: a second step in which this rank's samples (on rank 1
+      only) are moved 8 level pixels right, beyond the tap radius: its
+      ``msda_tap_oob``, each extractor's local shares of that step, and
+      what ``read_oob`` with a fallback guard did (its value, whether the
+      guard fired, the extractors' tap radii after)."""
+    from nmrf_tpu_torch import build_optimizer, make_train_step
+    from nmrf_tpu_torch.models.adaptor import MSDeformAttn
+    from nmrf_tpu_torch.utils.guards import TapOOBGuard
+
+    torch.set_num_threads(2)
+    world = torch.distributed.get_world_size()
+    cfg = swin_small_cfg(get_cfg())
+    cfg.SOLVER.BASE_LR = 0.0
+    mesh = make_mesh(world, 1, device="cpu")
+    model = build_model(cfg, mesh=mesh)
+    result = {"masks": [model.drop_path_masks.draw(8, 0.5) for _ in range(3)]}
+    model.load_state_dict(torch.load(f"{in_dir}/weights.pt"), strict=True)
+    batch = {k: torch.from_numpy(v) for k, v in np.load(f"{in_dir}/batch.npz").items()}
+    replayed = torch.load(f"{in_dir}/masks.pt")
+    calls = []
+
+    def draw_global(n, keep):
+        want_keep, mask = replayed[len(calls)]
+        assert n == mask.numel() and abs(keep - want_keep) < 1e-9, (n, keep)
+        calls.append(n)
+        return mask
+
+    model.drop_path_masks.draw_global = draw_global
+    optimizer, scheduler = build_optimizer(model, cfg)
+    grads = {}
+
+    def update(*args, **kw):
+        grads.update({k: p.grad.clone() for k, p in model.named_parameters()})
+
+    optimizer.step = update
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           grad_clip=float("inf"), mesh=mesh, monitor_oob=True)
+    logits = []
+    hook = model.infer_score_head.register_forward_hook(
+        lambda _m, _i, out: logits.append(out[-1].detach()))
+    losses = step(shard_batch(batch, mesh))
+    hook.remove()
+    result["draws"] = len(calls)
+    result["step"] = {"losses": {k: float(v) for k, v in losses.items()},
+                      "grads": dict(grads), "logits": logits[-1]}
+
+    attns = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
+    if rank == 1:
+        for m in attns:
+            sampling = m.sampling
+
+            def pushed(query, ref, shapes, sampling=sampling):
+                loc, w = sampling(query, ref, shapes)
+                width = torch.tensor([float(w_) for _, w_ in shapes])
+                shift = torch.zeros_like(loc)
+                shift[..., 0] = (8.0 / width)[:, None]
+                return loc + shift, w
+
+            m.sampling = pushed
+    calls.clear()
+    oob = float(step(shard_batch(batch, mesh))["msda_tap_oob"])
+    guard = TapOOBGuard(thresh=1e-3, fallback=True)
+    result["pushed"] = {"oob": oob, "local": [m.oob.clone() for m in attns],
+                        "read": step.read_oob(guard), "fired": guard.fired,
+                        "radii": [m.tap_radius for m in attns]}
+    torch.save(result, f"{out_dir}/swin_mesh_{rank}.pt")
