@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sharded-only --grid 2 2 --backend nccl  # 4 cards
     python3 chip_smoke.py --compare-old DIR  # K1/B5/B5b vs DIR's sources
     python3 chip_smoke.py --k1-stages        # K1's time by stage
+    python3 chip_smoke.py --entry-only       # phase 8 alone
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -84,6 +85,19 @@ Phases (any failure exits non-zero before the last line is printed):
    one global draw; the tap monitor's shares averaged over the ranks):
    both ranks must report the same losses and ``msda_tap_oob`` and keep
    the same parameters, with 4 B5 and 4 B5b launches a step per rank.
+
+8. drive the training and evaluation entry point,
+   ``nmrf_tpu_torch.train.main`` (the CLI), in this process at full width
+   (default config, bf16, batch 8, 384x768 pairs of
+   ``synthetic_16x384x768``, every run deterministic): 6 steps with
+   checkpoints at 3 and 6; a copy of step 3 resumed to 6 must save the
+   same model and AdamW state bit for bit; a resume of step 6 to 9 with
+   ``CHECKPOINT_PERIOD 100`` continues the step count and leaves only step
+   9; ``--eval-only`` evaluates the last checkpoint on 2 KITTI-size pairs
+   (padded to 376x1248, bucketed) with a finite EPE; K1, K2, K1b and K2b
+   launch 10 times a step (K1 and K2 10 times a frame); and the host
+   photometric kernel (``nmrf_tpu_torch/native``) matches its PIL version
+   on a 375x1242 image (skipped, with a logged line, where PIL is absent).
 
 With ``--compare-old DIR`` it builds the kernels and those of DIR's
 ``window_attention.cu``, ``msda_taps.cu`` and ``msda_taps_bwd.cu`` that
@@ -1751,6 +1765,206 @@ def swin_grad_phase():
             "launches": {k: v for k, v in launches.items() if v}}
 
 
+# the training and evaluation entry point (phase 8)
+
+ENTRY_TRAIN = "synthetic_16x384x768"   # 2 batches of 8 per epoch
+ENTRY_EVAL = "synthetic_2x375x1242"    # KITTI size: padded to 376x1248, bucketed
+ENTRY_OPTS = [
+    "DATASETS.TRAIN", f"('{ENTRY_TRAIN}',)",
+    "DATASETS.TEST", f"['{ENTRY_EVAL}']",
+    "DATASETS.CROP_SIZE", "(384, 768)",
+    "SOLVER.IMS_PER_BATCH", "8",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "TEST.EVAL_PERIOD", "0",
+    "SOLVER.LATEST_CHECKPOINT_PERIOD", "3",
+]
+
+
+def _step_dirs(path):
+    return sorted(n for n in os.listdir(path) if n.startswith("step_"))
+
+
+def _same_state(a, b):
+    """Two saved training states equal bit for bit: the model, AdamW's
+    moments and steps, the drop-path generator, the step."""
+    import torch
+
+    def same(x, y):
+        if torch.is_tensor(x):
+            return torch.is_tensor(y) and x.dtype == y.dtype and \
+                x.shape == y.shape and torch.equal(x, y)
+        if isinstance(x, dict):
+            return isinstance(y, dict) and x.keys() == y.keys() and \
+                all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return {k: same(a[k], b.get(k)) for k in a}
+
+
+def photometric_phase():
+    """Phase 8b: the host photometric kernel (``nmrf_tpu_torch/native``)
+    against its PIL plain version on a 375x1242 image: exact on brightness,
+    contrast, saturation and gamma, within the bound of
+    ``tests/test_native_photometric.py`` on hue and on the fused chain."""
+    import ctypes
+    import random
+
+    try:
+        from PIL import Image, ImageEnhance
+    except ImportError:
+        log("phase 8 photometric: PIL is not installed on this machine; the "
+            "native kernel is not held against its PIL version here")
+        return {"skipped": "PIL not installed"}
+    from nmrf_tpu_torch import native
+    from nmrf_tpu_torch.data import transforms as T
+
+    lib = native.load()
+    img = np.random.RandomState(7).randint(0, 256, (H_KITTI, W_KITTI, 3),
+                                           dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+
+    def run(codes, b=1.0, c=1.0, s=1.0, hue=0, lut=None):
+        out = img.copy()
+        codes = np.asarray(codes, np.int32)
+        table = np.arange(256, dtype=np.uint8) if lut is None else lut
+        lib.nmrf_photometric(out.ctypes.data_as(u8p), out.size // 3,
+                             codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                             len(codes), b, c, s, hue,
+                             table.ctypes.data_as(u8p), int(lut is not None))
+        return out
+
+    pil = Image.fromarray(img)
+    exact = {
+        "brightness": (run([0], b=0.73),
+                       ImageEnhance.Brightness(pil).enhance(0.73)),
+        "contrast": (run([1], c=1.39), ImageEnhance.Contrast(pil).enhance(1.39)),
+        "saturation": (run([2], s=0.6), ImageEnhance.Color(pil).enhance(0.6)),
+        "gamma": (run([], lut=T._gamma_lut(1.73, 1.1)),
+                  T._adjust_gamma(pil, 1.73, 1.1)),
+    }
+    report = {}
+    for name, (got, want) in exact.items():
+        n = int((got != np.asarray(want)).sum())
+        report[name] = n
+        if n:
+            fail(f"photometric {name}: {n} values differ from PIL")
+    hue = run([3], hue=int(round(0.09 * 255))).astype(np.int32)
+    ref = np.asarray(T._adjust_hue(pil, 0.09)).astype(np.int32)
+    report["hue_max_diff"] = int(np.abs(hue - ref).max())
+    report["hue_mismatch"] = float((hue != ref).mean())
+    if report["hue_max_diff"] > 8 or report["hue_mismatch"] >= 0.02:
+        fail(f"photometric hue: {report}")
+    jitter = T.ColorJitter(0.4, 0.4, (0.6, 1.4), 0.5 / 3.14)
+    gamma = T.AdjustGamma(0.8, 1.2, 1.0, 1.02)
+    random.seed(3)
+    fused = T.fused_photometric(img, jitter, gamma).astype(np.int32)
+    random.seed(3)
+    plain = T.fused_photometric(img, jitter, gamma, plain=True).astype(np.int32)
+    report["fused_max_diff"] = int(np.abs(fused - plain).max())
+    report["fused_mismatch"] = float((fused != plain).mean())
+    if report["fused_max_diff"] > 12 or report["fused_mismatch"] >= 0.05:
+        fail(f"photometric fused chain: {report}")
+    return report
+
+
+def entry_point_phase():
+    """Phase 8: ``nmrf_tpu_torch.train.main``, the CLI, in this process at
+    full width (default resnet config, bf16, batch 8, 384x768 synthetic
+    pairs), deterministic (``utils.misc.deterministic``): run A trains 6
+    steps into D and keeps step 3 and 6; run C resumes a copy of D's step 3
+    to step 6 and must save the same state bit for bit; run B resumes D to
+    step 9 with ``CHECKPOINT_PERIOD 100``, continuing the step count, and
+    pruning leaves only step 9; an ``--eval-only`` run evaluates D's last
+    checkpoint on 2 KITTI-size pairs.  K1, K2, K1b and K2b must launch in
+    these runs, as many times as their steps and frames take."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nmrf_tpu_torch import train as cli
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.utils.checkpoint import restore_checkpoint
+    from nmrf_tpu_torch.utils.misc import deterministic
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    d, dc, de = (os.path.join(work, n) for n in ("D", "C", "E"))
+    report = {}
+    try:
+        with deterministic():
+            A.reset_launch_counts()
+            a = cli.main(["--checkpoint-dir", d] + ENTRY_OPTS + [
+                "SOLVER.MAX_ITER", "6", "SOLVER.CHECKPOINT_PERIOD", "3"])
+            if a["step"] != 6 or _step_dirs(d) != ["step_00000003",
+                                                   "step_00000006"]:
+                fail(f"run A: step {a['step']}, saves {_step_dirs(d)}")
+            for row in a["losses"]:
+                if not all(np.isfinite(v) for v in row.values()):
+                    fail(f"run A: non-finite losses {row}")
+            report["A"] = {"losses": [{k: r[k] for k in ("step", "total")}
+                                      for r in a["losses"]], **a["timing"]}
+
+            os.makedirs(dc)
+            shutil.copytree(os.path.join(d, "step_00000003"),
+                            os.path.join(dc, "step_00000003"))
+            with open(os.path.join(dc, "latest.txt"), "w") as f:
+                f.write("3")
+            c = cli.main(["--checkpoint-dir", dc] + ENTRY_OPTS + [
+                "SOLVER.MAX_ITER", "6", "SOLVER.CHECKPOINT_PERIOD", "3",
+                "SOLVER.RESUME", dc])
+            same = _same_state(restore_checkpoint(d, 6)[0],
+                               restore_checkpoint(dc, 6)[0])
+            report["C"] = {"step": c["step"], "same_state_as_A": same,
+                           **c["timing"]}
+            if c["step"] != 6 or not all(same.values()):
+                fail(f"run C (steps 4-6 again from step 3): step {c['step']}, "
+                     f"the saved state equal to run A's: {same}")
+
+            b = cli.main(["--checkpoint-dir", d] + ENTRY_OPTS + [
+                "SOLVER.MAX_ITER", "9", "SOLVER.CHECKPOINT_PERIOD", "100",
+                "SOLVER.RESUME", d])
+            left = sorted(os.listdir(d))
+            report["B"] = {"step": b["step"], "first_logged_step":
+                           b["losses"][0]["step"], "left": left, **b["timing"]}
+            if b["step"] != 9 or b["losses"][0]["step"] != 7 or \
+                    _step_dirs(d) != ["step_00000009"] or "latest.txt" not in left:
+                fail(f"run B (resume 6 -> 9, pruned): {report['B']}")
+
+            e = cli.main(["--checkpoint-dir", de, "--eval-only"] + ENTRY_OPTS
+                         + ["SOLVER.RESUME", d])
+            res = e["results"]["disp"]
+            with open(os.path.join(de, "log.txt")) as f:
+                logged = [line for line in f if "copypaste:" in line]
+            report["eval"] = {"results": res, "copypaste_lines": len(logged),
+                              **e["timing"]}
+            if not np.isfinite(res["epe"]) or not logged:
+                fail(f"--eval-only: {report['eval']}")
+            counts, variants = A.launch_counts(), A.variant_counts()
+        steps, frames = 6 + 3 + 3, 2
+        _expect_launches(counts, f"{steps} CLI steps and {frames} eval frames",
+                         window_attention=10 * (steps + frames),
+                         stripe_attention=10 * (steps + frames),
+                         window_attention_bwd=10 * steps,
+                         stripe_attention_bwd=10 * steps)
+        report["launches"] = counts
+        report["variants"] = variants
+        report["ms_per_step"] = {k: report[k]["train_s"] / report[k]["steps"] * 1e3
+                                 for k in ("A", "B", "C")}
+        report["save_s"] = (report["A"]["save_s"] + report["C"]["save_s"]
+                            + report["B"]["save_s"]) / (
+            report["A"]["saves"] + report["C"]["saves"] + report["B"]["saves"])
+        report["restore_s"] = {k: report[k]["restore_s"] for k in ("B", "C", "eval")}
+        report["eval_ms_per_frame"] = (report["eval"]["eval_s"]
+                                       / report["eval"]["eval_frames"] * 1e3)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    report["photometric"] = photometric_phase()
+    return report
+
+
 # --------------------------------------------------------------------------- #
 # the H-sharded path (phase 7): two ranks on the one card
 # --------------------------------------------------------------------------- #
@@ -2599,6 +2813,8 @@ def main(argv=None):
     parser.add_argument("--k1-stages", action="store_true",
                         help="build the kernels and time K1's tensor-core "
                              "kernel with each stage cut out in turn")
+    parser.add_argument("--entry-only", action="store_true",
+                        help="build the kernels and run phase 8 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2637,6 +2853,15 @@ def main(argv=None):
         log(gpu_identity())
         log(json.dumps({"compare": {k: v for k, v in compare.items()
                                     if k != "shapes"}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.entry_only:
+        entry = entry_point_phase()
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"entry_point": entry}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2732,6 +2957,13 @@ def main(argv=None):
     log(f"phase 7 swin data-parallel path: {time.perf_counter() - t_swin:.1f} s; "
         "both ranks report the same losses and msda_tap_oob: "
         + json.dumps(swin_data[0]["losses"]))
+    t_entry = time.perf_counter()
+    entry = entry_point_phase()
+    log(f"phase 8 entry point: {time.perf_counter() - t_entry:.1f} s; "
+        f"ms/step {json.dumps(entry['ms_per_step'])}, checkpoint save "
+        f"{entry['save_s']:.3f} s, restore {json.dumps(entry['restore_s'])} s, "
+        f"eval {entry['eval_ms_per_frame']:.2f} ms/frame ({gpu_identity()}); "
+        + json.dumps(entry))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     counts = dict(serve["launches"])

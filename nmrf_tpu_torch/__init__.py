@@ -7,7 +7,8 @@ optimizer, scheduler, accum_steps, grad_clip=...)`` for training.  They run on C
 the caller passes ``device="cpu"`` to ``build_model``.  The H-sharded
 (spatial-parallel) path over ``torch.distributed``: ``parallel.make_mesh``,
 then ``build_model(cfg, mesh=)``, ``parallel.make_sharded_forward`` and
-``make_train_step(..., mesh=)``.
+``make_train_step(..., mesh=)``.  Training and evaluation from a dataset,
+with checkpoints: ``python -m nmrf_tpu_torch.train`` (``train.main``).
 """
 
 from .config import get_cfg

@@ -84,6 +84,13 @@ def make_mesh(data=-1, spatial=1, backend=None, device=None):
                 _rank_device(device))
 
 
+def _to_device(value, device, non_blocking):
+    value = torch.as_tensor(value)
+    if non_blocking and device.type == "cuda":
+        value = value.pin_memory()
+    return value.to(device, non_blocking=non_blocking)
+
+
 def shard_batch(batch, mesh):
     """This rank's part of a global training batch, on its device: the
     img1/img2 rows of its data index (whole images: the backbone runs on
@@ -101,6 +108,64 @@ def shard_batch(batch, mesh):
             value = value[mesh.data_index * n:(mesh.data_index + 1) * n]
         out[key] = value.to(mesh.device)
     return out
+
+
+def _step_batch(batch, mesh):
+    """A data index's host batch (its rows of the global batch, as the
+    sampler with ``rank=mesh.data_index, world_size=mesh.data`` gives it)
+    -> the batch ``make_train_step(mesh=)`` takes, ``shard_batch``'s
+    layout: these images on the rank's device, the targets of the whole
+    global batch (one all-gather over the world, a copy per data index)."""
+    out = {}
+    for key, value in batch.items():
+        value = _to_device(value, mesh.device, True)
+        if key in ("disp", "valid") and mesh.data > 1:
+            flag = value.dtype == torch.bool
+            parts = mesh.world.all_gather(value.to(torch.uint8) if flag else value)
+            value = torch.cat(parts[::mesh.spatial])
+            value = value.bool() if flag else value
+        out[key] = value
+    return out
+
+
+def device_prefetch(iterable, mesh=None, size=2, device=None):
+    """Host batches (dicts of numpy arrays) -> batches on the device, with
+    ``size`` batches' host-to-device copies started ahead of the one yielded:
+    each is copied from pinned host memory without the host waiting for it,
+    so the next batch's copy is queued before the step that comes first
+    (``nmrf_tpu/parallel/mesh.py:device_prefetch``).  Without a mesh the
+    whole batch goes to ``device``.  With a mesh each host batch is this
+    data index's rows, and the result is the layout of ``shard_batch``
+    (the targets gathered over the data axis): what the JAX package's
+    ``shard_batch`` makes of a process-local batch."""
+    from collections import deque
+
+    def move(batch):
+        if mesh is not None:
+            return _step_batch(batch, mesh)
+        return {k: _to_device(v, torch.device(device), True)
+                for k, v in batch.items()}
+
+    buf = deque()
+    for batch in iterable:
+        buf.append(move(batch))
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+def make_eval_step(model):
+    """``eval_step(img1, img2) -> outputs``: the model's forward in eval
+    mode under ``torch.inference_mode`` (``nmrf_tpu/parallel/mesh.py:
+    make_eval_step``)."""
+
+    def step(img1, img2):
+        model.eval()
+        with torch.inference_mode():
+            return model(img1, img2)
+
+    return step
 
 
 class _GatherGlobal(torch.autograd.Function):

@@ -51,6 +51,16 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
     monitoring stops: on every rank of a mesh at once, since all read the
     same value.  In place, because the optimizer holds the parameter
     objects and their state: the step goes on with both as they are.
+
+    ``step.state_dict()`` and ``step.load_state_dict(state)`` carry the
+    accumulation state across a checkpoint (``optax.MultiSteps`` keeps it
+    in the JAX package's optimizer state): the micro-step count since the
+    last update and, between micro-steps, the gradients summed so far, one
+    per optimizer parameter (None where a parameter has none).  On a mesh
+    those are rank-local until the update sums them, so ``state_dict`` then
+    saves their sum over the world (an all-reduce: every rank calls it) and
+    ``load_state_dict`` gives that sum to rank 0 and zeros to the others,
+    whose sum at the update is the same.
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
     attns = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
@@ -115,5 +125,39 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
             oob["monitor"] = False
         return value
 
+    def state_dict():
+        grads = None
+        if micro:
+            grads = [None if p.grad is None else p.grad.detach().clone()
+                     for p in params]
+            if mesh is not None:
+                live = [g for g in grads if g is not None]
+                total = mesh.world.all_reduce(
+                    torch.cat([g.reshape(-1).float() for g in live]))
+                offset = 0
+                for g in live:
+                    g.copy_(total[offset:offset + g.numel()].view_as(g))
+                    offset += g.numel()
+        return {"micro": micro, "grads": grads}
+
+    def load_state_dict(state):
+        nonlocal micro
+        if not 0 <= state["micro"] < accum_steps:
+            raise ValueError(f"micro-step {state['micro']} of a checkpoint "
+                             f"does not fit accum_steps {accum_steps}")
+        micro = state["micro"]
+        grads = state["grads"] or [None] * len(params)
+        if len(grads) != len(params):
+            raise ValueError(f"{len(grads)} saved gradients for "
+                             f"{len(params)} parameters")
+        for p, g in zip(params, grads):
+            if g is not None:
+                g = g.to(p.device, p.dtype)
+                if mesh is not None and mesh.rank != 0:
+                    g = torch.zeros_like(g)
+            p.grad = g
+
     step.read_oob = read_oob
+    step.state_dict = state_dict
+    step.load_state_dict = load_state_dict
     return step

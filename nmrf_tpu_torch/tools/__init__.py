@@ -1,1 +1,3 @@
-"""Scripts that probe the CUDA toolchain and kernels on the card."""
+"""Scripts of the port run on the card: the convergence gate, the
+determinism probe of the training step, and a probe of the CUDA
+toolchain."""

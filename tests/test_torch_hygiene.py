@@ -49,6 +49,22 @@ def test_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_entry_point_imports_leave_pil_tensorboard_jax_unloaded():
+    """The CLI and its data, evaluation and checkpoint modules import PIL,
+    OpenCV and tensorboard only where they are used (a real dataset's
+    reader, the photometric kernel's plain version, the event writer)."""
+    code = ("import sys, nmrf_tpu_torch.train, nmrf_tpu_torch.data, "
+            "nmrf_tpu_torch.evalx, nmrf_tpu_torch.utils.checkpoint, "
+            "nmrf_tpu_torch.tools.convergence_gate, "
+            "nmrf_tpu_torch.tools.determinism_probe; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'nmrf_tpu', 'PIL', 'cv2', 'tensorboard', "
+            "'tensorflow')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_config_tree_matches_jax_package():
     from nmrf_tpu.config import get_cfg as get_cfg_jax
     from nmrf_tpu_torch.config import get_cfg

@@ -1,9 +1,10 @@
 """Process bodies of ``tests/test_torch_spatial.py``,
-``tests/test_torch_spatial_fused.py`` and ``tests/test_torch_swin_mesh.py``:
-each runs in a process of its own with torch.distributed initialised by
-``nmrf_tpu_torch.parallel.spawn`` (gloo, on the CPU), imports PyTorch and
-the port only, and saves what it computed to a directory the test reads.
-This module holds no tests."""
+``tests/test_torch_spatial_fused.py``, ``tests/test_torch_swin_mesh.py``
+and ``tests/test_torch_checkpoint.py``: each runs in a process of its own
+(with torch.distributed initialised by ``nmrf_tpu_torch.parallel.spawn``,
+gloo, on the CPU, where it needs one), imports PyTorch and the port only,
+and saves what it computed to a directory the test reads.  This module
+holds no tests."""
 
 from pathlib import Path
 
@@ -238,3 +239,99 @@ def swin_mesh_worker(rank, in_dir, out_dir):
                         "read": step.read_oob(guard), "fired": guard.fired,
                         "radii": [m.tap_radius for m in attns]}
     torch.save(result, f"{out_dir}/swin_mesh_{rank}.pt")
+
+
+RESUME_MICRO_STEPS = 8  # 4 updates of ACCUM_STEPS 2
+
+
+def resume_cfg(max_iter=RESUME_MICRO_STEPS):
+    """The exact-resume test's config: the swin test config with drop-path
+    0.4, 2 micro-steps an update, a 64-disparity cost volume."""
+    cfg = swin_small_cfg(get_cfg())
+    cfg.DPN.MAX_DISP = 64
+    cfg.SOLVER.MAX_DISP = 48
+    cfg.SOLVER.ACCUM_STEPS = 2
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.freeze()
+    return cfg
+
+
+def resume_batch(step):
+    """The batch of micro-step ``step`` (1-based): 2 pairs at 64x128."""
+    from nmrf_tpu_torch.data import synthetic_batch
+
+    return {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        2, 64, 128, max_disp=48, seed=step, disp_quantum=8).items()}
+
+
+def resume_worker(ckpt_dir, starts, out):
+    """In a fresh process: for each saved step in ``starts``, restore it
+    into a new model, optimizer, schedule and train step, run the
+    micro-steps after it up to ``RESUME_MICRO_STEPS`` and save their losses
+    and the final model and AdamW state to ``out``.  Deterministic
+    (``utils.misc.deterministic``), as the run it is held against: on the
+    CPU, with more than one thread, the accumulating index of the window
+    tables' gradient adds in another order from run to run otherwise."""
+    from nmrf_tpu_torch.utils.misc import deterministic
+
+    torch.set_num_threads(2)
+    with deterministic():
+        torch.save({start: _resumed_run(ckpt_dir, start) for start in starts},
+                   out)
+
+
+def _resumed_run(ckpt_dir, start):
+    from nmrf_tpu_torch import build_optimizer, make_train_step
+    from nmrf_tpu_torch.solver import build_scheduler
+    from nmrf_tpu_torch.utils.checkpoint import (load_train_state,
+                                                 restore_checkpoint)
+
+    cfg = resume_cfg()
+    model = build_model(cfg, device="cpu")
+    optimizer, _ = build_optimizer(model, cfg)
+    state, _ = restore_checkpoint(ckpt_dir, start)
+    step_no = load_train_state(state, model, optimizer)
+    scheduler = build_scheduler(optimizer, cfg, step_no // cfg.SOLVER.ACCUM_STEPS)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg.SOLVER.ACCUM_STEPS, grad_clip=cfg.SOLVER.GRAD_CLIP)
+    step.load_state_dict(state["train_step"])
+    losses = [float(step(resume_batch(s))["total"])
+              for s in range(step_no + 1, RESUME_MICRO_STEPS + 1)]
+    return {"losses": losses, "model": model.state_dict(),
+            "optimizer": optimizer.state_dict()["state"]}
+
+
+def gather_worker(rank, out_dir):
+    """``utils.dist``: rank r gathers r + 2 float64 values that a float32
+    round trip would change, and the evaluator's metrics of its
+    ``InferenceSampler`` shard of 5 frames (``eval_frames``) through
+    ``metrics_gather_fn``."""
+    from nmrf_tpu_torch.data import InferenceSampler
+    from nmrf_tpu_torch.evalx import DispEvaluator
+    from nmrf_tpu_torch.utils.dist import all_gather_float_lists, metrics_gather_fn
+
+    world = torch.distributed.get_world_size()
+    values = [1.0 + (rank + 1) * 1e-12 * (i + 1) for i in range(rank + 2)]
+    evaluator = DispEvaluator(thres=["1.0", "3.0"], only_valid=True, max_disp=64,
+                              eval_prop=True)
+    inputs, outputs = eval_frames()
+    for i in InferenceSampler(len(inputs), rank, world):
+        evaluator.process(inputs[i], outputs[i])
+    torch.save({"gathered": all_gather_float_lists(values),
+                "empty": all_gather_float_lists([]),
+                "metrics": evaluator.evaluate(gather_fn=metrics_gather_fn)},
+               f"{out_dir}/gather_{rank}.pt")
+
+
+def eval_frames(n=5, H=32, W=48):
+    """n (inputs, outputs) pairs of the evaluator, [1, ...] numpy arrays."""
+    rng = np.random.RandomState(4)
+    frames = []
+    for _ in range(n):
+        disp = (rng.rand(1, H, W) * 50).astype(np.float32)
+        inputs = {"disp": disp, "valid": rng.rand(1, H, W) > 0.2,
+                  "img1": (rng.rand(1, H, W, 3) * 255).astype(np.float32)}
+        outputs = {"disp": disp + rng.randn(1, H, W).astype(np.float32) * 4,
+                   "proposal": (rng.rand(1, (H // 8) * (W // 8), 4) * 8).astype(np.float32)}
+        frames.append((inputs, outputs))
+    return [f[0] for f in frames], [f[1] for f in frames]
