@@ -6,6 +6,7 @@
     python3 chip_smoke.py --compare-old DIR  # K1/B5/B5b vs DIR's sources
     python3 chip_smoke.py --k1-stages        # K1's time by stage
     python3 chip_smoke.py --entry-only       # phase 8 alone
+    python3 chip_smoke.py --serve-only       # phase 9 alone
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -98,6 +99,25 @@ Phases (any failure exits non-zero before the last line is printed):
    launch 10 times a step (K1 and K2 10 times a frame); and the host
    photometric kernel (``nmrf_tpu_torch/native``) matches its PIL version
    on a 375x1242 image (skipped, with a logged line, where PIL is absent).
+
+9. drive the serving entry points with each model of phase 3 (bf16, tanh
+   GELU, random seeded weights): export the frozen eval forward with
+   ``nmrf_tpu_torch/tools/export_serving.py``'s code at the padded KITTI
+   shape (376x1248 resnet, 384x1248 swin), save and load it again; its
+   graph must hold 10 ``nmrf.window_attention``, 10
+   ``nmrf.stripe_attention`` and 0 or 4 ``nmrf.msda_taps`` nodes (the
+   registered operators of ``ops/library.py``); serve 4 KITTI-size pairs
+   over HTTP (``tools/serve_http.py`` on 127.0.0.1 in a thread), each
+   answer [375, 1242], finite, non-negative and equal to the live
+   ``predict`` of the pair (bit for bit, or within 1e-3 px outside the
+   reach of an argmax near-tie), 40 K1 and 40 K2 launches (16 B5 for
+   swin) over the 4 requests; time the client's wall, the server's
+   ``X-Timing-Ms`` split and the artifact's call (CUDA events, and one
+   profiled call); write a KITTI_2015 submission of 2 of the pairs through
+   ``python -m nmrf_tpu_torch.inference``'s ``main`` and hold the PNGs
+   against ``predict`` within the 1/256 encoding; render the ``--input``
+   demo where matplotlib is installed (else a logged line); then time the
+   host cost of a call of each operator against its launch function.
 
 With ``--compare-old DIR`` it builds the kernels and those of DIR's
 ``window_attention.cu``, ``msda_taps.cu`` and ``msda_taps_bwd.cu`` that
@@ -2713,7 +2733,328 @@ def k1_stage_phase(gen):
                 "whole_us": us["whole"],
                 "saved_us": {n: whole - float(np.mean(v)) for n, v in us.items()
                              if n != "whole"}}
-            log(f"phase 9 K1 stages {label} batch {B}: " + json.dumps(out[f"{label} batch {B}"]))
+            log(f"K1 stages {label} batch {B}: " + json.dumps(out[f"{label} batch {B}"]))
+    return out
+
+
+# the serving entry points (phase 9): the exported artifact, the HTTP
+# server and the demo and KITTI-submission CLI
+
+SERVE_NODES = ("window_attention", "stripe_attention", "msda_taps")
+
+
+def _kitti_pairs(n, seed):
+    """n KITTI-size pairs of uint8-valued float32 images (seeded)."""
+    rng = np.random.RandomState(seed)
+    return [tuple(rng.randint(0, 256, (H_KITTI, W_KITTI, 3)).astype(np.float32)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def _final_logits(model, img1, img2):
+    """The last Inference layer's selection logits [B, H, W, N] of an eval
+    forward on padded device images, read with a hook on the score head."""
+    import torch
+
+    seen = []
+    handle = model.infer_score_head.register_forward_hook(
+        lambda m, args, out: seen.append(0.25 * out[-1].float()))
+    try:
+        with torch.inference_mode():
+            model(img1, img2)
+    finally:
+        handle.remove()
+    B, h, w, N, _ = seen[0].shape
+    return seen[0].reshape(B, h, w, N, 8, 8).permute(0, 1, 4, 2, 5, 3) \
+        .reshape(B, 8 * h, 8 * w, N)
+
+
+def _compare_served(model, pair, got, divis_by):
+    """Max |delta| of a served disparity against the live predict; when not
+    bit for bit, fail on a difference above 1e-3 px outside the refinement's
+    reach (96 px) of an argmax near-tie (top-2 logit margin below 1e-2,
+    about two bf16 roundings of a logit near 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch import predict
+    from nmrf_tpu_torch.data.frame_io import InputPadder
+
+    want = predict(model, *pair)
+    err = float(np.abs(got - want).max())
+    if err == 0.0:
+        return err
+    padder = InputPadder(pair[0].shape, mode="proposal", divis_by=divis_by)
+    a, b = (torch.from_numpy(x[None]).cuda() for x in padder.pad(*pair))
+    top2 = torch.topk(_final_logits(model, a, b), 2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1] < 1e-2).float()
+    tie = (F.max_pool2d(near_tie[:, None], 193, 1, 96)[0, 0] > 0).cpu().numpy()
+    tie = tie[:H_KITTI, :W_KITTI]
+    bad = np.abs(got - want) > 1e-3
+    log(f"phase 9: served disparity differs from predict by up to {err:.3e} "
+        f"px on {int(bad.sum())} pixels, {int(bad[~tie].sum())} outside "
+        f"argmax near-tie regions")
+    if bad[~tie].any():
+        fail(f"served disparity differs from predict by {err} px outside "
+             "argmax near-tie regions")
+    return err
+
+
+def _post(url, img1, img2):
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.savez(buf, img1=img1, img2=img2)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body, timing = r.read(), json.loads(r.headers["X-Timing-Ms"])
+    wall = (time.perf_counter() - t0) * 1e3
+    return np.load(io.BytesIO(body)), wall, timing
+
+
+def _write_kitti_testing(root, pairs):
+    from PIL import Image
+
+    base = os.path.join(root, "KITTI", "KITTI_2015", "testing")
+    for i, pair in enumerate(pairs):
+        for side, img in zip(("image_2", "image_3"), pair):
+            os.makedirs(os.path.join(base, side), exist_ok=True)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(base, side, f"{i:06d}_10.png"))
+    return base
+
+
+def serving_entry_phase(swin=False):
+    """Phase 9 for one model (module docstring): export, save and load the
+    frozen artifact, serve 4 KITTI pairs over HTTP, write a KITTI
+    submission and render the demo through the CLI."""
+    import shutil
+    import tempfile
+    import threading
+    from http.server import HTTPServer
+
+    import torch
+
+    from nmrf_tpu_torch import build_model, inference, predict
+    from nmrf_tpu_torch.data.frame_io import read_disp_kitti
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.tools import export_serving, serve_http
+    from nmrf_tpu_torch.utils.export import load_exported, load_meta
+
+    name = "swin" if swin else "resnet"
+    cfg = main_path_cfg("bfloat16", True, True, swin)
+    model = build_model(cfg)
+    tmp = tempfile.mkdtemp(prefix="nmrf_serve_")
+    report = {"model": name}
+    try:
+        path = os.path.join(tmp, f"kitti_{name}.pt2")
+        _, shape, size, export_s = export_serving.export_artifact(
+            model, cfg, H_KITTI, W_KITTI, path)
+        t0 = time.perf_counter()
+        exported = load_exported(path)
+        load_s = time.perf_counter() - t0
+        meta = load_meta(path)
+        if meta["device"] != "cuda:0" or meta["input_shape"] != list(shape):
+            fail(f"{name} artifact: sidecar {meta}")
+        targets = [str(n.target) for n in exported.graph.nodes
+                   if n.op == "call_function"]
+        nodes = {k: sum(t == f"nmrf.{k}.default" for t in targets)
+                 for k in SERVE_NODES}
+        want_nodes = {"window_attention": 10, "stripe_attention": 10,
+                      "msda_taps": 4 if swin else 0}
+        if nodes != want_nodes:
+            fail(f"{name} artifact: graph nodes {nodes}, expected {want_nodes}")
+        checks = sum(t == "aten._assert_tensor_metadata.default"
+                     for t in targets)
+        report.update(shape=list(shape), export_s=export_s, load_s=load_s,
+                      size_mb=size / 1e6, graph_nodes=len(targets),
+                      metadata_check_nodes=checks, op_nodes=nodes)
+        log(f"phase 9 {name} artifact: exported at {list(shape)} in "
+            f"{export_s:.1f} s, loaded in {load_s:.1f} s, {size / 1e6:.1f} MB; "
+            f"op nodes {json.dumps(nodes)} of {len(targets)}, {checks} of "
+            f"them metadata checks ({gpu_identity()})")
+
+        # the server, in a thread of this process
+        srv = HTTPServer(("127.0.0.1", 0),
+                         serve_http.make_handler(exported, meta))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        pairs = _kitti_pairs(REQUESTS + 1, seed=9)
+        try:
+            url = f"http://127.0.0.1:{srv.server_port}/disparity"
+            _post(url, *pairs[0])  # warm-up: cuDNN plans, first launches
+            A.reset_launch_counts()
+            served, walls, splits = [], [], []
+            for pair in pairs[1:]:
+                disp, wall, timing = _post(url, *pair)
+                served.append(disp)
+                walls.append(wall)
+                splits.append(timing)
+            counts = A.launch_counts()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        _expect_launches(counts, f"{name}: {REQUESTS} served requests",
+                         window_attention=10 * REQUESTS,
+                         stripe_attention=10 * REQUESTS,
+                         msda_taps=(4 if swin else 0) * REQUESTS)
+        errs = []
+        for pair, disp in zip(pairs[1:], served):
+            if disp.shape != (H_KITTI, W_KITTI) or disp.dtype != np.float32:
+                fail(f"{name}: served disparity {disp.shape} {disp.dtype}")
+            if not np.isfinite(disp).all() or (disp < 0).any():
+                fail(f"{name}: served disparity not finite and non-negative")
+            errs.append(_compare_served(model, pair, disp, cfg.DATASETS.DIVIS_BY))
+
+        # device time of the artifact's call, and a profiled call
+        module = exported.module()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        device_ms = []
+        for pair in pairs[1:]:
+            a, b = (torch.from_numpy(np.pad(
+                x, ((0, shape[1] - H_KITTI), (0, shape[2] - W_KITTI), (0, 0)),
+                mode="edge")[None]).cuda() for x in pair)
+            with torch.no_grad():
+                start.record()
+                module(a, b)
+                end.record()
+            torch.cuda.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        with torch.no_grad():
+            profile = profile_phase(f"{name} artifact request",
+                                    lambda: module(a, b))
+        report.update(
+            requests=REQUESTS, launches={k: counts[k] for k in SERVE_NODES},
+            max_abs_err_vs_predict=max(errs), client_wall_ms=walls,
+            x_timing_ms=splits, device_ms=device_ms,
+            request_profile={k: profile[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")})
+        log(f"phase 9 {name} server: {REQUESTS} requests, client wall ms "
+            f"{json.dumps([round(w, 3) for w in walls])}, device ms "
+            f"{json.dumps([round(d, 3) for d in device_ms])}, max |delta| vs "
+            f"predict {max(errs)}, launches {json.dumps(report['launches'])} "
+            f"({gpu_identity()}); X-Timing-Ms {json.dumps(splits)}")
+
+        # the KITTI submission through the CLI, on 2 of the pairs
+        root = os.path.join(tmp, "data")
+        base = _write_kitti_testing(root, pairs[1:3])
+        out = os.path.join(tmp, "submission")
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "sceneflow_swint.yaml")
+        flags = (["--config-file", config] if swin else []) + [
+            "--device", "cuda"]
+        opts = ["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.GELU_APPROX", "True",
+                "DATASETS.ROOT", root]
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = inference.main(["--dataset-name", "kitti_2015", "--output",
+                                  out] + flags + opts)
+        cli_s = time.perf_counter() - t0
+        counts = A.launch_counts()
+        _expect_launches(counts, f"{name}: the KITTI submission of 2 pairs",
+                         window_attention=20, stripe_attention=20,
+                         msda_taps=8 if swin else 0)
+        if sorted(os.path.basename(p) for p in written) != \
+                ["000000_10.png", "000001_10.png"]:
+            fail(f"{name}: KITTI submission wrote {written}")
+        # the files hold predict's disparity in the submission's encoding
+        # (uint16 of 256 x disparity, which wraps above 255.996 px, as the
+        # JAX package's and the reference's writers do)
+        differ, top = 0, 0.0
+        for i, pair in enumerate(pairs[1:3]):
+            disp, _ = read_disp_kitti(os.path.join(out, f"{i:06d}_10.png"))
+            want = predict(model, *pair)
+            code = np.round(want * 256).astype(np.uint16)
+            differ += int((disp * 256 != code).sum())
+            top = max(top, float(want.max()))
+        if differ:
+            fail(f"{name}: {differ} KITTI submission values differ from the "
+                 "encoding of predict")
+        report.update(kitti_submission_s=cli_s, kitti_values_differing=differ,
+                      max_disparity_px=top)
+        log(f"phase 9 {name} KITTI submission: 2 files in {cli_s:.1f} s "
+            f"(with the model's build), every value the uint16 encoding of "
+            f"predict (largest disparity {top:.2f} px)")
+
+        # the demo rendering of the --input glob mode
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            report["demo"] = "matplotlib not installed"
+            log(f"phase 9 {name} demo rendering: not run, matplotlib is not "
+                "installed on this machine (the CPU tests hold the renderer)")
+        else:
+            demo = os.path.join(tmp, "demo")
+            written = inference.main(
+                ["--input", os.path.join(base, "image_2", "*.png"),
+                 os.path.join(base, "image_3", "*.png"), "--output", demo]
+                + flags + opts)
+            if len(written) != 2 or not all(os.path.getsize(p) for p in written):
+                fail(f"{name}: demo rendering wrote {written}")
+            report["demo"] = [os.path.basename(p) for p in written]
+            log(f"phase 9 {name} demo rendering: {json.dumps(report['demo'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
+def serving_phase():
+    """Phase 9: both models through the serving entry points (the counts
+    set to 0 and read around each path inside), then the host cost of the
+    registered operators' dispatch."""
+    import torch
+
+    report = {"resnet": serving_entry_phase()}
+    torch.cuda.empty_cache()
+    report["swin"] = serving_entry_phase(swin=True)
+    torch.cuda.empty_cache()
+    report["op_dispatch_us"] = op_dispatch_phase()
+    log("phase 9 operator dispatch, host us per call (op, launch function, "
+        f"added) ({gpu_identity()}): " + json.dumps(report["op_dispatch_us"]))
+    return report
+
+
+def op_dispatch_phase():
+    """Phase 9: host time of a call of each ``nmrf`` operator against a
+    direct call of its launch function at the serving shapes (bf16), us
+    per call over 200 calls each, in turns."""
+    import torch
+
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import msda
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    qkv = torch.randn(1, 48, 156, 4, 384, generator=g, device="cuda").to(bf)
+    table = torch.randn(121, 384, generator=g, device="cuda")
+    q = torch.randn(1, 47, 156, 4, 64, generator=g, device="cuda").to(bf)
+    vmap = torch.randn(1, 12, 39, 64, generator=g, device="cuda").to(bf)
+    dx = torch.randn(1, 96, 312, 32, generator=g, device="cuda")
+    cases = {
+        "window_attention": (A.window_attention_op, A._window_attention_launch,
+                             (qkv, table, 3, [6, 6], 4, True, 0, None)),
+        "stripe_attention": (A.stripe_attention_op, A._stripe_attention_launch,
+                             (q, q, q, 47, 1, 2)),
+        "msda_taps": (msda.msda_taps_op, msda._msda_taps_launch,
+                      (vmap, dx, dx, dx, 8, 5)),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (op, launch, args) in cases.items():
+            times = {"op": [], "launch": []}
+            for fn, key in ((op, "op"), (launch, "launch"), (launch, "launch"),
+                            (op, "op")):
+                fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn(*args)
+                times[key].append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
+            out[name] = {k: sum(v) / len(v) for k, v in times.items()}
+            out[name]["added_us"] = out[name]["op"] - out[name]["launch"]
     return out
 
 
@@ -2815,6 +3156,8 @@ def main(argv=None):
                              "kernel with each stage cut out in turn")
     parser.add_argument("--entry-only", action="store_true",
                         help="build the kernels and run phase 8 alone")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="build the kernels and run phase 9 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2862,6 +3205,15 @@ def main(argv=None):
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
         log(json.dumps({"entry_point": entry}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.serve_only:
+        serving = serving_phase()
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"serving": serving}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2964,6 +3316,10 @@ def main(argv=None):
         f"{entry['save_s']:.3f} s, restore {json.dumps(entry['restore_s'])} s, "
         f"eval {entry['eval_ms_per_frame']:.2f} ms/frame ({gpu_identity()}); "
         + json.dumps(entry))
+    t_serve = time.perf_counter()
+    serving = serving_phase()
+    log(f"phase 9 serving entry points: {time.perf_counter() - t_serve:.1f} s; "
+        + json.dumps(serving))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     counts = dict(serve["launches"])

@@ -9,6 +9,11 @@ the caller passes ``device="cpu"`` to ``build_model``.  The H-sharded
 then ``build_model(cfg, mesh=)``, ``parallel.make_sharded_forward`` and
 ``make_train_step(..., mesh=)``.  Training and evaluation from a dataset,
 with checkpoints: ``python -m nmrf_tpu_torch.train`` (``train.main``).
+Serving: the demo and KITTI-submission CLI ``python -m
+nmrf_tpu_torch.inference``, the exported artifact
+(``utils.export.export_eval``, ``python -m
+nmrf_tpu_torch.tools.export_serving``) and its HTTP server (``python -m
+nmrf_tpu_torch.tools.serve_http``).
 """
 
 from .config import get_cfg

@@ -1,8 +1,9 @@
 """Frame I/O, the port's copy of ``nmrf_tpu/data/frame_io.py`` (reference
-``frame_utils.py:15-281``): image and disparity readers and
-``InputPadder``.  Each disparity reader returns (disparity, valid).
+``frame_utils.py:15-281``): image and disparity readers, the KITTI
+submission writer and ``InputPadder``.  Each disparity reader returns
+(disparity, valid).
 
-PIL and OpenCV are imported inside the readers that need them, so the
+PIL and OpenCV are imported inside the functions that need them, so the
 synthetic path and the padder run without either.  OpenCV is used where it
 is installed, as in the JAX package, else PIL.
 """
@@ -160,6 +161,17 @@ def read_disp_middlebury(file_name):
         disp = read_pfm(file_name).astype(np.float32)
         return disp, disp < 1e3
     raise ValueError(file_name)
+
+
+def write_disp_kitti(filename, disp):
+    """KITTI submission writer: uint16 x256 (reference
+    frame_utils.py:237-239), OpenCV where installed, else PIL."""
+    out = np.round(np.asarray(disp) * 256).astype(np.uint16)
+    cv2 = _cv2()
+    if cv2 is not None:
+        cv2.imwrite(filename, out)
+    else:
+        _pil_image().fromarray(out).save(filename)
 
 
 def read_gen(file_name):

@@ -18,6 +18,13 @@ Each function here has three parts:
 * the source note in the ``.cu`` file: which TPU kernel it replaces, what
   bounds it on the H100 and what its design does about that.
 
+K1 and K2 are also the registered operators ``nmrf::window_attention`` and
+``nmrf::stripe_attention`` (``ops/library.py``): their CUDA implementation
+is the launch function, their fake implementation gives the output's shape
+and dtype, so an exported forward (``utils/export.py``) holds one graph
+node per launch.  The wrappers call the operator on CUDA tensors, inside
+their autograd function where a gradient is recorded.
+
 K1 replaces ``nmrf_tpu/ops/pallas/attention.py:_window_native_kernel_direct``
 (and the transposed ``_window_native_kernel``, the same function), K2
 ``_stripe_attention_kernel``, K1b ``_wan_bwd_kernel_direct``, K2b
@@ -36,7 +43,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import _native
+from . import _native, library
 from .msda import msda_taps, msda_taps_bwd
 
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
@@ -370,6 +377,18 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
     return out
 
 
+def _window_attention_fake(qkv, rel_table, shift, window, num_heads,
+                           candidate_mask, row0, hp_total):
+    return qkv.new_empty(tuple(qkv.shape[:4]) + (qkv.shape[4] // 3,))
+
+
+# K1 as the registered operator nmrf::window_attention (``ops/library.py``)
+window_attention_op = library.define(
+    "window_attention(Tensor qkv, Tensor rel_table, int shift, int[2] window, "
+    "int num_heads, bool candidate_mask, int row0, int? hp_total) -> Tensor",
+    _window_attention_launch, _window_attention_fake)
+
+
 class _WindowAttentionFn(torch.autograd.Function):
     """K1 forward, K1b backward; with ``fused_pos`` B7 backward.  On the
     CPU (``fused_pos`` only) the plain forward and B7's plain version."""
@@ -382,7 +401,7 @@ class _WindowAttentionFn(torch.autograd.Function):
         ctx.fused_pos = fused_pos
         if qkv.device.type == "cpu":
             return window_attention_plain(qkv, rel_table, *ctx.args)
-        return _window_attention_launch(qkv, rel_table, *ctx.args)
+        return window_attention_op(qkv, rel_table, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
@@ -409,7 +428,9 @@ def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask,
       the JAX package's ``NMRF_FUSED_POS=1`` backward) instead of K1b; on
       the CPU through B7's plain version.  The forward is the same.
     Returns [B, Hp, Wp, N, C] in qkv's dtype.  Differentiable in qkv and
-    rel_table (on CUDA through :func:`window_attention_bwd`).
+    rel_table (on CUDA through :func:`window_attention_bwd`).  On CUDA
+    tensors K1 runs as the operator ``nmrf::window_attention``, called
+    directly where no gradient is recorded.
     """
     _window_shapes(qkv, rel_table, window, num_heads, row0, hp_total)
     if qkv.device.type == "cpu" and not fused_pos:
@@ -419,6 +440,10 @@ def window_attention(qkv, rel_table, shift, window, num_heads, candidate_mask,
     if qkv.device.type != "cpu":
         _window_kernel_checks("window_attention", qkv, rel_table, shift,
                               window, num_heads)
+        if not library.needs_grad(qkv, rel_table):
+            return window_attention_op(qkv, rel_table, shift, window,
+                                       num_heads, candidate_mask, row0,
+                                       hp_total)
     return _WindowAttentionFn.apply(qkv, rel_table, shift, window, num_heads,
                                     candidate_mask, row0, hp_total,
                                     bool(fused_pos))
@@ -629,6 +654,17 @@ def _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads):
     return out
 
 
+def _stripe_attention_fake(q, k, v, H_sp, W_sp, num_heads):
+    return torch.empty_like(q)
+
+
+# K2 as the registered operator nmrf::stripe_attention (``ops/library.py``)
+stripe_attention_op = library.define(
+    "stripe_attention(Tensor q, Tensor k, Tensor v, int H_sp, int W_sp, "
+    "int num_heads) -> Tensor",
+    _stripe_attention_launch, _stripe_attention_fake)
+
+
 class _StripeAttentionFn(torch.autograd.Function):
     """K2 forward, K2b backward."""
 
@@ -636,7 +672,7 @@ class _StripeAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, H_sp, W_sp, num_heads):
         ctx.save_for_backward(q, k, v)
         ctx.args = (H_sp, W_sp, num_heads)
-        return _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads)
+        return stripe_attention_op(q, k, v, H_sp, W_sp, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -650,13 +686,17 @@ def stripe_attention(q, k, v, H_sp, W_sp, num_heads):
     q/k/v: [B, Hp, Wp, N, C] (already padded to stripe multiples), channels
     in (head, hd) order.  Each H_sp x W_sp stripe of tokens attends within
     itself under the anti-same-pixel mask.  Returns [B, Hp, Wp, N, C].
-    Differentiable (on CUDA through :func:`stripe_attention_bwd`).
+    Differentiable (on CUDA through :func:`stripe_attention_bwd`).  On CUDA
+    tensors K2 runs as the operator ``nmrf::stripe_attention``, called
+    directly where no gradient is recorded.
     """
     _stripe_shapes(q, k, v, H_sp, W_sp, num_heads)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return stripe_attention_plain(q, k, v, H_sp, W_sp, num_heads)
     _stripe_kernel_checks("stripe_attention", (q, k, v), num_heads)
+    if not library.needs_grad(q, k, v):
+        return stripe_attention_op(q, k, v, H_sp, W_sp, num_heads)
     return _StripeAttentionFn.apply(q, k, v, H_sp, W_sp, num_heads)
 
 

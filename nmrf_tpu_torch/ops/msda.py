@@ -14,7 +14,8 @@ tap-MSDA kernel B5.
 * ``msda_taps`` is the wrapper of kernel B5 (``csrc/msda_taps.cu``, which
   replaces ``nmrf_tpu/ops/pallas/msda.py:_msda_tap_kernel``): for CUDA
   tensors it launches the kernel or raises, counting launches in
-  ``msda_taps.launches`` (and by kernel in ``msda_taps.variants``); for
+  ``msda_taps.launches`` (and by kernel in ``msda_taps.variants``), through
+  the registered operator ``nmrf::msda_taps`` (``ops/library.py``); for
   CPU tensors it takes ``msda_taps_plain``, the
   port's copy of the JAX package's dense (2r+1)^2-tap hat sum
   (``_tap_level_reference``).  The kernel gathers the 4 corners of each
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _native
+from . import _native, library
 from .sampling import grid_sample_2d
 
 
@@ -170,7 +171,8 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
     Every bilinear corner more than ``radius`` level pixels from the base
     cell along either axis is dropped.  Returns [B, Hq, Wq, M*D] in
     value_map's dtype, summed in f32.  Not differentiable itself:
-    :class:`TapLevel` is its autograd function.
+    :class:`TapLevel` is its autograd function.  On CUDA tensors B5 runs as
+    the operator ``nmrf::msda_taps``.
     """
     B, Hl, Wl, MD, Hq, Wq, MP = _msda_shapes(value_map, dx, dy, aw, num_heads)
     tensors = (value_map, dx, dy, aw)
@@ -185,7 +187,15 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
     if MD > 1024 or 3 * max(1, 256 // MD) * MP * 4 > 48 * 1024:
         raise ValueError(f"msda_taps kernel takes at most 1024 channels and "
                          f"a few thousand points per query, got {MD}, {MP}")
-    out = torch.empty((B, Hq, Wq, MD), dtype=value_map.dtype, device=dev)
+    return msda_taps_op(value_map, dx, dy, aw, num_heads, radius)
+
+
+def _msda_taps_launch(value_map, dx, dy, aw, num_heads, radius):
+    """One B5 launch on inputs that :func:`msda_taps` has checked."""
+    B, Hl, Wl, MD = value_map.shape
+    Hq, Wq, MP = dx.shape[1:]
+    out = torch.empty((B, Hq, Wq, MD), dtype=value_map.dtype,
+                      device=value_map.device)
     if out.numel() == 0:
         return out
     M = num_heads
@@ -198,6 +208,17 @@ def msda_taps(value_map, dx, dy, aw, num_heads, radius):
     msda_taps.launches += 1
     variant.count(msda_taps, MSDA_VARIANTS)
     return out
+
+
+def _msda_taps_fake(value_map, dx, dy, aw, num_heads, radius):
+    return value_map.new_empty(tuple(dx.shape[:3]) + (value_map.shape[3],))
+
+
+# B5 as the registered operator nmrf::msda_taps (``ops/library.py``)
+msda_taps_op = library.define(
+    "msda_taps(Tensor value_map, Tensor dx, Tensor dy, Tensor aw, "
+    "int num_heads, int radius) -> Tensor",
+    _msda_taps_launch, _msda_taps_fake)
 
 
 msda_taps.launches = 0

@@ -1,3 +1,3 @@
-"""Scripts of the port run on the card: the convergence gate, the
-determinism probe of the training step, and a probe of the CUDA
-toolchain."""
+"""Scripts of the port: the convergence gate, the determinism probe of the
+training step, a probe of the CUDA toolchain, and the serving export and
+HTTP server."""

@@ -34,7 +34,13 @@ r 5, walking every cell, against itself (same bits), and through the
 autograd function against the plain versions' gradients.  Which kernel ran
 (K1's tensor-core or CUDA-core kernel, B5's and B5b's vector or scalar
 path, B5b's masks or walk) is read from the count each wrapper keeps of
-the variant its C entry reports launching.
+the variant its C entry reports launching.  The serving kernels' registered
+operators (``nmrf::window_attention``, ``nmrf::stripe_attention``,
+``nmrf::msda_taps``) pass ``torch.library.opcheck`` in f32 and bf16 and
+equal the plain versions at the forward tolerances; a small model of each
+variant exported on the card holds one operator node per launch, and its
+loaded artifact launches the kernels as often and equals the live model
+bit for bit.
 """
 
 from pathlib import Path
@@ -975,3 +981,84 @@ def test_sharded_nccl_one_card_per_rank(cuda, tmp_path):
     spawn(_sharded_small_worker, 4, "nccl", args=(str(tmp_path), 2, 2),
           timeout_s=300)
     _check_sharded_small(tmp_path, 4)
+
+
+# ---- the serving kernels as registered operators, and the artifact ---- #
+
+def _op_cases(device, dtype):
+    """One call of each ``nmrf`` operator at small shapes: K1 at an
+    Inference window (N 4, shift 3, candidate mask), K2 at a vertical
+    stripe, B5 at the neck's widths (M 8, D 8, P 4, f 2, r 5)."""
+    g = torch.Generator(device=device).manual_seed(9)
+    qkv = torch.randn(1, 12, 18, 4, 384, generator=g, device=device).to(dtype)
+    table = 0.5 * torch.randn(121, 384, generator=g, device=device)
+    q, k, v = (torch.randn(1, 8, 6, 4, 64, generator=g, device=device).to(dtype)
+               for _ in range(3))
+    vmap = torch.randn(2, 12, 16, 64, generator=g, device=device).to(dtype)
+    dx, dy = ((torch.rand(2, 24, 32, 32, generator=g, device=device) * 2 - 1)
+              * 4.0 for _ in range(2))
+    aw = torch.rand(2, 24, 32, 32, generator=g, device=device)
+    return [(A.window_attention_op, (qkv, table, 3, [6, 6], 4, True, 0, None)),
+            (A.stripe_attention_op, (q, k, v, 8, 1, 2)),
+            (msda.msda_taps_op, (vmap, dx, dy, aw, 8, 5))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", [0, 1, 2],
+                         ids=["window_attention", "stripe_attention", "msda_taps"])
+def test_registered_ops_pass_opcheck(cuda, dtype, index):
+    """``torch.library.opcheck`` on each operator (schema, fake
+    implementation against the kernel, autograd registration, AOT
+    dispatch), and the operator equals the wrapper's plain version."""
+    op, args = _op_cases(cuda, dtype)[index]
+    torch.library.opcheck(op, args)
+    plain = (lambda *a: A.window_attention_plain(*a[:3], tuple(a[3]), *a[4:]),
+             A.stripe_attention_plain, msda.msda_taps_plain)[index]
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(op(*args).float(), plain(*args).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("swin", [False, True], ids=["resnet", "swin"])
+def test_exported_artifact_runs_the_kernels(cuda, swin, tmp_path):
+    """A small model exported on the card (2 layers per NMP stage): the
+    graph holds one ``nmrf`` node per launch, and the loaded artifact
+    launches the kernels as many times and equals the live model."""
+    from nmrf_tpu_torch.utils.export import (export_eval, load_exported,
+                                             save_exported)
+
+    cfg = get_cfg()
+    if swin:
+        cfg.merge_from_file(str(Path(__file__).resolve().parent.parent
+                                / "configs" / "sceneflow_swint.yaml"))
+    cfg.NMP.NUM_PROP_LAYERS = cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_model(cfg, device=cuda)
+    shape = (1, 64, 128, 3)
+    exported = export_eval(model, shape)
+    targets = [str(n.target) for n in exported.graph.nodes
+               if n.op == "call_function"]
+    nodes = {name: sum(t == f"nmrf.{name}.default" for t in targets)
+             for name in ("window_attention", "stripe_attention", "msda_taps")}
+    assert nodes == {"window_attention": 4, "stripe_attention": 4,
+                     "msda_taps": 4 if swin else 0}
+    path = str(tmp_path / "model.pt2")
+    save_exported(exported, path)
+    module = load_exported(path).module()
+    rng = np.random.RandomState(1)
+    a, b = (torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = module(a, b)
+    counts = A.launch_counts()
+    assert {k: counts[k] for k in nodes} == nodes
+    with torch.no_grad():
+        want = model(a, b)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    with pytest.raises(Exception):
+        module(a[:, :32], b[:, :32])

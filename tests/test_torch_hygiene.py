@@ -65,6 +65,22 @@ def test_entry_point_imports_leave_pil_tensorboard_jax_unloaded():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_serving_imports_leave_matplotlib_pil_cv2_jax_unloaded():
+    """The CLI, the export and the server import matplotlib, PIL and
+    OpenCV only where they are used (the renderer, the image readers and
+    the KITTI writer), so the KITTI-submission mode and the server run
+    without them."""
+    code = ("import sys, nmrf_tpu_torch.inference, "
+            "nmrf_tpu_torch.utils.export, nmrf_tpu_torch.tools.serve_http, "
+            "nmrf_tpu_torch.tools.export_serving, "
+            "nmrf_tpu_torch.utils.visualization, nmrf_tpu_torch.ops.library; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'nmrf_tpu', 'matplotlib', 'PIL', 'cv2')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_config_tree_matches_jax_package():
     from nmrf_tpu.config import get_cfg as get_cfg_jax
     from nmrf_tpu_torch.config import get_cfg
