@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k1-stages        # K1's time by stage
     python3 chip_smoke.py --entry-only       # phase 8 alone
     python3 chip_smoke.py --serve-only       # phase 9 alone
+    python3 chip_smoke.py --bench-only       # phase 10 alone
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -133,6 +134,25 @@ B5b); nothing else runs.  With
 kernel cut out at a time and times each beside the whole kernel, at a
 KITTI and a training window of Inference and Refinement (``K1_CUTS``).
 
+10. drive the measurement entry points in this process at full width,
+   each through its ``main`` with its stdout captured and checked and the
+   launch counters read around it: ``python -m nmrf_tpu_torch.bench``
+   for the resnet and the swin model (``--repeat 3``: JSON keys and
+   metric names the JAX bench's; 480 K1 and 480 K2 launches in the timed
+   chains, 192 B5 for swin; the deployed forward's FLOP count, with the
+   operators' flop formulas, within 1% of the plain path's; a profile
+   whose groups name K1 and K2), ``nmrf_tpu_torch.bench_train`` for the
+   default model, again with NMRF_FUSED_POS=1, and for swin (384x768,
+   batch 8, bf16: finite loss, MFU in (0, 1), the launches a step of
+   phase 5), ``tools.bench_stages``, ``tools.bench_swin_parts``,
+   ``tools.profile_model``, ``tools.profile_train``, ``tools.bench_loader``,
+   ``tools.bench_photometric``, ``tools.check_tap_coverage`` (the swin
+   model at 375x1242: exit 0) and ``tools.flops``, which writes the
+   ``FLOPS_H100.json`` record with the phase's times folded in (kept only
+   with ``--flops-out PATH``); the kernels' bound operation counts (the
+   bounds' ``ops_ms`` times the peak, not measured) and their shares of the
+   frame's and step's FLOPs.  ``--bench-only`` runs this phase alone.
+
 It imports nothing of JAX or of ``nmrf_tpu``.  The last stdout line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -146,6 +166,18 @@ import time
 
 import numpy as np
 
+from nmrf_tpu_torch.tools.flops import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                        masked_bound, msda_bound,
+                                        msda_bwd_bound, stripe_bound,
+                                        window_bound)
+# the window backwards' own kernels by name: K1b's main and d(ve) kernels
+# (the rest of a launch's device time is the plain products of
+# ``_window_bwd_finish``), B7's main kernel and its in-order partial sum;
+# the union of intervals
+from nmrf_tpu_torch.tools.profile_model import (B7_MAIN, B7_SUM, K1B_DVE,
+                                                K1B_MAIN, _union_ms)
+from nmrf_tpu_torch.utils.benchmarks import gpu_identity
+
 H_KITTI, W_KITTI = 375, 1242
 REQUESTS = 4
 TRAIN_STEPS = 10
@@ -153,9 +185,6 @@ TRAIN_STEPS = 10
 # batch (through the kernels, the plain versions and in f32 alike) and falls
 # after: its falling-loss test takes a window that covers that
 SWIN_TRAIN_STEPS = 30
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
-F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # kernel vs plain version on identical inputs: f32 differs only by summation
 # order; bf16 adds one rounding of the output to bf16 (8 significant bits).
 # The backward kernels' bf16 d(q, k, v) sum up to T (at most 624) products
@@ -195,13 +224,6 @@ def fused_pos():
         yield
     finally:
         del os.environ["NMRF_FUSED_POS"]
-
-
-def gpu_identity():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def ptxas_kernels(text):
@@ -340,17 +362,6 @@ MSDA_CASES = [
 ]
 
 
-def msda_bound(B, Hq, Wq, f, M, P, D, esize):
-    """(bytes ms, ops ms) of one B5 launch: dx, dy and aw (f32) and the
-    level map read once, the output written once; per sample and corner one
-    weight and D multiply-adds, in f32 on the CUDA cores."""
-    samples = B * Hq * Wq * M * P
-    nbytes = (3 * samples * 4 + B * (Hq // f) * (Wq // f) * M * D * esize
-              + B * Hq * Wq * M * D * esize)
-    ops = samples * 4 * (2 * D + 4)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-
-
 # swin training (crop 384x768, batch 8): the neck's query grid is 96 x 192
 # at batch 16 (left and right images); one B5b launch per extractor and step.
 # (label, f, launches per step, sample spread in level pixels)
@@ -376,55 +387,6 @@ def kept_corners(dx, dy, r):
 
     inside = (dx.abs() <= r + 1) & (dy.abs() <= r + 1)
     return int((axis(dx) * axis(dy) * inside).sum())
-
-
-def msda_bwd_bound(B, Hq, Wq, f, M, P, D, esize, corners):
-    """(bytes ms, ops ms) of one B5b launch: the level map, dx, dy, aw (f32)
-    and g read once, d value (value's dtype) and d dx, d dy, d aw (f32)
-    written once; per kept corner the D-channel dot product with g, the
-    hat weights and slopes and three products, and the D multiply-adds of
-    d value, in f32 on the CUDA cores."""
-    samples = B * Hq * Wq * M * P
-    level = B * (Hq // f) * (Wq // f) * M * D * esize
-    nbytes = 6 * samples * 4 + 2 * level + B * Hq * Wq * M * D * esize
-    ops = corners * (4 * D + 16)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-
-
-def window_bound(B, Hp, Wp, N, ws, C, heads, backward=False):
-    """(bytes ms, ops ms) of one bf16 launch.  Forward: qkv read and the
-    output written once, the f32 table read once; q.k, a.v, the two
-    positional terms and the value-table term.  Backward: qkv and g read,
-    d(qkv) written, the f32 table read and d(table) written once; the five
-    T x T products (q.k and g.v recomputed, dq, dk, dv: 2.5x the forward's
-    two) and eight T x P products (qr, kr and g.ve recomputed, the
-    positional halves of dq and dk, the q, k and v table gradients).  That
-    is the fully fused backward's (B7's) bound, which K1b's row shares: K1b
-    also moves its f32 dqr, dkr and mass buffers ([G, h, T, P] each) out
-    and back in, beyond it."""
-    T, P = ws * ws * N, ws * ws
-    nwin = B * (Hp // ws) * (Wp // ws)
-    hd = C // heads
-    tokens = B * Hp * Wp * N
-    table = (2 * ws - 1) ** 2 * 3 * C * 4
-    if backward:
-        nbytes = tokens * (3 * C + C + 3 * C) * 2 + 2 * table
-        ops = nwin * heads * (10 * T * T * hd + 16 * T * P * hd)
-    else:
-        nbytes = tokens * (3 * C + C) * 2 + table
-        ops = nwin * heads * (4 * T * T * hd + 6 * T * P * hd)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-
-
-def stripe_bound(B, Hp, Wp, N, H_sp, W_sp, C, heads, backward=False):
-    """(bytes ms, ops ms) of one bf16 launch: q, k, v (and g) read and the
-    output (dq, dk, dv) written once; q.k and a.v of every stripe (the
-    backward: five T x T products, 2.5x the forward's two)."""
-    T = H_sp * W_sp * N
-    nstripes = B * (Hp // H_sp) * (Wp // W_sp)
-    nbytes = B * Hp * Wp * N * (7 if backward else 4) * C * 2
-    ops = nstripes * heads * (10 if backward else 4) * T * T * (C // heads)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
 
 
 def check_bwd(name, got, want, dtype_name):
@@ -604,15 +566,6 @@ def sdpa_backward_ms(gen, G, heads, T, hd, mask):
     g = torch.randn(out.shape, generator=gen, device="cuda", dtype=out.dtype)
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g,
                                                retain_graph=True), 10)
-
-
-# the window backwards' own kernels by name: K1b's main and d(ve) kernels
-# (the rest of a launch's device time is the plain products of
-# ``_window_bwd_finish``), B7's main kernel and its in-order partial sum
-K1B_MAIN = ("window_bwd_mma_kernel", "window_attention_bwd_kernel")
-K1B_DVE = ("window_dve_",)
-B7_MAIN = ("window_pos_bwd_mma_kernel", "window_pos_bwd_kernel")
-B7_SUM = ("window_pos_bwd_sum_kernel",)
 
 
 def split_ms(fn, ms, groups, iters=3):
@@ -1110,21 +1063,6 @@ ROW0_CASES = [
 ]
 
 
-def masked_bound(G, Rq, Rk, heads, hd, Gm, backward=False):
-    """(bytes ms, ops ms) of one bf16 launch: q, k, v (and g) and the f32
-    mask read once, the output (dq, dk, dv) written once; q.k and a.v of
-    every (group, head) (the backward: five Rq x Rk products)."""
-    q_bytes, k_bytes = G * heads * Rq * hd * 2, G * heads * Rk * hd * 2
-    mask_bytes = Gm * Rq * Rk * 4
-    if backward:  # q, g, dq; k, v, dk, dv; the mask
-        nbytes = 3 * q_bytes + 4 * k_bytes + mask_bytes
-        ops = G * heads * 10 * Rq * Rk * hd
-    else:
-        nbytes = 2 * q_bytes + 2 * k_bytes + mask_bytes
-        ops = G * heads * 4 * Rq * Rk * hd
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-
-
 def tile_stripe_mask(tile):
     """[1, Rq, Rk] rows of the global anti-same-pixel stripe mask for a tile,
     on the card: the sharded CSWin layer's own cached mask."""
@@ -1324,31 +1262,20 @@ def main_path_cfg(dtype, gelu_approx, use_kernels, swin=False, grid=None):
 
 def tap_oob_fractions(model, pair):
     """Phase 3a (swin): one request with a hook on every extractor's
-    deformable attention; returns, per extractor, whether it took the tap
-    path and the share of its samples beyond the tap radius
-    (``tap_out_of_range_fraction``: 0.0 means the tap path was exact)."""
-    from nmrf_tpu_torch import predict
-    from nmrf_tpu_torch.ops.msda import tap_out_of_range_fraction
+    deformable attention (``tools/check_tap_coverage.py:tap_coverage``);
+    returns, per extractor, whether it took the tap path and the share of
+    its samples beyond the tap radius (``tap_out_of_range_fraction``: 0.0
+    means the tap path was exact)."""
+    import torch
 
-    report = []
+    from nmrf_tpu_torch.data import InputPadder
+    from nmrf_tpu_torch.tools.check_tap_coverage import tap_coverage
 
-    def hook(module, args, _output):
-        query, ref, flat, shapes, query_shape = args
-        locations, _ = module.sampling(query, ref, shapes)
-        report.append({
-            "taps": module.uses_taps(query.shape[1], shapes, query_shape),
-            "level": list(shapes[0]),
-            "oob_fraction": tap_out_of_range_fraction(
-                locations, shapes, query_shape, module.tap_radius).item()})
-
-    handles = [e.attn.register_forward_hook(hook)
-               for e in model.backbone.neck.extractors]
-    try:
-        predict(model, *pair)
-    finally:
-        for h in handles:
-            h.remove()
-    return report
+    padder = InputPadder(pair[0].shape, mode="proposal", divis_by=model.divis_by)
+    img1, img2 = (torch.from_numpy(p[None]).cuda() for p in padder.pad(*pair))
+    return [{"taps": r["taps"], "level": r["levels"][0],
+             "oob_fraction": max(r["oob_fractions"])}
+            for r in tap_coverage(model, img1, img2)]
 
 
 def serve_phase(swin=False):
@@ -1503,81 +1430,54 @@ def train_phase(fused=False, swin=False):
                    for r in rows]}
 
 
-KERNEL_GROUPS = (
-    ("msda_taps_bwd (B5b)", ("msda_bwd_",)),
-    ("msda_taps (B5)", ("msda_taps_kernel", "msda_taps_vec_kernel")),
-    ("masked_attention_bwd (B6b)", ("masked_bwd_",)),
-    ("masked_attention (B6)", ("masked_attention_kernel",
-                               "masked_attention_mma_kernel")),
-    ("window_attention_pos_bwd (B7)", B7_MAIN + B7_SUM),
-    ("window_attention_bwd (K1b)", K1B_MAIN + K1B_DVE),
-    ("stripe_attention_bwd (K2b)", ("stripe_bwd_dq", "stripe_bwd_dkv")),
-    ("window_attention (K1)", ("window_attention_kernel",
-                               "window_attention_mma_kernel")),
-    ("stripe_attention (K2)", ("stripe_attention_kernel",
-                               "stripe_attention_mma_kernel")),
-    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
-                     "winograd")),
-    ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
-    ("memcpy", ("Memcpy", "Memset")),
-    ("layer_norm", ("layer_norm",)),
-    ("optimizer", ("multi_tensor", "adam", "foreach")),
-    ("reduction", ("reduce_kernel",)),
-    ("copy/cast", ("copy", "cast")),
-    ("sort/index", ("sort", "gather", "index", "scatter", "argmax", "argmin")),
-)
-
-
 COLLECTIVE_KEYS = ("gloo", "nccl", "c10d", "all_gather", "allgather",
                    "all_reduce", "allreduce")
 
 
-def _union_ms(spans):
-    """Length of the union of (start, end) intervals in us, as ms."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
-
-
 def profile_phase(name, fn):
-    """Phase 6b: one call of fn under torch.profiler; device time by kernel
-    group, the device's busy share of the call's wall time, and the host
-    time inside torch.distributed collectives (union of their host
-    intervals; 0 without a process group)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Phase 6b: one call of fn under torch.profiler, its chrome trace read
+    by ``profile_model.summarize_trace`` (the profilers' one summary):
+    device time by kernel group, the busy time (union of the device
+    intervals) and idle share (1 - busy over the trace's window); beside
+    them the call's wall time and the host time inside torch.distributed
+    collectives (union of their host intervals; 0 without a process
+    group)."""
+    import shutil
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    import torch
+
+    from nmrf_tpu_torch.tools import profile_model
+
+    wall = []
+
+    def call():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, spans, coll = {}, [], []
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            if any(k in evt.name.lower() for k in COLLECTIVE_KEYS):
-                coll.append((evt.time_range.start, evt.time_range.end))
-            continue
-        us = evt.time_range.elapsed_us()
-        spans.append((evt.time_range.start, evt.time_range.end))
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in evt.name for k in keys)), "other elementwise")
-        total, count = groups.get(group, (0.0, 0))
-        groups[group] = (total + us, count + 1)
-    busy = _union_ms(spans) * 1e3  # union of device intervals, us
-    rows = sorted(((t / 1e3, c, g) for g, (t, c) in groups.items()), reverse=True)
-    for ms, count, group in rows:
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        path = profile_model.profile(call, os.path.join(work, "trace.json"),
+                                     "cuda")
+        _, busy, idle, groups = profile_model.summarize_trace(path, top=0)
+        coll = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in profile_model._events(path)
+                if e.get("cat") not in profile_model.DEVICE_CATS
+                and not e.get("cat", "").startswith("gpu_")  # device ranges
+                and any(k in e["name"].lower() for k in COLLECTIVE_KEYS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for group, (ms, count) in groups.items():
         log(f"profile {name}: {ms:9.3f} ms  x{count:<5d} {group}")
-    if not spans:
+    if not groups:
         fail(f"profiler recorded no device activity ({name})")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+    return {"wall_ms": wall[0], "device_busy_ms": busy,
+            "device_idle_share": idle,
             "collective_host_ms": _union_ms(coll),
-            "groups": [{"group": g, "ms": ms, "launches": c} for ms, c, g in rows]}
+            "groups": [{"group": g, "ms": ms, "launches": c}
+                       for g, (ms, c) in groups.items()]}
 
 
 def parity_phase(swin=False):
@@ -3058,6 +2958,242 @@ def op_dispatch_phase():
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the measurement entry points (phase 10)
+# --------------------------------------------------------------------------- #
+
+BENCH_REPEAT = 3
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]   # bench.py:142-147
+TRAIN_KEYS = ["metric", "value", "unit", "frames_per_s", "total_loss",
+              "tflops_per_step", "mfu"]                   # bench_train.py:104-112
+SWIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "sceneflow_swint.yaml")
+
+
+def run_entry(main, argv, what):
+    """An entry point's ``main(argv)`` in this process, its stdout captured,
+    the launch counters set to 0 just before and read just after: (its
+    result, its stdout lines, the launches)."""
+    import io
+
+    from nmrf_tpu_torch.ops import attention as A
+
+    buf = io.StringIO()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    counts = A.launch_counts()
+    lines = buf.getvalue().splitlines()
+    log(f"phase 10 {what}: {time.perf_counter() - t0:.1f} s; stdout "
+        + json.dumps(lines[-8:]))
+    return result, lines, counts
+
+
+def json_line(lines, what, keys):
+    """The one JSON line of a bench's stdout, with exactly ``keys``."""
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    if len(rows) != 1:
+        fail(f"{what}: {len(rows)} JSON lines on stdout, expected 1")
+    if list(rows[0]) != keys:
+        fail(f"{what}: keys {list(rows[0])}, expected the JAX bench's {keys}")
+    return rows[0]
+
+
+def top_rows(summary, n=5):
+    """The first rows of a trace summary, kernel names cut to 80 characters."""
+    return [(ms, count, name[:80], group)
+            for ms, count, name, group in summary[0][:n]]
+
+
+def bench_phase(flops_out=None):
+    """Phase 10: the measurement entry points in this process at full width
+    (``python -m nmrf_tpu_torch.bench`` and the rest, through their
+    ``main``), each stdout line checked; returns their records.  The FLOP
+    record goes to ``flops_out`` if given, else into the phase's temporary
+    directory, so a run leaves the checkout's files as they were."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        return _bench_entries(
+            work, flops_out or os.path.join(work, "FLOPS_H100.json"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _bench_entries(work, flops_out):
+    """``bench_phase``'s body; the traces go under ``work``, the FLOP record
+    to ``flops_out``."""
+    import math
+
+    import torch
+
+    from nmrf_tpu_torch import bench, bench_train
+    from nmrf_tpu_torch.tools import (bench_loader, bench_photometric,
+                                      bench_stages, bench_swin_parts,
+                                      check_tap_coverage, flops, profile_model,
+                                      profile_train)
+
+    out = {"card": gpu_identity()}
+    frames = bench.K * BENCH_REPEAT
+    for name, extra in (("resnet", []), ("swin", ["--config-file", SWIN_CONFIG])):
+        what = f"bench {name}"
+        res, lines, counts = run_entry(
+            bench.main, ["--repeat", str(BENCH_REPEAT), "--profile-dir",
+                         os.path.join(work, name)] + extra, what)
+        rec = json_line(lines, what, BENCH_KEYS)
+        metric = "kitti_1242x375_latency" + ("_sceneflow_swint" if extra else "")
+        if rec["metric"] != metric or rec["unit"] != "ms/frame" or not (
+                math.isfinite(rec["value"]) and rec["value"] > 0):
+            fail(f"{what}: {rec}")
+        _expect_launches(res["launches"], f"{what}'s timed chains",
+                         window_attention=10 * frames,
+                         stripe_attention=10 * frames,
+                         msda_taps=(4 if extra else 0) * frames)
+        if any(counts[k] < n for k, n in res["launches"].items()):
+            fail(f"{what}: launches {counts} around main, fewer than its "
+                 f"timed chains' {res['launches']}")
+        kernel_flops = {k: v for k, v in res["flops_by_op"].items()
+                        if k.startswith("nmrf.")}
+        if abs(res["deployed_flops"] - res["plain_flops"]) > \
+                0.01 * res["plain_flops"] or not (
+                kernel_flops.get("nmrf.window_attention", 0) > 0
+                and kernel_flops.get("nmrf.stripe_attention", 0) > 0):
+            fail(f"{what}: deployed FLOPs {res['deployed_flops']} (kernels "
+                 f"{kernel_flops}) against the plain path's "
+                 f"{res['plain_flops']}")
+        groups = res["profile"][3]
+        if not {"window_attention (K1)", "stripe_attention (K2)"} <= set(groups):
+            fail(f"{what}: the profile's groups {list(groups)} miss K1 or K2")
+        out[f"bench_{name}"] = {
+            "record": rec, "wall_ms": res["wall_ms"],
+            "device_ms": res["device_ms"], "launches": res["launches"],
+            "deployed_flops": res["deployed_flops"],
+            "plain_flops": res["plain_flops"], "kernel_flops": kernel_flops,
+            "bytes": res["bytes"],
+            "mfu": flops.mfu(res["deployed_flops"], rec["value"]),
+            "profile": {"busy_ms": res["profile"][1],
+                        "idle_share": res["profile"][2],
+                        "groups": {g: v for g, v in groups.items()}}}
+        log(f"phase 10 {what}: " + json.dumps(out[f"bench_{name}"]))
+        torch.cuda.empty_cache()
+
+    for name, fused, extra in (("resnet", False, []), ("fused_pos", True, []),
+                               ("swin", False, ["--config-file", SWIN_CONFIG])):
+        what = f"bench_train {name}"
+        with fused_pos() if fused else contextlib.nullcontext():
+            res, lines, counts = run_entry(
+                bench_train.main, extra + ["TPU.COMPUTE_DTYPE", "bfloat16"],
+                what)
+        rec = json_line(lines, what, TRAIN_KEYS)
+        metric = "train_step_384x768_b8" + ("_sceneflow_swint" if extra else "")
+        if rec["metric"] != metric or not math.isfinite(rec["total_loss"]) \
+                or not 0 < rec["mfu"] < 1 or not rec["value"] > 0:
+            fail(f"{what}: {rec}")
+        steps = bench_train.ITERS
+        window_bwd = "window_attention_pos_bwd" if fused else "window_attention_bwd"
+        taps = {"msda_taps": 4 * steps, "msda_taps_bwd": 4 * steps} \
+            if extra else {}
+        _expect_launches(res["launches"], f"{what}'s timed steps",
+                         window_attention=10 * steps,
+                         stripe_attention=10 * steps,
+                         stripe_attention_bwd=10 * steps,
+                         **{window_bwd: 10 * steps}, **taps)
+        out[f"bench_train_{name}"] = {"record": rec,
+                                      "device_ms": res["device_ms"],
+                                      "flops": res["flops"],
+                                      "launches": res["launches"]}
+        log(f"phase 10 {what}: " + json.dumps(out[f"bench_train_{name}"]))
+        torch.cuda.empty_cache()
+
+    rows, _, counts = run_entry(bench_stages.main, [], "bench_stages")
+    ms = {r["stage"]: r["ms"] for r in rows}
+    if not (ms["sum_of_stages"] > 0 and ms["full_forward"] > 0):
+        fail(f"bench_stages: {ms}")
+    out["bench_stages"] = ms
+    log(f"phase 10 bench_stages: sum_of_stages {ms['sum_of_stages']} ms, "
+        f"full_forward {ms['full_forward']} ms; " + json.dumps(ms))
+    rows, _, counts = run_entry(bench_swin_parts.main, ["--iters", "10"],
+                                "bench_swin_parts")
+    out["bench_swin_parts"] = {r["part"]: r["ms"] for r in rows}
+    if counts["msda_taps"] == 0:
+        fail(f"bench_swin_parts launched no B5: {counts}")
+    summary, _, counts = run_entry(
+        profile_model.main, ["--out", os.path.join(work, "profile_model"),
+                             "--top", "8"], "profile_model")
+    out["profile_model"] = {"busy_ms": summary[1], "idle_share": summary[2],
+                            "top": top_rows(summary)}
+    res, _, counts = run_entry(
+        profile_train.main, ["--out", os.path.join(work, "profile_train"),
+                             "--top", "8"], "profile_train")
+    out["profile_train"] = {"split_ms": res["split_ms"],
+                            "wall_ms": res["wall_ms"],
+                            "busy_ms": res["summary"][1],
+                            "idle_share": res["summary"][2],
+                            "top": top_rows(res["summary"])}
+    log("phase 10 profiles: " + json.dumps(
+        {k: out[k] for k in ("profile_model", "profile_train")}))
+    res, _, _ = run_entry(bench_loader.main, ["--size", "32", "--workers", "4"],
+                          "bench_loader")
+    out["bench_loader"] = res
+    res, _, _ = run_entry(bench_photometric.main, [], "bench_photometric")
+    out["bench_photometric"] = res
+    log("phase 10 host: " + json.dumps(
+        {k: out[k] for k in ("bench_loader", "bench_photometric")}))
+    rc, lines, counts = run_entry(
+        check_tap_coverage.main, ["--hw", "375x1242", "--config-file",
+                                  SWIN_CONFIG], "check_tap_coverage")
+    if rc != 0 or counts["msda_taps"] != 4:
+        fail(f"check_tap_coverage: exit {rc}, launches {counts}: {lines}")
+    out["check_tap_coverage"] = lines[-1]
+
+    record, _, _ = run_entry(flops.main, [
+        "--infer-ms", str(out["bench_resnet"]["record"]["value"]),
+        "--swin-ms", str(out["bench_swin"]["record"]["value"]),
+        "--train-ms", str(out["bench_train_resnet"]["record"]["value"]),
+        "--fused-train-ms", str(out["bench_train_fused_pos"]["record"]["value"]),
+        "--swin-train-ms", str(out["bench_train_swin"]["record"]["value"]),
+        "--train-batch", "8", "--out", flops_out], "flops")
+    mfus = [record[k]["mfu"] for k in ("inference_resnet", "inference_swin")]
+    mfus += [record["train_step_resnet"][v]["mfu"]
+             for v in ("default", "fused_pos")]
+    mfus.append(record["train_step_swin"]["default"]["mfu"])
+    if not all(0 < m < 1 for m in mfus):
+        fail(f"FLOPS_H100.json: MFU outside (0, 1): {mfus}")
+    out["flops"] = record
+    return out
+
+
+def kernel_flop_shares(kernel_results, bench):
+    """Each kernel's bound operation count per unit of the kernels line and
+    per launch, and its share of the frame's (K1, K2: resnet; B5: swin) or
+    step's FLOPs (phase 10's plain-path counts).  These are not measured:
+    each is the bound's ``ops_ms`` times the peak it was divided by (the
+    counted FLOPs of K1 and K2; the backwards' recomputes, which the plain
+    path's count does not have; B5's and B5b's f32 work, which the FLOP
+    count, elementwise, leaves out)."""
+    denom = {"window_attention": bench["bench_resnet"]["deployed_flops"],
+             "stripe_attention": bench["bench_resnet"]["deployed_flops"],
+             "msda_taps": bench["bench_swin"]["deployed_flops"],
+             "window_attention_bwd": bench["bench_train_resnet"]["flops"],
+             "stripe_attention_bwd": bench["bench_train_resnet"]["flops"],
+             "window_attention_pos_bwd": bench["bench_train_fused_pos"]["flops"],
+             "msda_taps_bwd": bench["bench_train_swin"]["flops"]}
+    out = {}
+    for name, entries in kernel_results.items():
+        timed = [e for e in entries if e["count"]]
+        if name not in denom or not timed:
+            continue
+        ops = sum(e["ops_ms"] * e["count"] for e in timed) / 1e3 * (
+            F32_OPS_PER_S if name.startswith("msda") else BF16_OPS_PER_S)
+        out[name] = {"bound_ops_per_unit": ops,
+                     "bound_ops_per_launch": ops / sum(e["count"] for e in timed),
+                     "share_of_flops": ops / denom[name]}
+    return out
+
+
 def kernels_line(kernel_results, counts):
     """The kernels JSON line.  Times are per unit of each kernel's main
     path: per KITTI frame for K1/K2/B5 (serving) and B6 (sharded serving,
@@ -3158,6 +3294,12 @@ def main(argv=None):
                         help="build the kernels and run phase 8 alone")
     parser.add_argument("--serve-only", action="store_true",
                         help="build the kernels and run phase 9 alone")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="build the kernels and run phase 10 alone")
+    parser.add_argument("--flops-out", metavar="PATH",
+                        help="keep phase 10's FLOPS_H100.json record at PATH "
+                             "(default: written to the phase's temporary "
+                             "directory and removed with it)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3214,6 +3356,15 @@ def main(argv=None):
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
         log(json.dumps({"serving": serving}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.bench_only:
+        benches = bench_phase(args.flops_out)
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_identity())
+        log(json.dumps({"bench": benches}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3320,6 +3471,12 @@ def main(argv=None):
     serving = serving_phase()
     log(f"phase 9 serving entry points: {time.perf_counter() - t_serve:.1f} s; "
         + json.dumps(serving))
+    torch.cuda.empty_cache()
+    t_bench = time.perf_counter()
+    benches = bench_phase(args.flops_out)
+    log(f"phase 10 measurement entry points: "
+        f"{time.perf_counter() - t_bench:.1f} s ({gpu_identity()}); "
+        + json.dumps(benches))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     counts = dict(serve["launches"])
@@ -3332,8 +3489,12 @@ def main(argv=None):
     counts["window_attention_pos_bwd"] = \
         train_pos["launches"]["window_attention_pos_bwd"]
     counts["msda_taps_bwd"] = swin_train["launches"]["msda_taps_bwd"]
+    line = kernels_line(kernel_results, counts)
+    log("phase 10 kernels' bound operation counts (computed, not measured) "
+        "and their share of the frame's or step's FLOPs: "
+        + json.dumps(kernel_flop_shares(kernel_results, benches)))
     log(gpu_identity())
-    log(json.dumps(kernels_line(kernel_results, counts)))
+    log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

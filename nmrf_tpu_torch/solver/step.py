@@ -2,9 +2,12 @@
 forward in train mode, criterion, backward, gradient clip and an AdamW
 update with the schedule, with ``SOLVER.ACCUM_STEPS`` micro-batches per
 update as ``optax.MultiSteps`` takes them; on one device, or over a
-(data, spatial) process grid."""
+(data, spatial) process grid.  The step's parts run inside the profiler
+ranges ``nmrf::forward``, ``nmrf::loss``, ``nmrf::backward`` and
+``nmrf::optimizer`` (``tools/profile_train.py`` splits a trace by them)."""
 
 import torch
+from torch.profiler import record_function
 
 from ..models.adaptor import MSDeformAttn
 from ..parallel.mesh import spatial_sharded_apply, sum_gradients
@@ -75,20 +78,23 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
     def step(batch):
         nonlocal micro
         model.train()
-        if oob["monitor"]:
-            for m in attns:
-                m.monitor_oob, m.oob = True, None
-            try:
-                out = forward(batch)
-            finally:
+        with record_function("nmrf::forward"):
+            if oob["monitor"]:
                 for m in attns:
-                    m.monitor_oob = False
-            fracs = [m.oob for m in attns if m.oob is not None]
-        else:
-            out, fracs = forward(batch), []
-        losses = criterion(out, {"disp": batch["disp"],
-                                 "valid": batch["valid"]})
-        (losses["total"] / accum_steps).backward()
+                    m.monitor_oob, m.oob = True, None
+                try:
+                    out = forward(batch)
+                finally:
+                    for m in attns:
+                        m.monitor_oob = False
+                fracs = [m.oob for m in attns if m.oob is not None]
+            else:
+                out, fracs = forward(batch), []
+        with record_function("nmrf::loss"):
+            losses = criterion(out, {"disp": batch["disp"],
+                                     "valid": batch["valid"]})
+        with record_function("nmrf::backward"):
+            (losses["total"] / accum_steps).backward()
         micro += 1
         result = {k: v.detach().float() for k, v in losses.items()}
         if fracs:
@@ -106,13 +112,14 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
                 frac = torch.maximum(frac, oob["max"])
             oob["max"] = result["msda_tap_oob"] = frac
         if micro == accum_steps:
-            if mesh is not None:
-                sum_gradients(params, mesh)
-            result["grad_norm"] = torch.nn.utils.clip_grad_norm_(
-                params, grad_clip).detach().float()
-            optimizer.step()
-            scheduler.step()
-            optimizer.zero_grad(set_to_none=True)
+            with record_function("nmrf::optimizer"):
+                if mesh is not None:
+                    sum_gradients(params, mesh)
+                result["grad_norm"] = torch.nn.utils.clip_grad_norm_(
+                    params, grad_clip).detach().float()
+                optimizer.step()
+                scheduler.step()
+                optimizer.zero_grad(set_to_none=True)
             micro = 0
         return result
 

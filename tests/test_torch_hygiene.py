@@ -81,6 +81,27 @@ def test_serving_imports_leave_matplotlib_pil_cv2_jax_unloaded():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_measurement_imports_leave_pil_tensorboard_jax_unloaded():
+    """The bench, the training bench and the tools of the measurement
+    entry points import no JAX, and PIL, OpenCV, matplotlib and
+    tensorboard only where they are used."""
+    code = ("import sys, nmrf_tpu_torch.bench, nmrf_tpu_torch.bench_train, "
+            "nmrf_tpu_torch.utils.benchmarks, nmrf_tpu_torch.tools.flops, "
+            "nmrf_tpu_torch.tools.profile_model, "
+            "nmrf_tpu_torch.tools.profile_train, "
+            "nmrf_tpu_torch.tools.bench_stages, "
+            "nmrf_tpu_torch.tools.bench_swin_parts, "
+            "nmrf_tpu_torch.tools.bench_loader, "
+            "nmrf_tpu_torch.tools.bench_photometric, "
+            "nmrf_tpu_torch.tools.check_tap_coverage; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'nmrf_tpu', 'matplotlib', 'PIL', 'cv2', "
+            "'tensorboard', 'tensorflow')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_config_tree_matches_jax_package():
     from nmrf_tpu.config import get_cfg as get_cfg_jax
     from nmrf_tpu_torch.config import get_cfg
