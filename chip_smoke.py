@@ -82,11 +82,29 @@ Phases (any failure exits non-zero before the last line is printed):
    and its backward B6b (at the sharded serving and training shapes, G 156
    and 768, and on a ragged shape; two B6b launches give the same bits),
    and K1/K1b/B7 at a tile's row offset, against their plain versions.
+   Each rank's resnet backbone runs on its H tile (the stem's input must
+   hold the tile's rows, not the image's), and its part of a sharded step
+   (forward and backward, bf16, batch 8) is timed and profiled against the
+   same on the whole images with the tile kept.  The swin model on the
+   same grid: 2 KITTI pairs padded to 384x1248 through
+   ``make_sharded_forward`` in f32, each held on rank 0 against the
+   unsharded swin forward (4 B5 + 10 K1 + 5 K2 + 5 B6 a frame per rank);
+   one f32 sharded swin step (batch 2, drop-path on, the same masks on
+   both sides) against the unsharded step, losses and every gradient leaf;
+   then 1 + 3 sharded swin steps (bf16, batch 8, the tap monitor on: 4 B5
+   and 4 B5b a step per rank beside the decode's launches), every rank with
+   the same losses, ``msda_tap_oob`` (0 at init) and parameters; each
+   rank's B5/B5b launches are logged.
    Then two ranks on the card over gloo on a 2 x 1 grid (the data axis)
    take 2 swin training steps of 4 pairs each (drop-path masks: rows of
    one global draw; the tap monitor's shares averaged over the ranks):
    both ranks must report the same losses and ``msda_tap_oob`` and keep
    the same parameters, with 4 B5 and 4 B5b launches a step per rank.
+   Last, ``python -m nmrf_tpu_torch.bench_scaling --ranks 2`` (phase 7c):
+   the weak-scaling points (1, 1), (2, 1) and (1, 2) on the card, each
+   held to the port's communication contract, the record written with
+   ``--out`` to a temporary file, efficiency null where ranks share the
+   card.
 
 8. drive the training and evaluation entry point,
    ``nmrf_tpu_torch.train.main`` (the CLI), in this process at full width
@@ -1927,14 +1945,36 @@ def sharded_worker(rank, out_dir, grid, backend):
               "device_name": torch.cuda.get_device_name(mesh.device)}
     for name, fn in (("serve", sharded_serve), ("parity", sharded_parity),
                      ("grad_check", sharded_grad_check),
+                     ("backbone", sharded_backbone),
                      ("train", sharded_train),
-                     ("train_fused_pos", lambda m: sharded_train(m, fused=True))):
+                     ("train_fused_pos", lambda m: sharded_train(m, fused=True)),
+                     ("swin_serve", sharded_swin_serve),
+                     ("swin_grad_check", lambda m: sharded_grad_check(m, swin=True)),
+                     ("swin_train", sharded_swin_train)):
         report[name] = fn(mesh)
         torch.cuda.empty_cache()
         if rank == 0:
             log(f"phase 7 sharded {name} (rank 0): " + json.dumps(report[name]))
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(report, f)
+
+
+def log_sharded_swin(reports):
+    """Phase 7's per-rank lines: the resnet stem's rows (the backbone on
+    tiles), the backbone's tile and whole-image times, B5 and B5b launches
+    of the sharded swin requests and steps, the swin steps' losses."""
+    for r in reports:
+        log(f"phase 7 rank {r['rank']}: resnet stem rows "
+            + json.dumps(r["parity"]["backbone_stem_rows"])
+            + "; backbone " + json.dumps(r["backbone"])
+            + "; swin B5 launches in requests "
+            + str(r["swin_serve"]["launches"]["msda_taps"])
+            + ", B5/B5b in steps " + str(r["swin_train"]["launches"]["msda_taps"])
+            + "/" + str(r["swin_train"]["launches"]["msda_taps_bwd"])
+            + "; swin f32 step vs unsharded "
+            + json.dumps({k: r["swin_grad_check"].get(k) for k in
+                          ("loss_rel_err", "grad_rel_err")})
+            + "; swin steps " + json.dumps(r["swin_train"]["losses"]))
 
 
 def _expect_launches(counts, what, **want):
@@ -2022,10 +2062,20 @@ def sharded_parity(mesh):
     rng = np.random.RandomState(1)
     img1, img2 = (torch.from_numpy((rng.rand(1, 384, 1248, 3) * 255).astype(
         np.float32)).to(mesh.device) for _ in range(2))
+    stem = []  # the rows of the backbone stem's input and output
+    handle = model.backbone.conv1.register_forward_hook(
+        lambda _m, inputs, out: stem.append((inputs[0].shape[1], out.shape[1])))
     A.reset_launch_counts()
     got = make_sharded_forward(model, mesh)(img1, img2)
     torch.cuda.synchronize()
-    report = {"launches": A.launch_counts()}
+    handle.remove()
+    tile = 384 // mesh.spatial
+    if stem != [(tile, tile // 2)]:
+        fail(f"rank {mesh.rank}: the resnet stem took {stem} rows (input, "
+             f"output), expected its tile of {tile} image rows")
+    report = {"launches": A.launch_counts(),
+              "backbone_stem_rows": {"image": 384, "input": stem[0][0],
+                                     "output": stem[0][1]}}
     _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded forward",
                      window_attention=10, stripe_attention=5,
                      masked_attention=5)
@@ -2046,18 +2096,22 @@ def sharded_parity(mesh):
 
 # leaves whose gradient is zero in exact arithmetic (a key bias shifts a
 # softmax row by one value; the proposal score head's bias shifts every
-# candidate's logit of a sub-pixel alike): their error is normalised by the
-# gradient scale of their layer, as the backbone's by the backbone's
-ZERO_GRAD_LEAVES = ("k.bias", "infer_score_head.bias")
+# candidate's logit of a sub-pixel alike; the DPN cost filter's last bias
+# shifts all D logits of its softmax alike): their error is normalised by
+# the gradient scale of their layer, as the backbone's by the backbone's
+ZERO_GRAD_LEAVES = ("k.bias", "infer_score_head.bias", "dpn.mlp.4.bias")
+SWIN_GRAD_BATCH = 2
 
 
-def sharded_grad_check(mesh):
+def sharded_grad_check(mesh, swin=False):
     """One f32 step's losses and gradients, sharded (world-summed) against
     unsharded (rank 0), same weights and batch (crop 384x768, batch 8):
     losses at rtol 1e-4, every gradient leaf at the tolerances of
     ``tests/test_spatial_model.py:95-119`` (backbone leaves: |d| / max |g|
     over the backbone < 1e-2; the others |d| / (max |g_leaf| + 1e-6) <
-    5e-3)."""
+    5e-3).  ``swin``: the swin model at batch SWIN_GRAD_BATCH, drop-path
+    on: both sides draw the same masks (one generator seeded alike, the
+    global batch's draw on each side), 4 B5 and 4 B5b launches more."""
     import torch
     import torch.distributed as dist
 
@@ -2067,12 +2121,14 @@ def sharded_grad_check(mesh):
     from nmrf_tpu_torch.parallel import (shard_batch, spatial_sharded_apply,
                                          sum_gradients)
 
-    cfg = main_path_cfg("float32", False, True, grid=(mesh.data, mesh.spatial))
+    cfg = main_path_cfg("float32", False, True, swin=swin,
+                        grid=(mesh.data, mesh.spatial))
     criterion = build_criterion(cfg)
     H, W = cfg.DATASETS.CROP_SIZE
-    batch = synthetic_batch(TRAIN_BATCH, H, W, max_disp=cfg.SOLVER.MAX_DISP,
+    B = SWIN_GRAD_BATCH if swin else TRAIN_BATCH
+    batch = synthetic_batch(B, H, W, max_disp=cfg.SOLVER.MAX_DISP,
                             seed=0, disp_quantum=8)
-    report = {"batch": TRAIN_BATCH, "crop": [H, W]}
+    report = {"batch": B, "crop": [H, W]}
     if mesh.rank == 0:
         torch.cuda.reset_peak_memory_stats()
         ref = build_model(cfg, device=mesh.device).train()
@@ -2097,10 +2153,12 @@ def sharded_grad_check(mesh):
     torch.cuda.synchronize()
     report["launches"] = A.launch_counts()
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded step",
+    taps = {"msda_taps": 4, "msda_taps_bwd": 4} if swin else {}
+    _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded step"
+                     + (" (swin)" if swin else ""),
                      window_attention=10, stripe_attention=5,
                      masked_attention=5, window_attention_bwd=10,
-                     stripe_attention_bwd=5, masked_attention_bwd=5)
+                     stripe_attention_bwd=5, masked_attention_bwd=5, **taps)
     if mesh.rank == 0:
         got_losses = {k: float(v.detach()) for k, v in losses.items()}
         report["loss_rel_err"] = max(abs(got_losses[k] - v) / max(abs(v), 1e-12)
@@ -2203,7 +2261,7 @@ def _sharded_train(mesh, fused):
              f"step, {last:.4f} over the last 2)")
     # the world-summed update keeps the ranks' parameters identical
     checksum = torch.stack([p.detach().double().sum() for p in model.parameters()])
-    sums = mesh.world.all_gather(checksum)
+    sums = mesh.world.all_gather(checksum, "check")
     if not all(torch.equal(sums[0], s) for s in sums[1:]):
         fail("sharded training: the ranks' parameters diverged")
     return {"fused_pos": fused, "batch": TRAIN_BATCH, "crop": [H, W], "steps": S,
@@ -2212,6 +2270,205 @@ def _sharded_train(mesh, fused):
             "launches": counts, "total_first": first, "total_last2": last,
             "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm")}
                        for r in rows]}
+
+
+BACKBONE_ITERS = 5
+
+
+def sharded_backbone(mesh):
+    """The resnet backbone's part of a sharded training step on every rank
+    (bf16, crop 384x768, batch 8): the forward through ``sharded_features``
+    (the rank's H tile of its images with halo rows, global instance-norm
+    moments) and the backward of sum(features * cotangent), against the
+    same on the whole images of the rank's data shard with the rank's tile
+    of the features kept (the unsharded backbone of the same weights: what
+    a rank ran before the backbone was sharded).  Each is timed with CUDA
+    events over BACKBONE_ITERS calls after a warm-up, both ranks working
+    at once, and profiled once on rank 0, where the profile holds the
+    backbone's kernels alone (convolution, instance norm, elementwise, the
+    halo copies): its device busy ms is the rank's backbone device time."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.parallel.mesh import sharded_features
+
+    cfg = main_path_cfg("bfloat16", False, True, grid=(mesh.data, mesh.spatial))
+    model = build_model(cfg, mesh=mesh).train()
+    whole = build_model(cfg, device=mesh.device).train()
+    whole.load_state_dict(model.state_dict())
+    H, W = cfg.DATASETS.CROP_SIZE
+    n = TRAIN_BATCH // mesh.data
+    batch = synthetic_batch(TRAIN_BATCH, H, W, max_disp=cfg.SOLVER.MAX_DISP,
+                            seed=0, disp_quantum=8)
+    img1, img2 = (torch.from_numpy(batch[k][mesh.data_index * n:
+                                            (mesh.data_index + 1) * n]
+                                   ).to(mesh.device) for k in ("img1", "img2"))
+    sp = mesh.spatial_group
+
+    def tile(f):
+        h = f.shape[1] // mesh.spatial
+        return f.narrow(1, sp.index * h, h)
+
+    def run(features):
+        f1, f2 = features()
+        sum(f.float().sum() for f in f1 + f2).backward()
+
+    forms = {"tile": lambda: sharded_features(model, mesh, img1, img2),
+             "whole": lambda: [[tile(f) for f in fs] for fs in
+                               whole.extract_feature(img1, img2)]}
+    report = {"batch_per_rank": n, "crop": [H, W]}
+    for name, features in forms.items():
+        run(features)  # warm-up: cuDNN's choices
+        torch.cuda.synchronize()
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BACKBONE_ITERS):
+            run(features)
+        end.record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        row = {"event_ms": start.elapsed_time(end) / BACKBONE_ITERS}
+        if mesh.rank == 0:
+            prof = profile_phase(f"sharded backbone, {name} (rank 0)",
+                                 lambda: run(features))
+            row.update(device_busy_ms=prof["device_busy_ms"],
+                       groups={g["group"]: g["ms"] for g in prof["groups"]})
+        else:
+            run(features)
+        dist.barrier()
+        report[name] = row
+    return report
+
+
+SWIN_SHARD_REQUESTS = 2
+SWIN_SHARD_STEPS = 3
+
+
+def sharded_swin_serve(mesh):
+    """The swin model (f32) on the grid: SWIN_SHARD_REQUESTS KITTI pairs
+    padded to SHARD_DIVIS through make_sharded_forward, each held on rank 0
+    against the unsharded forward of the same weights (``check_forward``);
+    per rank per frame 4 B5 (the backbone on the whole images), 10 K1, 5 K2
+    and 5 B6 launches."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.data.frame_io import InputPadder
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import make_sharded_forward
+
+    cfg = main_path_cfg("float32", False, True, swin=True,
+                        grid=(mesh.data, mesh.spatial))
+    model = build_model(cfg, mesh=mesh)
+    fwd = make_sharded_forward(model, mesh)
+    ref_model = None
+    if mesh.rank == 0:
+        ref_model = build_model(cfg, device=mesh.device)
+        ref_model.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(2)
+    checks, counts = [], {}
+    t0 = time.perf_counter()
+    for _ in range(SWIN_SHARD_REQUESTS):
+        pair = [(rng.rand(H_KITTI, W_KITTI, 3) * 255).astype(np.float32)
+                for _ in range(2)]
+        padder = InputPadder(pair[0].shape, mode="proposal",
+                             divis_by=SHARD_DIVIS)
+        a, b = (torch.from_numpy(p[None]).to(mesh.device)
+                for p in padder.pad(*pair))
+        A.reset_launch_counts()  # the sharded forwards' launches only
+        got = fwd(a, b)
+        torch.cuda.synchronize()
+        for k, v in A.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        if mesh.rank == 0:
+            scores = {}
+            handle = ref_model.infer_score_head.register_forward_hook(
+                lambda _m, _i, out: scores.update(plain=out))
+            with torch.inference_mode():
+                ref = ref_model(a, b)
+            handle.remove()
+            checks.append(check_forward(got, ref, scores["plain"][-1]))
+        dist.barrier()
+    R = SWIN_SHARD_REQUESTS
+    _expect_launches(counts, f"rank {mesh.rank}, {R} sharded swin requests",
+                     msda_taps=4 * R, window_attention=10 * R,
+                     stripe_attention=5 * R, masked_attention=5 * R)
+    return {"requests": R, "padded": [384, 1248], "dtype": "float32",
+            "seconds": time.perf_counter() - t0, "launches": counts,
+            "checks": checks}
+
+
+def sharded_swin_train(mesh):
+    """One warm-up and SWIN_SHARD_STEPS sharded swin training steps (bf16,
+    drop-path 0.4, crop 384x768, batch 8) through make_train_step(...,
+    mesh=, monitor_oob=True): per rank per step 4 B5 and 4 B5b (their
+    vector kernels, B5b with its tap masks) beside 10 K1 + 10 K1b, 5 K2 +
+    5 K2b, 5 B6 + 5 B6b; finite losses, ``msda_tap_oob`` every step and 0
+    at init, and every rank the same losses and parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
+                                make_train_step)
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel import shard_batch
+
+    cfg = main_path_cfg("bfloat16", False, True, swin=True,
+                        grid=(mesh.data, mesh.spatial))
+    model = build_model(cfg, mesh=mesh)
+    optimizer, scheduler = build_optimizer(model, cfg)
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           cfg.SOLVER.ACCUM_STEPS, grad_clip=cfg.SOLVER.GRAD_CLIP,
+                           mesh=mesh, monitor_oob=True)
+    H, W = cfg.DATASETS.CROP_SIZE
+    batch = shard_batch(synthetic_batch(TRAIN_BATCH, H, W,
+                                        max_disp=cfg.SOLVER.MAX_DISP, seed=0,
+                                        disp_quantum=8), mesh)
+    history = [step(batch)]  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    history += [step(batch) for _ in range(SWIN_SHARD_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    counts, variants = A.launch_counts(), A.variant_counts()
+    S = SWIN_SHARD_STEPS
+    _expect_launches(counts, f"rank {mesh.rank}, {S} sharded swin steps",
+                     msda_taps=4 * S, msda_taps_bwd=4 * S,
+                     window_attention=10 * S, window_attention_bwd=10 * S,
+                     stripe_attention=5 * S, stripe_attention_bwd=5 * S,
+                     masked_attention=5 * S, masked_attention_bwd=5 * S)
+    if variants["msda_taps_bwd"] != {"vector_masks": 4 * S}:
+        fail(f"rank {mesh.rank}: B5b variants {variants['msda_taps_bwd']}")
+    rows = [{k: float(v) for k, v in h.items()} for h in history]
+    if not all(np.isfinite(v) for row in rows for v in row.values()) or \
+            [r.get("msda_tap_oob") for r in rows][0] != 0.0 or \
+            any("msda_tap_oob" not in r for r in rows):
+        fail(f"rank {mesh.rank}, sharded swin steps: {rows}")
+    checksum = torch.stack([p.detach().double().sum() for p in model.parameters()]
+                           + [torch.tensor(r[k], dtype=torch.float64,
+                                           device=mesh.device)
+                              for r in rows for k in ("total", "msda_tap_oob")])
+    sums = mesh.world.all_gather(checksum, "check")
+    if not all(torch.equal(sums[0], s) for s in sums[1:]):
+        fail("sharded swin steps: the ranks' parameters, losses or "
+             "msda_tap_oob differ")
+    return {"batch": TRAIN_BATCH, "crop": [H, W], "steps": S,
+            "step_ms": start.elapsed_time(end) / S,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "variants": variants,
+            "losses": [{k: r[k] for k in ("total", "epe_train", "grad_norm",
+                                          "msda_tap_oob")} for r in rows]}
 
 
 SWIN_DATA_GRID = (2, 1)   # (data, spatial): the swin step, data-parallel
@@ -2287,7 +2544,7 @@ def swin_data_worker(rank, out_dir):
             any("msda_tap_oob" not in row for row in rows):
         fail(f"rank {rank}, swin data-parallel steps: {rows}")
     checksum = torch.stack([p.detach().double().sum() for p in model.parameters()])
-    sums = mesh.world.all_gather(checksum)
+    sums = mesh.world.all_gather(checksum, "check")
     if not all(torch.equal(sums[0], s) for s in sums[1:]):
         fail("swin data-parallel steps: the ranks' parameters diverged")
     report = {"rank": rank, "grid": list(SWIN_DATA_GRID), "pairs_per_rank":
@@ -2300,6 +2557,59 @@ def swin_data_worker(rank, out_dir):
         log("phase 7 swin data-parallel (rank 0): " + json.dumps(report))
     with open(f"{out_dir}/swin_rank{rank}.json", "w") as f:
         json.dump(report, f)
+
+
+SCALING_ITERS = 3
+SCALING_KEYS = ["mesh", "variant", "devices", "ms_per_step", "global_batch",
+                "weak_scaling_efficiency", "collectives_per_step",
+                "comm_contract"]                          # bench_scaling.py:273-282
+
+
+def scaling_phase():
+    """Phase 7c: ``python -m nmrf_tpu_torch.bench_scaling --ranks 2`` on the
+    card (the (1, 1), (2, 1) and (1, 2) points; ranks sharing a card over
+    gloo, with a card each over NCCL; ``--out`` to a temporary file): exit
+    0 (the bench holds every point to the port's communication contract),
+    three rows with the JAX script's keys, the record on the GPU platform,
+    efficiency null where ranks share the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_scaling_")
+    out = os.path.join(work, "SCALING_H100.json")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nmrf_tpu_torch.bench_scaling", "--ranks",
+             "2", "--iters", str(SCALING_ITERS), "--out", out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"bench_scaling exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines()
+                if line.startswith("{")]
+        with open(out) as f:
+            record = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if [r["mesh"] for r in rows] != ["data=1x spatial=1", "data=2x spatial=1",
+                                     "data=1x spatial=2"] \
+            or rows != record["sweep"] or record["platform"] != "gpu":
+        fail(f"bench_scaling: rows {rows}, record {record}")
+    shared = torch.cuda.device_count() < 2
+    for row in rows:
+        if list(row)[:len(SCALING_KEYS)] != SCALING_KEYS:
+            fail(f"bench_scaling: row keys {list(row)}")
+        if shared and row["weak_scaling_efficiency"] is not None:
+            fail(f"bench_scaling: efficiency {row['weak_scaling_efficiency']} "
+                 "with ranks sharing the card")
+    return {"seconds": seconds, "card": record["card"],
+            "rows": [{k: r[k] for k in ("mesh", "ms_per_step", "backend",
+                                        "weak_scaling_efficiency",
+                                        "comm_contract")} for r in rows]}
 
 
 # --------------------------------------------------------------------------- #
@@ -3371,6 +3681,7 @@ def main(argv=None):
         return 0
     if args.sharded_only:
         sharded = sharded_phase(args.grid, args.backend)
+        log_sharded_swin(sharded)
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
         log(json.dumps({"sharded": [{k: r[k] for k in (
@@ -3455,11 +3766,15 @@ def main(argv=None):
         + json.dumps([{k: r[k] for k in ("rank", "device", "serve", "train",
                                          "train_fused_pos")}
                       for r in sharded]))
+    log_sharded_swin(sharded)
     t_swin = time.perf_counter()
     swin_data = swin_data_phase()
     log(f"phase 7 swin data-parallel path: {time.perf_counter() - t_swin:.1f} s; "
         "both ranks report the same losses and msda_tap_oob: "
         + json.dumps(swin_data[0]["losses"]))
+    scaling = scaling_phase()
+    log(f"phase 7c weak-scaling bench: {scaling['seconds']:.1f} s "
+        f"({scaling['card']}); " + json.dumps(scaling["rows"]))
     t_entry = time.perf_counter()
     entry = entry_point_phase()
     log(f"phase 8 entry point: {time.perf_counter() - t_entry:.1f} s; "

@@ -101,18 +101,18 @@ def build_model(cfg, device=None, mesh=None):
 
     mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
     1 the model's decode region runs on H tiles of the features over the
-    mesh's spatial group (drive it through ``parallel.make_sharded_forward``
-    or ``make_train_step(..., mesh=)``); the parameters are the same, so
-    ``params_from_jax`` and ``load_state_dict`` apply unchanged.  The device
-    is then the mesh's unless given."""
+    mesh's spatial group, and so does the resnet backbone on H tiles of the
+    images (with halo rows from the neighbour tiles); the swin backbone
+    runs on the whole images on every rank of a spatial group (drive either
+    through ``parallel.make_sharded_forward`` or ``make_train_step(...,
+    mesh=)``).  The parameters are the same, so ``params_from_jax`` and
+    ``load_state_dict`` apply unchanged.  The device is then the mesh's
+    unless given."""
     if mesh is not None and device is None:
         device = mesh.device
     device = resolve_device(device)
     spatial = mesh.spatial_group if mesh is not None and mesh.spatial > 1 \
         else None
-    if spatial is not None and cfg.BACKBONE.MODEL_TYPE != "resnet":
-        raise ValueError("the H-sharded decode is ported for the resnet "
-                         f"variant only, not {cfg.BACKBONE.MODEL_TYPE!r}")
     for key in _DROPOUT_KEYS:
         node, name = key.split(".")
         if getattr(cfg, node)[name] != 0:

@@ -46,20 +46,49 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on channel-last [B, H, W, C] tensors with the compute-
-    dtype convention above (``groups=in_ch`` for a depthwise convolution)."""
+    dtype convention above (``groups=in_ch`` for a depthwise convolution).
+
+    spatial: the spatial group when x is an H tile of the image
+    (``parallel/spatial.py``), the tile starting on a global row that is a
+    multiple of the stride.  The rows the tile's outputs read beyond it
+    come from the neighbour tiles (:meth:`halo_rows`; zero rows at the
+    global edges, as the zero padding) and the convolution runs with H
+    padding 0: the output is the tile of the unsharded output."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
-                 dilation=1, bias=True, groups=1, dtype=None):
+                 dilation=1, bias=True, groups=1, dtype=None, spatial=None):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, groups=groups,
                          bias=bias)
         self.compute_dtype = dtype
+        self.spatial = spatial
+
+    def halo_rows(self):
+        """(above, below): the input rows beyond an H tile that its outputs
+        read.  Output row o reads input rows s o - p + d j, j < k, so a
+        tile of input rows [t, t + h) (t and h multiples of s) gives
+        outputs [t / s, (t + h) / s) that read rows t - p to
+        t + h - s - p + d (k - 1)."""
+        k, s, p, d = (self.kernel_size[0], self.stride[0], self.padding[0],
+                      self.dilation[0])
+        return p, d * (k - 1) - p - (s - 1)
 
     def forward(self, x):
+        padding = self.padding
+        if self.spatial is not None:
+            if x.shape[1] % self.stride[0]:
+                raise ValueError(f"tile height {x.shape[1]} is not a multiple "
+                                 f"of the stride {self.stride[0]}")
+            above, below = self.halo_rows()
+            halo = max(above, below)
+            if halo:
+                x = halo_exchange_h(x, halo, self.spatial).narrow(
+                    1, halo - above, above + x.shape[1] + below)
+            padding = (0, self.padding[1])
         dt = _dt(self.compute_dtype, x)
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
-                     self.stride, self.padding, self.dilation, self.groups)
+                     self.stride, padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -182,6 +211,14 @@ def instance_norm_2d(x, eps=1e-5):
     return (xf - mean) * torch.rsqrt(var + eps)
 
 
+def instance_norm(x, spatial=None):
+    """:func:`instance_norm_2d`, or with a spatial group (x an H tile) the
+    global moments of ``instance_norm_2d_sharded``; float32."""
+    if spatial is None:
+        return instance_norm_2d(x)
+    return instance_norm_2d_sharded(x, spatial)
+
+
 class Mlp(nn.Module):
     """timm-style MLP: fc1 -> act -> fc2 (dropout is training-only)."""
 
@@ -232,20 +269,12 @@ class ConvINReluConv(nn.Module):
         self.dtype = dtype
         self.spatial = spatial
         self.add_module("0", Conv2d(in_channels, mid_channels, 3, padding=1,
-                                    bias=False, dtype=dtype))
+                                    bias=False, dtype=dtype, spatial=spatial))
         self.add_module("3", Conv2d(mid_channels, out_channels, 1, bias=False,
                                     dtype=dtype))
 
     def forward(self, x):
-        if self.spatial is None:
-            x = instance_norm_2d(self._modules["0"](x))
-        else:
-            conv = self._modules["0"]
-            x = halo_exchange_h(x, 1, self.spatial)
-            dt = _dt(conv.compute_dtype, x)
-            x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
-                         padding=(0, 1)).permute(0, 2, 3, 1)
-            x = instance_norm_2d_sharded(x, self.spatial)
+        x = instance_norm(self._modules["0"](x), self.spatial)
         if self.dtype is not None:
             x = x.to(self.dtype)
         return self._modules["3"](torch.relu(x))

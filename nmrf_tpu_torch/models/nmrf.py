@@ -8,8 +8,10 @@ per-layer losses.
 
 With a spatial group (``parallel/spatial.py``) the decode region (cost
 volume through disparity, :meth:`NMRF.decode`) runs on an H tile of the
-features, its collectives in the modules; ``parallel/mesh.py`` runs the
-backbone, cuts the tiles and reassembles the outputs."""
+features, its collectives in the modules, and so does the resnet backbone
+on an H tile of the images; ``parallel/mesh.py`` cuts the tiles (of the
+images for resnet, of the swin backbone's features for swin) and
+reassembles the outputs."""
 
 import torch
 from torch import nn
@@ -76,7 +78,8 @@ class NMRF(nn.Module):
                       spatial=spatial)
         stage = dict(common, return_intermediate=return_intermediate)
         if backbone_type == "resnet":
-            self.backbone = Backbone(backbone_out_channels, dtype=dtype)
+            self.backbone = Backbone(backbone_out_channels, dtype=dtype,
+                                     spatial=spatial)
         elif backbone_type == "swin":
             self.backbone = SwinAdaptor(
                 backbone_out_channels, drop_path_rate=backbone_drop_path,

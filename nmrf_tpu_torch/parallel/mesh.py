@@ -6,11 +6,14 @@ spatial index r % spatial (the order of ``make_mesh``'s
 ``devices.reshape(data, spatial)``), and each data index has its own
 spatial group.  Under :func:`spatial_sharded_apply`:
 
-* **the backbone**: each rank runs it on its data shard's whole images and
-  keeps its H tile of both feature levels.  That is the function the JAX
-  package's GSPMD-partitioned convolutions compute; the backbone work is
-  repeated on every rank of a spatial group (a halo-exchanged backbone is
-  later work, ``ROADMAP.md``);
+* **the backbone**: the resnet backbone runs on the rank's H tile of its
+  data shard's images, with halo rows from the neighbour tiles and global
+  instance-norm moments (``models/backbone.py``), and returns the tile of
+  both feature levels: the function the JAX package's GSPMD-partitioned
+  convolutions compute.  The swin backbone runs on the data shard's whole
+  images on every rank of a spatial group, which keeps its H tile of both
+  levels: the same function, the backbone's work repeated over the group
+  (an H-sharded swin backbone is later work, ``ROADMAP.md``);
 * **the decode region** (cost volume through disparity,
   ``NMRF.decode``) runs on the tile, with the collectives of
   ``parallel/spatial.py`` inside the modules;
@@ -19,7 +22,8 @@ spatial group.  Under :func:`spatial_sharded_apply`:
   global counts, as the one jit of the JAX step does.  The gather's
   backward takes the rank's own block of the gradient.
 
-The global H divides evenly across the spatial axis, as in the JAX package.
+The global H divides evenly across the spatial axis, as in the JAX package,
+into tiles whose height is a multiple of 8.
 """
 
 import os
@@ -27,7 +31,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from .spatial import Group
+from .spatial import CollectiveCounts, Group
 
 # outputs with a leading layer axis: [L, B, H, ...]; the others are [B, H, ...]
 _LAYER_KEYS = ("coarse_disp_layers", "logits_layers", "disp_pred_layers")
@@ -35,17 +39,20 @@ _LAYER_KEYS = ("coarse_disp_layers", "logits_layers", "disp_pred_layers")
 
 class Mesh:
     """This rank's view of the (data, spatial) grid: its indices, its
-    device, the spatial group of its data index and the world group."""
+    device, the spatial group of its data index and the world group, and
+    ``counts``, the ``spatial.CollectiveCounts`` of every collective this
+    rank issues through them."""
 
     def __init__(self, data, spatial, backend, device):
         self.data, self.spatial, self.device = data, spatial, device
         self.rank = dist.get_rank()
         self.data_index = self.rank // spatial
+        self.counts = CollectiveCounts()
         # every rank builds every group, in one order (new_group is collective)
-        groups = [Group(range(d * spatial, (d + 1) * spatial), backend)
-                  for d in range(data)]
+        groups = [Group(range(d * spatial, (d + 1) * spatial), backend,
+                        self.counts) for d in range(data)]
         self.spatial_group = groups[self.data_index]
-        self.world = Group(range(data * spatial), backend)
+        self.world = Group(range(data * spatial), backend, self.counts)
 
 
 def _rank_device(device):
@@ -93,10 +100,10 @@ def _to_device(value, device, non_blocking):
 
 def shard_batch(batch, mesh):
     """This rank's part of a global training batch, on its device: the
-    img1/img2 rows of its data index (whole images: the backbone runs on
-    them and the decode cuts the H tile), and ``disp``/``valid`` whole (the
-    criterion runs on the global outputs).  The batch must divide over the
-    data axis."""
+    img1/img2 rows of its data index (whole images:
+    ``spatial_sharded_apply`` cuts the H tile), and ``disp``/``valid``
+    whole (the criterion runs on the global outputs).  The batch must
+    divide over the data axis."""
     out = {}
     for key, value in batch.items():
         value = torch.as_tensor(value)
@@ -121,7 +128,8 @@ def _step_batch(batch, mesh):
         value = _to_device(value, mesh.device, True)
         if key in ("disp", "valid") and mesh.data > 1:
             flag = value.dtype == torch.bool
-            parts = mesh.world.all_gather(value.to(torch.uint8) if flag else value)
+            parts = mesh.world.all_gather(
+                value.to(torch.uint8) if flag else value, "targets")
             value = torch.cat(parts[::mesh.spatial])
             value = value.bool() if flag else value
         out[key] = value
@@ -177,7 +185,7 @@ class _GatherGlobal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, rows, cols, b_ax):
-        parts = group.all_gather(x)
+        parts = group.all_gather(x, "outputs")
         ctx.args = (group.index, cols, b_ax, x.shape[b_ax], x.shape[b_ax + 1])
         return torch.cat([torch.cat(parts[r * cols:(r + 1) * cols], dim=b_ax + 1)
                           for r in range(rows)], dim=b_ax)
@@ -200,6 +208,34 @@ def _unspatial(out):
     return out
 
 
+def _tile_height(H, mesh):
+    h = H // mesh.spatial
+    if h * mesh.spatial != H or h % 8:
+        raise ValueError(f"image height {H} does not divide over {mesh.spatial} "
+                         "spatial ranks into tiles whose height is a multiple "
+                         "of 8")
+    return h
+
+
+def sharded_features(model, mesh, img1, img2):
+    """The rank's H tile of both feature levels of each image (lists [1/8,
+    1/4], as ``model.extract_feature`` gives them for the whole images):
+    the resnet backbone on the rank's tile of the images with halos, the
+    swin backbone on the whole images, its levels then cut to the tile."""
+    sp = mesh.spatial_group
+    h = _tile_height(img1.shape[1], mesh)
+    if getattr(model.backbone, "spatial", None) is not None:
+        return model.extract_feature(img1.narrow(1, sp.index * h, h),
+                                     img2.narrow(1, sp.index * h, h))
+
+    def tile(f):
+        n = f.shape[1] // mesh.spatial
+        return f.narrow(1, sp.index * n, n)
+
+    f1, f2 = model.extract_feature(img1, img2)
+    return [tile(f) for f in f1], [tile(f) for f in f2]
+
+
 def spatial_sharded_apply(model, mesh, img1, img2, replicated=False):
     """The NMRF forward (in the model's mode) with the image H axis over the
     mesh's spatial axis; the model is built with the mesh
@@ -208,21 +244,14 @@ def spatial_sharded_apply(model, mesh, img1, img2, replicated=False):
     img1/img2: this rank's images: the rows of its data index, or with
     ``replicated`` the whole batch on every data index (an eval batch
     smaller than the data axis, ``mesh.py:141-149``: the data axis then
-    repeats the work and the spatial axis shares it).  Returns the global
-    outputs in the layouts of ``model(img1, img2)`` on the whole batch, on
-    every rank."""
-    sp = mesh.spatial_group
-
-    def tile(f):
-        h = f.shape[1] // mesh.spatial
-        assert h * mesh.spatial == f.shape[1], (f.shape, mesh.spatial)
-        return f.narrow(1, sp.index * h, h)
-
-    f1, f2 = model.extract_feature(img1, img2)
-    out = model.decode([tile(f) for f in f1], [tile(f) for f in f2],
-                       spatial_out=True)
+    repeats the work and the spatial axis shares it); their height divides
+    over the spatial axis into tiles whose height is a multiple of 8
+    (``ValueError`` otherwise).  Returns the global outputs in the layouts
+    of ``model(img1, img2)`` on the whole batch, on every rank."""
+    f1, f2 = sharded_features(model, mesh, img1, img2)
+    out = model.decode(f1, f2, spatial_out=True)
     if replicated or mesh.data == 1:
-        group, rows = sp, 1
+        group, rows = mesh.spatial_group, 1
     else:
         group, rows = mesh.world, mesh.data
     out = {k: _GatherGlobal.apply(v, group, rows, mesh.spatial,
@@ -253,19 +282,22 @@ def make_sharded_forward(model, mesh):
 
 def sum_gradients(params, mesh):
     """Replace every parameter's gradient by its sum over the world (one
-    all-reduce of the flattened gradients).
+    all-reduce of the flattened gradients, in float32).
 
     A sum and not DDP's mean: each rank's backward reaches the parameters
     only through its own block of the global outputs (the output gather's
-    backward takes that block; the backbone's work outside the rank's tile
-    gets no gradient), so the per-rank gradients are disjoint parts of the
-    gradient of the one global loss and their sum is that gradient.  A mean
-    would scale it by 1 / world size."""
+    backward takes that block), and through the backbone's work on its
+    tile plus the halo rows it read from its neighbours, whose gradients
+    the halo exchange's backward sends back to the tiles they came from
+    (the swin backbone, on whole images, gets no gradient outside the
+    rank's tile).  So the per-rank gradients are disjoint parts of the
+    gradient of the one global loss and their sum is that gradient.  A
+    mean would scale it by 1 / world size."""
     live = [p for p in params if p.grad is not None]
     if not live:
         return
     total = mesh.world.all_reduce(
-        torch.cat([p.grad.reshape(-1).float() for p in live]))
+        torch.cat([p.grad.reshape(-1).float() for p in live]), "gradients")
     offset = 0
     for p in live:
         n = p.numel()

@@ -20,8 +20,11 @@ all-gather's sums the gathered gradient over the group and takes the local
 slice, the mean's is the mean of the gradients.  They are built from
 ``all_gather`` and ``all_reduce`` only, which gloo and NCCL both have
 (``torch.distributed.nn.functional``'s all-gather backward needs
-``reduce_scatter``, which gloo lacks).  The global H divides evenly across
-the group, as in the JAX package.
+``reduce_scatter``, which gloo lacks): the rolls and halo exchanges are
+all-gathers of edge rows, not permutes.  Every collective of the port goes
+through :class:`Group`, which counts each call by site
+(:class:`CollectiveCounts`).  The global H divides evenly across the
+group, as in the JAX package.
 
 gloo runs all three of them on CUDA tensors itself (PyTorch 2.11 on the
 H100 machine, ``tests/test_torch_gpu.py::test_gloo_collectives_on_cuda``),
@@ -37,15 +40,56 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+
+class CollectiveCounts:
+    """The collectives issued through the groups that share this object (a
+    mesh's groups share one): per kind (``all_gather``, ``all_reduce``) and
+    per site (the caller's name for what it moves: ``halo``, ``roll``,
+    ``stripe``, ``moments``, ``outputs``, ``gradients``, ...), the count of
+    calls and their bytes.  An all-gather's bytes are those of its result
+    (group size x the input's), an all-reduce's those of the reduced buffer,
+    as the shapes of the HLO collectives that root ``bench_scaling.py``
+    counts.
+    Each rank counts the calls it makes."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.calls = {}
+
+    def add(self, kind, site, nbytes):
+        row = self.calls.setdefault((kind, site), [0, 0])
+        row[0] += 1
+        row[1] += nbytes
+
+    def summary(self):
+        """{kind: {"count", "bytes", "sites": {site: {"count", "bytes"}}}}."""
+        out = {}
+        for (kind, site), (count, nbytes) in sorted(self.calls.items()):
+            row = out.setdefault(kind, {"count": 0, "bytes": 0, "sites": {}})
+            row["count"] += count
+            row["bytes"] += nbytes
+            row["sites"][site] = {"count": count, "bytes": nbytes}
+        return out
+
+
 class Group:
     """A set of ranks (in tile or rank order) with its process group.
     Build it on every rank of the world in the same order
-    (``torch.distributed.new_group`` is collective)."""
+    (``torch.distributed.new_group`` is collective); ``pg`` wraps an
+    existing process group instead (the default one for the whole world).
 
-    def __init__(self, ranks, backend):
+    Every collective of the port goes through :meth:`all_gather` and
+    :meth:`all_reduce`, each named by its ``site`` and counted in
+    ``counts`` (a :class:`CollectiveCounts`)."""
+
+    def __init__(self, ranks, backend, counts=None, pg=None):
         self.ranks = tuple(ranks)
         self.backend = backend
-        self.pg = dist.new_group(list(self.ranks), backend=backend)
+        self.counts = counts if counts is not None else CollectiveCounts()
+        self.pg = pg if pg is not None else dist.new_group(list(self.ranks),
+                                                           backend=backend)
         rank = dist.get_rank()
         self.index = self.ranks.index(rank) if rank in self.ranks else None
 
@@ -53,18 +97,27 @@ class Group:
     def size(self):
         return len(self.ranks)
 
-    def all_gather(self, x):
+    def all_gather(self, x, site="other"):
         """[x of rank r for r in self.ranks], each of x's shape and dtype."""
         src = x.detach().contiguous()
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.pg)
+        self.counts.add("all_gather", site,
+                        self.size * src.numel() * src.element_size())
         return parts
 
-    def all_reduce(self, x):
+    def all_reduce(self, x, site="other"):
         """The sum of x over the group (a new tensor)."""
         buf = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(buf, group=self.pg)
+        self.counts.add("all_reduce", site, buf.numel() * buf.element_size())
         return buf
+
+
+def world_group():
+    """The whole world's default process group as a :class:`Group`."""
+    return Group(range(dist.get_world_size()), dist.get_backend(),
+                 pg=dist.group.WORLD)
 
 
 def _roll(x, shift, group, h_axis):
@@ -73,10 +126,10 @@ def _roll(x, shift, group, h_axis):
     H = x.shape[h_axis]
     if shift < 0:  # rows move up: my first s rows go to the previous tile
         s = -shift
-        recv = group.all_gather(x.narrow(h_axis, 0, s))[(i + 1) % n]
+        recv = group.all_gather(x.narrow(h_axis, 0, s), "roll")[(i + 1) % n]
         return torch.cat([x.narrow(h_axis, s, H - s), recv], dim=h_axis)
     s = shift      # rows move down: my last s rows go to the next tile
-    recv = group.all_gather(x.narrow(h_axis, H - s, s))[(i - 1) % n]
+    recv = group.all_gather(x.narrow(h_axis, H - s, s), "roll")[(i - 1) % n]
     return torch.cat([recv, x.narrow(h_axis, 0, H - s)], dim=h_axis)
 
 
@@ -109,7 +162,7 @@ class _HaloH(torch.autograd.Function):
         H = x.shape[h_axis]
         edges = torch.cat([x.narrow(h_axis, 0, halo),
                            x.narrow(h_axis, H - halo, halo)], dim=h_axis)
-        parts = group.all_gather(edges)
+        parts = group.all_gather(edges, "halo")
         from_prev = parts[(i - 1) % n].narrow(h_axis, halo, halo)  # its bottom
         from_next = parts[(i + 1) % n].narrow(h_axis, 0, halo)     # its top
         if not wrap:
@@ -131,7 +184,8 @@ class _HaloH(torch.autograd.Function):
                 g_prev = torch.zeros_like(g_prev)
             if i == n - 1:
                 g_next = torch.zeros_like(g_next)
-        parts = group.all_gather(torch.cat([g_prev, g_next], dim=h_axis))
+        parts = group.all_gather(torch.cat([g_prev, g_next], dim=h_axis),
+                                 "halo")
         dx = g.narrow(h_axis, halo, H).clone()
         # tile i-1's lower halo was my top rows, tile i+1's upper my bottom
         dx.narrow(h_axis, 0, halo).add_(parts[(i - 1) % n].narrow(h_axis, halo, halo))
@@ -150,12 +204,12 @@ class _AllGatherH(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, h_axis):
         ctx.args = (group, h_axis, x.shape[h_axis])
-        return torch.cat(group.all_gather(x), dim=h_axis)
+        return torch.cat(group.all_gather(x, "stripe"), dim=h_axis)
 
     @staticmethod
     def backward(ctx, g):
         group, h_axis, H = ctx.args
-        total = group.all_reduce(g)
+        total = group.all_reduce(g, "stripe")
         return total.narrow(h_axis, group.index * H, H), None, None
 
 
@@ -168,11 +222,11 @@ class _MeanOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return group.all_reduce(x) / group.size
+        return group.all_reduce(x, "moments") / group.size
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.group.all_reduce(g) / ctx.group.size, None
+        return ctx.group.all_reduce(g, "moments") / ctx.group.size, None
 
 
 def mean_over_group(x, group):

@@ -106,7 +106,8 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
                 # alike), taken before the maximum over layers and levels
                 # as the JAX global step takes it; one all-reduce on the
                 # device, no host sync
-                frac = mesh.world.all_reduce(frac) / mesh.world.size
+                frac = mesh.world.all_reduce(frac, "tap_metric") \
+                    / mesh.world.size
             frac = frac.max()
             if oob["max"] is not None:
                 frac = torch.maximum(frac, oob["max"])
@@ -140,7 +141,8 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
             if mesh is not None:
                 live = [g for g in grads if g is not None]
                 total = mesh.world.all_reduce(
-                    torch.cat([g.reshape(-1).float() for g in live]))
+                    torch.cat([g.reshape(-1).float() for g in live]),
+                    "accumulation")
                 offset = 0
                 for g in live:
                     g.copy_(total[offset:offset + g.numel()].view_as(g))

@@ -1,5 +1,6 @@
 """Process bodies of ``tests/test_torch_spatial.py``,
-``tests/test_torch_spatial_fused.py``, ``tests/test_torch_swin_mesh.py``
+``tests/test_torch_spatial_fused.py``, ``tests/test_torch_swin_mesh.py``,
+``tests/test_torch_spatial_backbone.py``, ``tests/test_torch_spatial_swin.py``
 and ``tests/test_torch_checkpoint.py``: each runs in a process of its own
 (with torch.distributed initialised by ``nmrf_tpu_torch.parallel.spawn``,
 gloo, on the CPU, where it needs one), imports PyTorch and the port only,
@@ -111,6 +112,94 @@ def model_worker(rank, data, spatial, in_dir, out_dir):
     result["grads"] = {k: p.grad for k, p in model.named_parameters()}
     result["logits"] = out["logits_layers"][-1].detach()
     torch.save(result, f"{out_dir}/model_{rank}.pt")
+
+
+BACKBONE_WIDTH = 64
+BACKBONE_TILES = (12, 24)   # a tile's rows at 1/8 resolution
+BACKBONE_BATCH = 2
+
+
+def backbone_inputs(tile, world=2):
+    """Images [B, 8 tile world, W, 3] (0..255) of the two views and a
+    cotangent of each feature level of each view, from numpy."""
+    rng = np.random.RandomState(tile)
+    B, H, W = BACKBONE_BATCH, 8 * tile * world, BACKBONE_WIDTH
+    images = [(rng.rand(B, H, W, 3) * 255).astype(np.float32) for _ in range(2)]
+    cots = [[rng.randn(B, H // s, W // s, 256).astype(np.float32)
+             for s in (8, 4)] for _ in range(2)]
+    return images, cots
+
+
+def backbone_loss(f1, f2, cots, rows=None):
+    """sum(feature * cotangent) / its global size over both views and
+    levels; ``rows``: the tile index and count, to take the cotangents'
+    rows of a tile."""
+    total = 0.0
+    for feats, view in zip((f1, f2), cots):
+        for f, c in zip(feats, view):
+            c = torch.from_numpy(c)
+            size = c.numel()
+            if rows is not None:
+                n = c.shape[1] // rows[1]
+                c = c[:, rows[0] * n:(rows[0] + 1) * n]
+            total = total + (f * c).sum() / size
+    return total
+
+
+def backbone_worker(rank, in_dir, out_dir):
+    """The resnet backbone of the test model on this rank's H tile of the
+    test images (``parallel.mesh.sharded_features``, the backbone path of
+    ``spatial_sharded_apply``) on a 1 x world grid, for each tile height of
+    ``BACKBONE_TILES``: the tile's features of both levels of both views,
+    the world-summed gradients of the backbone's parameters for
+    ``backbone_loss``, and the input height of every call of the 7x7 stem's
+    convolution; then whether images whose tile height is not a multiple
+    of 8 raise."""
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch.parallel.mesh import sharded_features
+
+    torch.set_num_threads(1)
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(1, world, device="cpu")
+    model = build_model(small_cfg(1, world), mesh=mesh)
+    model.load_state_dict(torch.load(f"{in_dir}/weights.pt"), strict=True)
+    model.train()
+    stem_rows = []
+    conv2d = F.conv2d
+
+    def recorded(x, weight, *args, **kw):
+        if weight.shape[-2:] == (7, 7):
+            stem_rows.append(x.shape[2])  # NCHW inside layers.Conv2d
+        return conv2d(x, weight, *args, **kw)
+
+    result = {}
+    F.conv2d = recorded
+    try:
+        for tile in BACKBONE_TILES:
+            (img1, img2), cots = backbone_inputs(tile, world)
+            model.zero_grad(set_to_none=True)
+            stem_rows.clear()
+            f1, f2 = sharded_features(model, mesh, torch.from_numpy(img1),
+                                      torch.from_numpy(img2))
+            backbone_loss(f1, f2, cots, (rank, world)).backward()
+            sum_gradients(list(model.backbone.parameters()), mesh)
+            result[tile] = {
+                "features": [[f.detach() for f in f1], [f.detach() for f in f2]],
+                "grads": {k: p.grad for k, p in model.backbone.named_parameters()},
+                "stem_rows": list(stem_rows)}
+    finally:
+        F.conv2d = conv2d
+    raised = []
+    for H in (8 * 12 * world + 8 * world // 2, 8 * 12 * world + 1):
+        img = torch.zeros(1, H, BACKBONE_WIDTH, 3)
+        try:
+            sharded_features(model, mesh, img, img)
+            raised.append(None)
+        except ValueError as e:
+            raised.append(str(e))
+    result["raised"] = raised
+    torch.save(result, f"{out_dir}/backbone_{rank}.pt")
 
 
 def fused_step_worker(rank, in_dir, out_dir):
@@ -239,6 +328,92 @@ def swin_mesh_worker(rank, in_dir, out_dir):
                         "read": step.read_oob(guard), "fired": guard.fired,
                         "radii": [m.tap_radius for m in attns]}
     torch.save(result, f"{out_dir}/swin_mesh_{rank}.pt")
+
+
+def _tile_logits_hook(model, seen):
+    """Append the final proposal logits of each forward ([b, h8, w8, N,
+    64], this rank's tile) to ``seen``; returns the hook's handle."""
+    return model.infer_score_head.register_forward_hook(
+        lambda _m, _i, out: seen.append(out[-1].detach()))
+
+
+def swin_spatial_worker(rank, data, spatial, in_dir, out_dir):
+    """The swin test model on a data x spatial grid (the test's weights,
+    global batch and global drop-path masks, replayed into each rank's
+    ``DropPathMasks.draw_global``):
+
+    * ``masks``: this rank's rows of 3 draws of the model's own seeded
+      ``DropPathMasks`` (a backbone batch of 8 on each data index, keep
+      0.5), taken before any replay;
+    * ``eval``: the global outputs of ``make_sharded_forward`` on the whole
+      batch, and this rank's tile of the final proposal logits;
+    * ``step``: one ``make_train_step(..., mesh=, monitor_oob=True)`` at lr
+      0 and no clip: its losses, the world-summed gradients it hands the
+      optimizer, this rank's tile of the final proposal logits;
+    * ``pushed``: ``msda_tap_oob`` of a second step in which the sampling
+      locations of the batch's second pair (on the ranks that hold it)
+      are moved 8 level pixels right, beyond the tap radius."""
+    from nmrf_tpu_torch import build_optimizer, make_train_step
+    from nmrf_tpu_torch.models.adaptor import MSDeformAttn
+
+    torch.set_num_threads(1)
+    cfg = swin_small_cfg(get_cfg())
+    cfg.SOLVER.BASE_LR = 0.0
+    mesh = make_mesh(data, spatial, device="cpu")
+    model = build_model(cfg, mesh=mesh)
+    result = {"masks": [model.drop_path_masks.draw(8, 0.5) for _ in range(3)]}
+    model.load_state_dict(torch.load(f"{in_dir}/weights.pt"), strict=True)
+    batch = {k: torch.from_numpy(v) for k, v in np.load(f"{in_dir}/batch.npz").items()}
+    logits = []
+    hook = _tile_logits_hook(model, logits)
+    out = make_sharded_forward(model, mesh)(batch["img1"], batch["img2"])
+    result["eval"] = {k: v.clone() for k, v in out.items()}
+    result["eval_logits"] = logits[-1]
+
+    replayed = torch.load(f"{in_dir}/masks.pt")
+    calls = []
+
+    def draw_global(n, keep):
+        want_keep, mask = replayed[len(calls)]
+        assert n == mask.numel() and abs(keep - want_keep) < 1e-9, (n, keep)
+        calls.append(n)
+        return mask
+
+    model.drop_path_masks.draw_global = draw_global
+    optimizer, scheduler = build_optimizer(model, cfg)
+    grads = {}
+
+    def update(*args, **kw):
+        grads.update({k: p.grad.clone() for k, p in model.named_parameters()})
+
+    optimizer.step = update
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                           grad_clip=float("inf"), mesh=mesh, monitor_oob=True)
+    losses = step(shard_batch(batch, mesh))
+    result["draws"] = len(calls)
+    result["step"] = {"losses": {k: float(v) for k, v in losses.items()},
+                      "grads": dict(grads), "logits": logits[-1]}
+    hook.remove()
+
+    pairs = batch["img1"].shape[0] // data  # this data index's pairs
+    rows = torch.zeros(2 * pairs, 1, 1, 1, 1)  # [img1; img2] of those pairs
+    for j in range(pairs):
+        if mesh.data_index * pairs + j == 1:
+            rows[[j, pairs + j]] = 1.0
+    for m in (m for m in model.modules() if isinstance(m, MSDeformAttn)):
+        sampling = m.sampling
+
+        def pushed(query, ref, shapes, sampling=sampling):
+            loc, w = sampling(query, ref, shapes)
+            width = torch.tensor([float(w_) for _, w_ in shapes])
+            shift = torch.zeros_like(loc)
+            shift[..., 0] = rows * (8.0 / width)[:, None]  # [2 pairs, 1, 1, L, 1]
+            return loc + shift, w
+
+        m.sampling = pushed
+    calls.clear()
+    result["pushed"] = float(step(shard_batch(batch, mesh))["msda_tap_oob"])
+    torch.save(result, f"{out_dir}/swin_spatial_{rank}.pt")
 
 
 RESUME_MICRO_STEPS = 8  # 4 updates of ACCUM_STEPS 2
