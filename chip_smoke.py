@@ -30,7 +30,11 @@ Phases (any failure exits non-zero before the last line is printed):
    shapes of a swin training step (batch 16, the left and right images of
    8 pairs), also beyond the radius and past the borders, each launch on
    its vector path with the tap masks, and against a second launch (same
-   bits), and timed by kernel (sample, cell masks, value);
+   bits), and timed by kernel (sample, cell masks, value); and B5 and B5b
+   at a rank's H tile (query rows from q0, the level map's rows from v0
+   with its halo rows, ``MSDA_TILE_CASES``: a 1 x 2 sharded swin step's 4
+   levels, a halo past the top edge, and q0 12 at f 8, not a multiple of
+   f), B5b also against a second launch, the rank's 4 launches timed;
 3. drive the serving paths: the default-config resnet model and the swin
    model (``configs/sceneflow_swint.yaml``: Swin-T and the deformable neck),
    each at full width and depth (bf16, tanh GELU, random seeded weights),
@@ -94,7 +98,14 @@ Phases (any failure exits non-zero before the last line is printed):
    then 1 + 3 sharded swin steps (bf16, batch 8, the tap monitor on: 4 B5
    and 4 B5b a step per rank beside the decode's launches), every rank with
    the same losses, ``msda_tap_oob`` (0 at init) and parameters; each
-   rank's B5/B5b launches are logged.
+   rank's B5/B5b launches are logged.  Each rank's swin backbone runs on
+   its H tile (Swin-T's windows completed from the neighbour tiles, stages
+   too short for a tile whole, the neck's value maps exchanged for the
+   rows its taps reach): in f32 its features and spatially summed
+   gradients are held against the whole images' with the tile kept, its
+   stem and patch embedding must take the tile's rows, and in bf16 (batch
+   8) its forward and backward are timed (CUDA events, peak memory, a
+   profile's busy ms) beside the whole-image form's.
    Then two ranks on the card over gloo on a 2 x 1 grid (the data axis)
    take 2 swin training steps of 4 pairs each (drop-path masks: rows of
    one global draw; the tap monitor's shares averaged over the ranks):
@@ -117,7 +128,13 @@ Phases (any failure exits non-zero before the last line is printed):
    (padded to 376x1248, bucketed) with a finite EPE; K1, K2, K1b and K2b
    launch 10 times a step (K1 and K2 10 times a frame); and the host
    photometric kernel (``nmrf_tpu_torch/native``) matches its PIL version
-   on a 375x1242 image (skipped, with a logged line, where PIL is absent).
+   on a 375x1242 image (skipped, with a logged line, where PIL is absent);
+   then the convergence-gate diagnostics through their ``main``:
+   ``tools.probe_costvolume_signal`` (one seed of each kind, 192x384,
+   bf16) and ``tools.debug_convergence`` (the default config's overfit
+   probe at its recipe, 20 steps): their lines parse with finite numbers,
+   and the overfit probe launches K1, K2, K1b and K2b as its steps and
+   evaluations take.
 
 9. drive the serving entry points with each model of phase 3 (bf16, tanh
    GELU, random seeded weights): export the frozen eval forward with
@@ -392,6 +409,135 @@ MSDA_BWD_CASES = [
     ("train f8, beyond r and past the borders", 8, 0, MSDA_R + 3),
     ("train f1, beyond r and past the borders", 1, 0, MSDA_R + 3),
 ]
+
+
+# the sharded swin step's tap levels on a rank's H tile (a 1 x 2 grid, crop
+# 384x768, batch 8: 48 of the 96 query rows, 192 columns, batch 16): (label,
+# f, q0, query rows, v0, map rows, level rows); a tiled level carries
+# radius + 1 halo rows each side (zero past the global edges), the 1/32
+# level is whole (its Swin stage runs whole); and the 1/32 level read from
+# query row 12 (12 rows a tile: a 384-row image over 8 ranks), not a
+# multiple of f.  The rank 1 cases are one rank's 4 launches of a sharded
+# swin step, timed as such
+MSDA_TILE_CASES = [
+    ("rank 1 tile extractor0/f1", 1, 48, 48, 42, 60, 96),
+    ("rank 1 tile extractor1/f2", 2, 48, 48, 18, 36, 48),
+    ("rank 1 tile extractor2/f4", 4, 48, 48, 6, 24, 24),
+    ("rank 1 tile extractor3/f8", 8, 48, 48, 0, 12, 12),
+    ("rank 0 tile f1, halo past the top edge", 1, 0, 48, -6, 60, 96),
+    ("rank 0 tile f8, whole level", 8, 0, 48, 0, 12, 12),
+    ("f8 whole level, query rows from 12", 8, 12, 12, 0, 12, 12),
+]
+
+
+def tap_grid(v32, dx, dy, aw, f, q0=0, v0=0):
+    """The exact path's ``F.grid_sample`` inputs for tap samples on a level
+    map whose rows are global rows v0 .. (queries from global row q0): the
+    map with the heads folded into the batch, the grid and the weights."""
+    import torch
+
+    from nmrf_tpu_torch.ops import msda
+
+    M, P, D = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM
+    B, Hq, Wq, _ = dx.shape
+    n, Wl = v32.shape[1:3]
+    dev = dx.device
+    base_y = torch.as_tensor(msda.base_plus_one(Hq, f, q0) - 1 - v0, device=dev)
+    base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
+    gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
+    gy = (base_y[None, :, None, None] + dy + 0.5) / n * 2 - 1
+    grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
+    grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
+    vh = v32.reshape(B, n, Wl, M, D).permute(0, 3, 4, 1, 2).reshape(B * M, D, n, Wl)
+    w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3).reshape(B * M, 1, Hq * Wq, P)
+    return vh, grid, w
+
+
+def msda_tile_phase(gen):
+    """Phase 2: B5 and B5b at a rank's H tile (``MSDA_TILE_CASES``: query
+    rows from q0, the level map's rows from v0 with the halo rows attached)
+    against their plain versions in f32 and bf16, B5b on its vector path
+    with the tap masks and two launches giving the same bits.  The rank 1
+    cases are also timed (bf16) beside the plain versions, ``grid_sample``
+    (and its backward) on the same samples and the bounds: one rank's 4
+    launches of a sharded swin step.  Returns the entries of B5 and B5b,
+    which count no launches of the kernels line (``count`` 0): their times
+    go to its ``on_a_rank_tile`` field."""
+    import torch
+    import torch.nn.functional as F
+
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import msda
+
+    dev = "cuda"
+    M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
+    B, Wq = 2 * TRAIN_BATCH, MSDA_TRAIN_Q[1]
+    fwd, bwd = [], []
+    for label, f, q0, hq, v0, n, Hg in MSDA_TILE_CASES:
+        Wl = Wq // f
+        rows = torch.arange(v0, v0 + n, device=dev)
+        on_map = ((rows >= 0) & (rows < Hg)).float()[None, :, None, None]
+        v32 = torch.randn(B, n, Wl, M * D, generator=gen, device=dev) * on_map
+        dx, dy = ((torch.rand(B, hq, Wq, M * P, generator=gen, device=dev)
+                   * 2 - 1) * (r - 0.5) for _ in range(2))
+        aw = torch.softmax(torch.randn(B, hq, Wq, M, P, generator=gen,
+                                       device=dev), -1).reshape(B, hq, Wq, M * P)
+        g32 = torch.randn(B, hq, Wq, M * D, generator=gen, device=dev)
+        tile = (q0, v0, Hg)
+        shape = f"{label}: q0 {q0}, v0 {v0}, {n} of {Hg} level rows"
+        ef = {"shape": shape, "count": 0}
+        eb = {"shape": shape, "count": 0}
+        for dtype_name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+            v, g = v32.to(dt), g32.to(dt)
+            with torch.inference_mode():
+                got = msda.msda_taps(v, dx, dy, aw, M, r, *tile)
+                torch.cuda.synchronize()
+                want = msda.msda_taps_plain(v, dx, dy, aw, M, r, *tile)
+            ef[f"max_abs_err_{dtype_name}"] = check_close(
+                f"msda_taps {shape}", got, want, dtype_name)
+            A.reset_launch_counts()
+            got = msda.msda_taps_bwd(v, dx, dy, aw, g, M, r, *tile)
+            torch.cuda.synchronize()
+            if A.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
+                fail(f"msda_taps_bwd {shape} {dtype_name}: launched "
+                     f"{A.variant_counts()['msda_taps_bwd']}, expected the "
+                     "vector path with the tap masks")
+            want = msda.msda_taps_bwd_plain(v, dx, dy, aw, g, M, r, *tile)
+            eb[f"max_abs_err_{dtype_name}"] = max(
+                check_close(f"msda_taps_bwd {shape} d{name}", a, b, dtype_name,
+                            TOL_BWD)
+                for name, a, b in zip(("value", "dx", "dy", "aw"), got, want))
+            check_repeat(f"msda_taps_bwd {shape} {dtype_name}", got,
+                         msda.msda_taps_bwd(v, dx, dy, aw, g, M, r, *tile))
+            del got, want
+        if label.startswith("rank 1 tile"):
+            v, g = v32.to(torch.bfloat16), g32.to(torch.bfloat16)
+            vh, grid, w = tap_grid(v32, dx, dy, aw, f, q0, v0)
+            with torch.inference_mode():
+                ef["ms"] = cuda_ms(lambda: msda.msda_taps(v, dx, dy, aw, M, r,
+                                                          *tile), 50)
+                ef["plain_ms"] = cuda_ms(lambda: msda.msda_taps_plain(
+                    v, dx, dy, aw, M, r, *tile), 3, warmup=1)
+                ef["library_ms"] = cuda_ms(lambda: (F.grid_sample(
+                    vh, grid, align_corners=False) * w).sum(-1), 20)
+            args = (v, dx, dy, aw, g, M, r, *tile)
+            eb["ms"] = cuda_ms(lambda: msda.msda_taps_bwd(*args), 20)
+            eb["plain_ms"] = cuda_ms(lambda: msda.msda_taps_bwd_plain(*args), 2,
+                                     warmup=1)
+            eb["library_ms"] = msda_bwd_library_ms(gen, v32, dx, dy, aw, f, q0, v0)
+            ef["bytes_ms"], ef["ops_ms"] = msda_bound(B, hq, Wq, f, M, P, D, 2,
+                                                      level_rows=n)
+            eb["bytes_ms"], eb["ops_ms"] = msda_bwd_bound(
+                B, hq, Wq, f, M, P, D, 2, kept_corners(dx, dy, r), level_rows=n)
+            for e in (ef, eb):
+                e.update(unit="tile", step_count=1)
+            del vh, grid, w
+        fwd.append(ef)
+        bwd.append(eb)
+        log(f"kernel msda_taps {shape}: " + json.dumps(ef))
+        log(f"kernel msda_taps_bwd {shape}: " + json.dumps(eb))
+    return fwd, bwd
 
 
 def kept_corners(dx, dy, r):
@@ -845,16 +991,7 @@ def msda_phase(gen):
             entry["plain_ms"] = cuda_ms(
                 lambda: msda.msda_taps_plain(v, dx, dy, aw, M, r), 3, warmup=1)
             # exact path at the same samples: level pixel base + d
-            base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
-            base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
-            gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
-            gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
-            grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
-            grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
-            vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
-            vh = vh.reshape(B * M, D, Hl, Wl)
-            w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
-            w = w.reshape(B * M, 1, Hq * Wq, P)
+            vh, grid, w = tap_grid(v32, dx, dy, aw, f)
             entry["library_ms"] = cuda_ms(lambda: (F.grid_sample(
                 vh, grid, align_corners=False) * w).sum(-1), 20)
             entry["bytes_ms"], entry["ops_ms"] = msda_bound(
@@ -883,33 +1020,18 @@ def msda_bwd_inputs(gen, B, f, spread):
     return v32, dx, dy, aw, g32
 
 
-def msda_bwd_library_ms(gen, v32, dx, dy, aw, f):
+def msda_bwd_library_ms(gen, v32, dx, dy, aw, f, q0=0, v0=0):
     """The backward of the exact path's ``F.grid_sample`` on B5b's samples
     (f32, heads folded into the batch, with the weighted sum over the
-    points): one library call of the same function while every sample lies
-    within r."""
+    points; on an H tile at the row offsets of ``tap_grid``): one library
+    call of the same function while every sample lies within r."""
     import torch
     import torch.nn.functional as F
 
-    from nmrf_tpu_torch.ops import msda
-
-    M, P, D = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM
-    B, Hq, Wq, _ = dx.shape
-    Hl, Wl = Hq // f, Wq // f
-    dev = dx.device
-    base_y = torch.as_tensor(msda.base_plus_one(Hq, f) - 1, device=dev)
-    base_x = torch.as_tensor(msda.base_plus_one(Wq, f) - 1, device=dev)
-    gx = (base_x[None, None, :, None] + dx + 0.5) / Wl * 2 - 1
-    gy = (base_y[None, :, None, None] + dy + 0.5) / Hl * 2 - 1
-    grid = torch.stack([gx, gy], -1).reshape(B, Hq * Wq, M, P, 2)
-    grid = grid.permute(0, 2, 1, 3, 4).reshape(B * M, Hq * Wq, P, 2)
-    vh = v32.reshape(B, Hl, Wl, M, D).permute(0, 3, 4, 1, 2)
-    vh = vh.reshape(B * M, D, Hl, Wl).requires_grad_()
-    grid.requires_grad_()
-    w = aw.reshape(B, Hq * Wq, M, P).permute(0, 2, 1, 3)
-    w = w.reshape(B * M, 1, Hq * Wq, P).requires_grad_()
+    vh, grid, w = (t.requires_grad_()
+                   for t in tap_grid(v32, dx, dy, aw, f, q0, v0))
     out = (F.grid_sample(vh, grid, align_corners=False) * w).sum(-1)
-    cot = torch.randn(out.shape, generator=gen, device=dev)
+    cot = torch.randn(out.shape, generator=gen, device=dx.device)
     return cuda_ms(lambda: torch.autograd.grad(out, (vh, grid, w), cot,
                                                retain_graph=True), 10)
 
@@ -1807,6 +1929,76 @@ def photometric_phase():
     return report
 
 
+DIAG_STEPS = 20
+_NUM = r"([-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?|nan|inf)"
+
+
+def diagnostics_phase():
+    """Phase 8: the convergence-gate diagnostics through their ``main`` at
+    full width, stdout captured: ``tools.probe_costvolume_signal`` (one seed
+    of each kind at 192x384, bf16, the backbone and the correlation only)
+    and ``tools.debug_convergence`` (the default config's overfit probe at
+    its recipe, crop 384x768, batch 8, bf16, REMAT, for DIAG_STEPS steps).
+    Their lines must parse with finite numbers, the probe's accuracies lie
+    in [0, 1] with the exact bin's at most the within-1's, and the overfit
+    probe launches K1 and K2 20 times a step (REMAT runs each layer's
+    forward again in the backward) and 10 times in each of its 2
+    evaluations, K1b and K2b 10 times a step."""
+    import re
+
+    from nmrf_tpu_torch.tools import debug_convergence, probe_costvolume_signal
+
+    report = {}
+    t0 = time.perf_counter()
+    result, lines, counts = run_entry(probe_costvolume_signal.main,
+                                      ["--seeds", "1"], "probe_costvolume_signal",
+                                      "phase 8")
+    for kind in probe_costvolume_signal.KINDS:
+        hit = [re.fullmatch(rf"{kind}: raw cost-volume argmax exact-bin acc "
+                            rf"{_NUM}, within-1-bin {_NUM}", line)
+               for line in lines]
+        hit = [m for m in hit if m]
+        if len(hit) != 1:
+            fail(f"probe_costvolume_signal: no line for {kind}: {lines}")
+        acc, acc1 = (float(x) for x in hit[0].groups())
+        if not 0.0 <= acc <= acc1 <= 1.0:
+            fail(f"probe_costvolume_signal {kind}: accuracies {acc}, {acc1}")
+        report[kind] = {"exact_bin": acc, "within_1_bin": acc1}
+    report["probe_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    result, lines, counts = run_entry(
+        debug_convergence.main, ["--steps", str(DIAG_STEPS)],
+        "debug_convergence", "phase 8")
+    stats = r"\[(init 0|overfit {})\] disp: mean {n} std {n} min {n} max {n} " \
+        r"EPE {n}  initial_proposal_bestEPE {n} initial_proposal\[mean {n} " \
+        r"max {n}\]  proposal_bestEPE {n} proposal\[mean {n} max {n}\]"
+    patterns = [rf"GT disp stats: mean {_NUM} std {_NUM} max {_NUM}",
+                stats.format(DIAG_STEPS, n=_NUM),
+                rf"step {DIAG_STEPS}: lr {_NUM} \{{.*'total': {_NUM}.*\}}",
+                stats.format(DIAG_STEPS, n=_NUM),
+                r"avg (\d+) ms/step"]
+    if len(lines) != len(patterns):
+        fail(f"debug_convergence: {len(lines)} lines, expected "
+             f"{len(patterns)}: {lines}")
+    for line, pattern in zip(lines, patterns):
+        m = re.fullmatch(pattern, line)
+        if not m or not all(np.isfinite(float(x)) for x in m.groups()
+                            if x and not x.startswith(("init ", "overfit "))):
+            fail(f"debug_convergence: line {line!r} does not parse with "
+                 "finite numbers")
+    _expect_launches(counts, f"debug_convergence, {DIAG_STEPS} steps and 2 "
+                     "evaluations",
+                     window_attention=20 * DIAG_STEPS + 20,
+                     stripe_attention=20 * DIAG_STEPS + 20,
+                     window_attention_bwd=10 * DIAG_STEPS,
+                     stripe_attention_bwd=10 * DIAG_STEPS)
+    report["overfit"] = {"lines": lines, "ms_per_step": result["ms_per_step"],
+                         "launches": counts,
+                         "seconds": time.perf_counter() - t0}
+    return report
+
+
 def entry_point_phase():
     """Phase 8: ``nmrf_tpu_torch.train.main``, the CLI, in this process at
     full width (default resnet config, bf16, batch 8, 384x768 synthetic
@@ -1946,6 +2138,7 @@ def sharded_worker(rank, out_dir, grid, backend):
     for name, fn in (("serve", sharded_serve), ("parity", sharded_parity),
                      ("grad_check", sharded_grad_check),
                      ("backbone", sharded_backbone),
+                     ("swin_backbone", sharded_swin_backbone),
                      ("train", sharded_train),
                      ("train_fused_pos", lambda m: sharded_train(m, fused=True)),
                      ("swin_serve", sharded_swin_serve),
@@ -1967,6 +2160,7 @@ def log_sharded_swin(reports):
         log(f"phase 7 rank {r['rank']}: resnet stem rows "
             + json.dumps(r["parity"]["backbone_stem_rows"])
             + "; backbone " + json.dumps(r["backbone"])
+            + "; swin backbone " + json.dumps(r["swin_backbone"])
             + "; swin B5 launches in requests "
             + str(r["swin_serve"]["launches"]["msda_taps"])
             + ", B5/B5b in steps " + str(r["swin_train"]["launches"]["msda_taps"])
@@ -2344,6 +2538,149 @@ def sharded_backbone(mesh):
     return report
 
 
+def sharded_swin_backbone(mesh):
+    """The swin backbone (Swin-T and the deformable neck) on the rank's H
+    tile of its images (``sharded_features``: windows completed from the
+    neighbour tiles, stages too short for a tile run whole, the neck's
+    value maps exchanged for the rows its taps reach) against the whole
+    images of the rank's data shard with the tile's rows kept (what a rank
+    ran before the backbone was tiled), the same weights on both sides:
+
+    * f32, SWIN_GRAD_BATCH pairs (drop-path on, both sides drawing the same
+      masks): each level's tile of both views against the whole-image rows
+      (atol 1e-3 at values up to about 10: cuDNN and cuBLAS take other
+      algorithms at the two shapes), the gradients of the tiles' feature
+      sums, summed over the spatial group, against those of the whole
+      image's feature sum (|d| / max |g| over the backbone < 1e-2, the CPU
+      test's), 4 B5 and 4 B5b launches a rank on the tile;
+      the stem's and the patch embedding's inputs must be the tile's rows;
+      the stages that ran on tiles and the collectives by site;
+    * bf16, crop 384x768, TRAIN_BATCH pairs per data index: forward and the
+      backward of sum(features), each form timed with CUDA events over
+      BACKBONE_ITERS calls after a warm-up (both ranks at once), its peak
+      memory, and profiled once on rank 0 (device busy ms: the backbone's
+      kernels alone)."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrf_tpu_torch import build_model
+    from nmrf_tpu_torch.data import synthetic_batch
+    from nmrf_tpu_torch.models.layers import DropPathMasks, set_drop_path_masks
+    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.parallel.mesh import sharded_features
+
+    sp = mesh.spatial_group
+    report = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = main_path_cfg(dtype, False, True, swin=True,
+                            grid=(mesh.data, mesh.spatial))
+        model = build_model(cfg, mesh=mesh).train()
+        whole = build_model(cfg, device=mesh.device).train()
+        whole.load_state_dict(model.state_dict())
+        whole.drop_path_masks = DropPathMasks(
+            torch.Generator(device=mesh.device), mesh.data_index, mesh.data)
+        set_drop_path_masks(whole, whole.drop_path_masks)
+        H, W = cfg.DATASETS.CROP_SIZE
+        pairs = (SWIN_GRAD_BATCH if dtype == "float32" else TRAIN_BATCH)
+        n = pairs // mesh.data
+        batch = synthetic_batch(pairs, H, W, max_disp=cfg.SOLVER.MAX_DISP,
+                                seed=0, disp_quantum=8)
+        img1, img2 = (torch.from_numpy(batch[k][mesh.data_index * n:
+                                                (mesh.data_index + 1) * n]
+                                       ).to(mesh.device) for k in ("img1", "img2"))
+
+        def tile(f):
+            h = f.shape[1] // mesh.spatial
+            return f.narrow(1, sp.index * h, h)
+
+        forms = {"tile": (model, lambda: sharded_features(model, mesh, img1,
+                                                          img2)),
+                 "whole": (whole, lambda: [[tile(f) for f in fs] for fs in
+                                           whole.extract_feature(img1, img2)])}
+
+        def run(form):
+            net, features = forms[form]
+            net.drop_path_masks.generator.manual_seed(0)
+            f1, f2 = features()
+            sum(f.float().sum() for f in f1 + f2).backward()
+            return f1, f2
+
+        if dtype == "float32":
+            rows = []
+            hooks = [m.register_forward_hook(
+                lambda _m, inputs, _out: rows.append(inputs[0].shape[1]))
+                for m in (model.backbone.neck.stem.stem["0"],
+                          model.backbone.backbone.patch_embed)]
+            mesh.counts.reset()
+            A.reset_launch_counts()
+            got = run("tile")
+            torch.cuda.synchronize()
+            counts, comm = A.launch_counts(), mesh.counts.summary()
+            for h in hooks:
+                h.remove()
+            if rows != [H // mesh.spatial] * 2:
+                fail(f"rank {mesh.rank}: the swin stem and patch embedding took "
+                     f"{rows} rows, expected the tile's {H // mesh.spatial}")
+            _expect_launches(counts, f"rank {mesh.rank}, the swin backbone on "
+                             "its tile", msda_taps=4, msda_taps_bwd=4)
+            names = [k for k, p in model.backbone.named_parameters()
+                     if p.grad is not None]
+            tiled = dict(model.backbone.named_parameters())
+            total = sp.all_reduce(torch.cat([tiled[k].grad.reshape(-1)
+                                             for k in names]), "check")
+            # the whole image's gradient: of all its rows, the sum of the
+            # tiles' losses over the group
+            whole.drop_path_masks.generator.manual_seed(0)
+            want = whole.extract_feature(img1, img2)
+            sum(f.float().sum() for f in want[0] + want[1]).backward()
+            worst = max((a.detach() - tile(b.detach())).abs().max().item()
+                        for fa, fb in zip(got, want) for a, b in zip(fa, fb))
+            ref = dict(whole.backbone.named_parameters())
+            grads = torch.cat([ref[k].grad.reshape(-1) for k in names])
+            grad_err = ((total - grads).abs().max() / grads.abs().max()).item()
+            if worst > 1e-3 or grad_err > 1e-2:
+                fail(f"rank {mesh.rank}: the swin backbone's tile vs the whole "
+                     f"image: features {worst:.3e}, gradients {grad_err:.3e}")
+            report["check"] = {
+                "pairs_per_rank": n, "crop": [H, W], "launches": counts,
+                "stem_rows": rows, "features_max_abs_err": worst,
+                "grad_rel_err": grad_err,
+                "stages_on_tiles": list(model.backbone.backbone.tiled),
+                "collectives": comm}
+            del got, want, total, grads
+            model.zero_grad(set_to_none=True)
+            whole.zero_grad(set_to_none=True)
+            continue
+        report["pairs_per_rank"], report["crop"] = n, [H, W]
+        for form in forms:
+            run(form)  # warm-up: cuDNN's choices
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(BACKBONE_ITERS):
+                run(form)
+            end.record()
+            torch.cuda.synchronize()
+            row = {"event_ms": start.elapsed_time(end) / BACKBONE_ITERS,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            dist.barrier()
+            if mesh.rank == 0:
+                prof = profile_phase(f"sharded swin backbone, {form} (rank 0)",
+                                     lambda: run(form))
+                row.update(device_busy_ms=prof["device_busy_ms"],
+                           groups={g["group"]: g["ms"] for g in prof["groups"]})
+            else:
+                run(form)
+            dist.barrier()
+            report[form] = row
+        del model, whole, forms
+        torch.cuda.empty_cache()
+    return report
+
+
 SWIN_SHARD_REQUESTS = 2
 SWIN_SHARD_STEPS = 3
 
@@ -2352,7 +2689,7 @@ def sharded_swin_serve(mesh):
     """The swin model (f32) on the grid: SWIN_SHARD_REQUESTS KITTI pairs
     padded to SHARD_DIVIS through make_sharded_forward, each held on rank 0
     against the unsharded forward of the same weights (``check_forward``);
-    per rank per frame 4 B5 (the backbone on the whole images), 10 K1, 5 K2
+    per rank per frame 4 B5 (the backbone on the rank's tile), 10 K1, 5 K2
     and 5 B6 launches."""
     import torch
     import torch.distributed as dist
@@ -2621,11 +2958,12 @@ REDESIGNED = ("window_attention", "msda_taps", "msda_taps_bwd")
 COMPARE_STEPS = 5
 # the C entries of the versions REDESIGNED replaced take fewer arguments:
 # the new call's arguments -> the old call's (K1 and B5 before they
-# reported their variant; B5b before its scratch and its variant)
+# reported their variant; B5b before its scratch and its variant; B5 and
+# B5b before their row offsets, the three ints after the radius)
 OLD_ARGS = {
     "window_attention": lambda a: a[:-1],
-    "msda_taps": lambda a: a[:-1],
-    "msda_taps_bwd": lambda a: a[:9] + a[11:-1],
+    "msda_taps": lambda a: a[:15] + a[18:-1],
+    "msda_taps_bwd": lambda a: a[:9] + a[11:21] + a[24:-1],
 }
 
 
@@ -3280,7 +3618,7 @@ SWIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "sceneflow_swint.yaml")
 
 
-def run_entry(main, argv, what):
+def run_entry(main, argv, what, phase="phase 10"):
     """An entry point's ``main(argv)`` in this process, its stdout captured,
     the launch counters set to 0 just before and read just after: (its
     result, its stdout lines, the launches)."""
@@ -3295,7 +3633,7 @@ def run_entry(main, argv, what):
         result = main(argv)
     counts = A.launch_counts()
     lines = buf.getvalue().splitlines()
-    log(f"phase 10 {what}: {time.perf_counter() - t0:.1f} s; stdout "
+    log(f"{phase} {what}: {time.perf_counter() - t0:.1f} s; stdout "
         + json.dumps(lines[-8:]))
     return result, lines, counts
 
@@ -3516,7 +3854,11 @@ def kernels_line(kernel_results, counts):
         "stripe_attention": "per frame: the 10 launches of one KITTI request, bf16",
         "window_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
         "stripe_attention_bwd": f"per training step: 10 launches at batch {TRAIN_BATCH}, 384x768, bf16",
-        "msda_taps": "per frame: the 4 launches of one swin KITTI request, bf16",
+        "msda_taps": "per frame: the 4 launches of one swin KITTI request, "
+                     "bf16; on_a_rank_tile: one rank's 4 launches of a 1 x 2 "
+                     f"sharded swin step at batch {2 * TRAIN_BATCH} (query "
+                     "rows 48 of 96 from row 48, the level maps with their "
+                     "halo rows), bf16",
         "masked_attention": "per frame: the 5 launches of one rank of a 1 x 2 "
                             "sharded KITTI request (384x1248), bf16; launches: "
                             "rank 0's over the 4 requests",
@@ -3532,7 +3874,10 @@ def kernels_line(kernel_results, counts):
                          f"{TRAIN_BATCH} pairs, query grid 96x192), bf16, "
                          f"displacements uniform within +-{MSDA_R - 0.5} level "
                          f"pixels; on_training_step_inputs: on the samples of "
-                         f"one step of the main path",
+                         f"one step of the main path; on_a_rank_tile: one "
+                         f"rank's 4 launches of a 1 x 2 sharded swin step "
+                         f"(query rows 48 of 96 from row 48, the level maps "
+                         f"with their halo rows)",
     }
     line = []
     for name, entries in kernel_results.items():
@@ -3543,7 +3888,8 @@ def kernels_line(kernel_results, counts):
         # training step's samples beside its uniform ones
         extra = {}
         for unit, field in (("step", "per_training_step"),
-                            ("step_inputs", "on_training_step_inputs")):
+                            ("step_inputs", "on_training_step_inputs"),
+                            ("tile", "on_a_rank_tile")):
             sel = [e for e in entries if e.get("unit") == unit]
             if not sel:
                 continue
@@ -3654,9 +4000,10 @@ def main(argv=None):
         return 0
     if args.entry_only:
         entry = entry_point_phase()
+        diagnostics = diagnostics_phase()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
-        log(json.dumps({"entry_point": entry}))
+        log(json.dumps({"entry_point": entry, "diagnostics": diagnostics}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3685,7 +4032,8 @@ def main(argv=None):
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_identity())
         log(json.dumps({"sharded": [{k: r[k] for k in (
-            "rank", "device", "serve", "train", "train_fused_pos")}
+            "rank", "device", "serve", "train", "train_fused_pos",
+            "swin_backbone", "swin_train")}
             for r in sharded],
             "grid": args.grid, "backend": args.backend}))
         print(json.dumps({"ok": True, "device": {
@@ -3704,6 +4052,9 @@ def main(argv=None):
     kernel_results["window_attention"] += row0_fwd
     kernel_results["window_attention_bwd"] += row0_bwd
     kernel_results["window_attention_pos_bwd"] += row0_pos
+    tile_fwd, tile_bwd = msda_tile_phase(gen)
+    kernel_results["msda_taps"] += tile_fwd
+    kernel_results["msda_taps_bwd"] += tile_bwd
     log("phase 2 kernels: every kernel matches its plain version "
         "(f32 and bf16)")
 
@@ -3782,6 +4133,10 @@ def main(argv=None):
         f"{entry['save_s']:.3f} s, restore {json.dumps(entry['restore_s'])} s, "
         f"eval {entry['eval_ms_per_frame']:.2f} ms/frame ({gpu_identity()}); "
         + json.dumps(entry))
+    t_diag = time.perf_counter()
+    diagnostics = diagnostics_phase()
+    log(f"phase 8 diagnostics: {time.perf_counter() - t_diag:.1f} s "
+        f"({gpu_identity()}); " + json.dumps(diagnostics))
     t_serve = time.perf_counter()
     serving = serving_phase()
     log(f"phase 9 serving entry points: {time.perf_counter() - t_serve:.1f} s; "

@@ -55,6 +55,12 @@ ITERS = 8
 # what a step may all-reduce besides the gradients: the tap metric's shares
 # of the swin neck (a few floats); 1 KiB is far below one parameter tensor
 SCALAR_BYTES = 1024
+# the swin backbone's collectives on its H tiles (models/swin.py,
+# models/adaptor.py): window halos, the gather of a stage run whole, the
+# stem's and the ConvFFN's convolution halos, the neck's value halos and
+# value gathers
+SWIN_SITES = {"swin_halo", "swin_stage", "stem_halo", "ffn_halo", "msda_halo",
+              "msda_value"}
 
 
 def _parser():
@@ -203,13 +209,15 @@ def check_comm_contract(comm, param_bytes, data, spatial, output_bytes=0):
       parameters' float32 bytes (``sum_gradients`` flattens ``.float()``
       gradients); besides it a step may all-reduce scalars only (the swin
       tap metric), at most ``SCALAR_BYTES``, and on a spatial axis the
-      instance norms' moments and the stripe gather's backward.
+      instance norms' moments and the backwards of the all-gathers (the
+      stripe's; the swin backbone's stage and value gathers).
     * Data-parallel (spatial 1): the only all-gather is that of the
       outputs, exactly their global bytes ``output_bytes``: every rank
       computes the one global loss from them (``parallel/mesh.py``); no
       halo, roll or stripe gather and no moments.
     * Spatial: halo and roll or stripe gathers are present, and the
-      outputs' gather is their global bytes.
+      outputs' gather is their global bytes; the swin backbone on its
+      tiles adds its own sites (``SWIN_SITES``).
 
     The JAX contract's 1.75x and 512 B/px allowances describe XLA's
     partitioner; the port's counts are exact, so its bounds are too."""
@@ -231,10 +239,10 @@ def check_comm_contract(comm, param_bytes, data, spatial, output_bytes=0):
         f"gradient all-reduce {grads} is not one call of the parameters' "
         f"{param_bytes} f32 bytes")
     reduces = sites("all_reduce") - {"gradients"}
-    # on a spatial axis: the instance norms' moments and the stripe
-    # gather's backward (the sum of the gathered gradients)
-    allowed = {"tap_metric", "moments", "stripe"} if spatial > 1 \
-        else {"tap_metric"}
+    # on a spatial axis: the instance norms' moments and the all-gathers'
+    # backwards (the sum of the gathered gradients)
+    allowed = {"tap_metric", "moments", "stripe", "stem_moments",
+               "swin_stage", "msda_value"} if spatial > 1 else {"tap_metric"}
     assert reduces <= allowed, f"unexpected all-reduces {reduces - allowed}"
     scalars = site("all_reduce", "tap_metric")["bytes"]
     assert scalars <= SCALAR_BYTES, (
@@ -250,12 +258,12 @@ def check_comm_contract(comm, param_bytes, data, spatial, output_bytes=0):
     else:
         assert "halo" in gathers and gathers & {"roll", "stripe"}, (
             f"spatial mesh without halo and roll or stripe exchanges: {gathers}")
-        assert gathers <= {"halo", "roll", "stripe"}, (
-            f"unexpected all-gathers {gathers - {'halo', 'roll', 'stripe'}}")
+        known = {"halo", "roll", "stripe"} | SWIN_SITES
+        assert gathers <= known, f"unexpected all-gathers {gathers - known}"
         res["halo_roll_stripe_bytes"] = sum(site("all_gather", s)["bytes"]
                                             for s in gathers)
         res["moments_stripe_allreduce_bytes"] = sum(
-            site("all_reduce", s)["bytes"] for s in ("moments", "stripe"))
+            site("all_reduce", s)["bytes"] for s in reduces - {"tap_metric"})
     res.update(gradient_allreduce_bytes=grads["bytes"],
                output_allgather_bytes=outputs, scalar_allreduce_bytes=scalars)
     return res

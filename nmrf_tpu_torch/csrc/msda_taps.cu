@@ -15,6 +15,17 @@
 // |tx| > r is dropped: exactly the terms that the JAX package's dense
 // (2r+1)^2-tap hat sum keeps.
 //
+// On an H tile (the swin neck under a spatial group) the Hq query rows are
+// global rows qy0 .. qy0 + Hq - 1 of the grid and the Hl rows of v are
+// global level rows vy0 .. vy0 + Hl - 1 of the level's Hg, holding at
+// least the rows those queries reach (the caller's halo): base cells, dy
+// and the map's edges are global.  f is Wq / Wl (W is never split).  The
+// entry hands the kernels v's rows on the level map alone (its pointer
+// moved to the first, their count as the kernels' Hl, their first global
+// row as vy0), so the kernels' corner test is the whole map's; qy0 = vy0
+// = 0 and Hg = Hl with Hq = f Hl is the whole map, the same arithmetic and
+// bits as before the offsets.
+//
 // Design: the TPU kernel walks all (2r+1)^2 taps because the TPU has no
 // vector gather; here every thread gathers the 4 corners of its samples
 // directly, as upstream's CUDA im2col does.  Two kernels, chosen by shape:
@@ -50,7 +61,14 @@ namespace nmrf {
 
 struct MsdaParams {
   int B, Hl, Wl, Hq, Wq, M, D, P, r, f, MD, MP, nq;
+  int qy0, vy0;        // global rows of the first query row and of v's row 0
+  long long vstride;   // elements of one image's v
 };
+
+// the row of v holding the base cell of local query row qy
+__device__ __forceinline__ int base_row(int qy, const MsdaParams& p) {
+  return (2 * (qy + p.qy0) + 1 + p.f) / (2 * p.f) - 1 - p.vy0;
+}
 
 template <typename T>
 __global__ void msda_taps_kernel(const T* __restrict__ v, const float* __restrict__ dx,
@@ -80,9 +98,9 @@ __global__ void msda_taps_kernel(const T* __restrict__ v, const float* __restric
   const int qx = q % p.Wq;
   const int qy = (q / p.Wq) % p.Hq;
   const int b = q / (p.Wq * p.Hq);
-  const int base_y = (2 * qy + 1 + p.f) / (2 * p.f) - 1;
+  const int base_y = base_row(qy, p);
   const int base_x = (2 * qx + 1 + p.f) / (2 * p.f) - 1;
-  const T* vb = v + static_cast<long long>(b) * p.Hl * p.Wl * p.MD + c;
+  const T* vb = v + static_cast<long long>(b) * p.vstride + c;
   const float reach = static_cast<float>(p.r) + 1.f;
   float acc = 0.f;
   for (int pt = 0; pt < p.P; ++pt) {
@@ -112,10 +130,14 @@ __global__ void msda_taps_kernel(const T* __restrict__ v, const float* __restric
 }
 
 constexpr int kVecThreads = 256;
+// blocks of the vector kernel an SM must hold at once: up to 85 registers
+// a thread (its f32 D 16 form takes about 72); left to itself, ptxas held
+// the bf16 D 8 form at 48 and spilled 8 bytes once the row offsets came in
+constexpr int kVecMinBlocks = 3;
 
 // one thread per (query, head); D channels, V = 16 / sizeof(T) per vector
 template <typename T, int D>
-__global__ void __launch_bounds__(kVecThreads)
+__global__ void __launch_bounds__(kVecThreads, kVecMinBlocks)
 msda_taps_vec_kernel(const T* __restrict__ v, const float* __restrict__ dx,
                      const float* __restrict__ dy, const float* __restrict__ aw,
                      T* __restrict__ out, MsdaParams p) {
@@ -126,9 +148,9 @@ msda_taps_vec_kernel(const T* __restrict__ v, const float* __restrict__ dx,
   const int qx = q % p.Wq;
   const int qy = (q / p.Wq) % p.Hq;
   const int b = q / (p.Wq * p.Hq);
-  const int base_y = (2 * qy + 1 + p.f) / (2 * p.f) - 1;
+  const int base_y = base_row(qy, p);
   const int base_x = (2 * qx + 1 + p.f) / (2 * p.f) - 1;
-  const T* vb = v + static_cast<long long>(b) * p.Hl * p.Wl * p.MD + m * D;
+  const T* vb = v + static_cast<long long>(b) * p.vstride + m * D;
   const long long row = static_cast<long long>(q) * p.MP + m * p.P;
   const float reach = static_cast<float>(p.r) + 1.f;
   float acc[D];
@@ -186,8 +208,10 @@ int launch_vec(const void* v, const void* dx, const void* dy, const void* aw, vo
 }
 
 template <typename T>
-int launch(const void* v, const void* dx, const void* dy, const void* aw, void* out,
-           MsdaParams p, cudaStream_t stream, int* variant) {
+int launch(const void* v_all, const void* dx, const void* dy, const void* aw, void* out,
+           MsdaParams p, int ylo, cudaStream_t stream, int* variant) {
+  // v's rows on the level map start at its row ylo
+  const void* v = static_cast<const T*>(v_all) + static_cast<long long>(ylo) * p.Wl * p.MD;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dx) |
                          reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(aw) |
                          reinterpret_cast<uintptr_t>(out);
@@ -212,17 +236,24 @@ int launch(const void* v, const void* dx, const void* dy, const void* aw, void* 
 
 extern "C" int nmrf_msda_taps(const void* v, const void* dx, const void* dy, const void* aw,
                               void* out, int dtype, int B, int Hl, int Wl, int Hq, int Wq,
-                              int M, int D, int P, int radius, void* stream,
-                              int* variant) {
+                              int M, int D, int P, int radius, int qy0, int vy0,
+                              int Hg, void* stream, int* variant) {
   using namespace nmrf;
   MsdaParams p;
-  p.B = B; p.Hl = Hl; p.Wl = Wl; p.Hq = Hq; p.Wq = Wq;
+  p.B = B; p.Wl = Wl; p.Hq = Hq; p.Wq = Wq;
   p.M = M; p.D = D; p.P = P; p.r = radius;
-  p.f = Hq / Hl; p.MD = M * D; p.MP = M * P; p.nq = B * Hq * Wq;
-  if (p.MD > 1024 || p.f < 1 || p.f * Hl != Hq || p.f * Wl != Wq)
+  p.f = Wl > 0 ? Wq / Wl : 0; p.MD = M * D; p.MP = M * P; p.nq = B * Hq * Wq;
+  if (p.MD > 1024 || p.f < 1 || p.f * Wl != Wq || qy0 < 0 || qy0 + Hq > Hg * p.f)
     return static_cast<int>(cudaErrorInvalidValue);
+  // v's rows on the level map: ylo .. yhi - 1
+  const int ylo = vy0 < 0 ? -vy0 : 0;
+  const int yhi = Hg - vy0 < Hl ? Hg - vy0 : Hl;
+  p.Hl = yhi > ylo ? yhi - ylo : 0;
+  p.qy0 = qy0;
+  p.vy0 = vy0 + ylo;
+  p.vstride = static_cast<long long>(Hl) * Wl * p.MD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch<float>(v, dx, dy, aw, out, p, s, variant);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(v, dx, dy, aw, out, p, s, variant);
+  if (dtype == kF32) return launch<float>(v, dx, dy, aw, out, p, ylo, s, variant);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(v, dx, dy, aw, out, p, ylo, s, variant);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,6 +18,14 @@
 // kept when |ty| <= r, |tx| <= r and it lies on the map, as in the forward;
 // nothing else contributes to any of the four results.
 //
+// On an H tile the queries and v are placed as in the forward
+// (msda_taps.cu): query rows qy0 .. qy0 + Hq - 1, v's rows vy0 .. vy0 +
+// Hl - 1 of the level's Hg, base cells and the map's edges global.  d v
+// then holds the gradient of v's rows from these queries alone (the
+// caller's halo exchange returns its halo rows' part to their tiles), and
+// the base cells of the query rows, -oy .. Hc - oy - 1 in v's rows, index
+// the cell masks.
+//
 // Design: no float atomics, so two launches give the same bits.  d v is
 // gathered per level pixel, not scattered per sample.  For r <= 5 (the swin
 // neck's 5: (2r+1)^2 = 121 taps fit in 128 bits) and f <= 8 three kernels
@@ -77,8 +85,10 @@ namespace nmrf {
 
 struct MsdaBwdParams {
   int B, Hl, Wl, Hq, Wq, M, D, P, r, f, MD, MP, nq;
+  int qy0, vy0;      // global rows of the first query row and of v's first row
+  int ylo, yhi;      // v's rows on the level map: [ylo, yhi)
   int taps;          // (2r + 1)^2
-  int o, Hc, Wc;     // base cells -o .. Hl - 1 per axis: o = 1 when f > 1
+  int oy, ox, Hc, Wc;  // base cells -oy .. Hc - oy - 1 (rows of v) by -ox .. Wl - 1
   int lanes;         // lanes per (level pixel, head) job of the gather kernel
   int slots;         // queries of a base cell per lane: ceil(f^2 / lanes), 1 or 2
   int sdiv, fdiv;    // ceil(2^16 / (2r + 1)) and ceil(2^16 / f): see div_small
@@ -101,6 +111,13 @@ __device__ __forceinline__ int base_cell(int q, int f) { return (2 * q + 1 + f) 
 __device__ __forceinline__ int first_query(int b, int f, int n) {
   const int num = 2 * f * (b + 1) - 1 - f;
   return num <= 0 ? 0 : min((num + 1) / 2, n);
+}
+
+// the first local query row in [0, Hq] whose base cell is at least row b of v
+__device__ __forceinline__ int first_query_row(int b, const MsdaBwdParams& p) {
+  const int num = 2 * p.f * (b + p.vy0 + 1) - 1 - p.f;
+  const int q = num <= 0 ? 0 : (num + 1) / 2;
+  return min(max(q - p.qy0, 0), p.Hq);
 }
 
 // d hat(z) / dz as the JAX backward takes it: -sign(z) where |z| < 1, else 0
@@ -143,7 +160,7 @@ msda_bwd_sample_kernel(const T* __restrict__ v, const float* __restrict__ dx,
   const int qx = q % p.Wq;
   const int qy = (q / p.Wq) % p.Hq;
   const int b = q / (p.Wq * p.Hq);
-  const int base_y = base_cell(qy, p.f), base_x = base_cell(qx, p.f);
+  const int base_y = base_cell(qy + p.qy0, p.f) - p.vy0, base_x = base_cell(qx, p.f);
   const int S = 2 * p.r + 1;
   const T* vb = v + static_cast<long long>(b) * p.Hl * p.Wl * p.MD + m * p.D;
   const T* gq = g + static_cast<long long>(q) * p.MD + m * p.D;
@@ -171,7 +188,7 @@ msda_bwd_sample_kernel(const T* __restrict__ v, const float* __restrict__ dx,
       for (int i = 0; i < 2; ++i) {
         const int ty = y0 + i;
         const int ly = base_y + ty;
-        if (ty < -p.r || ty > p.r || ly < 0 || ly >= p.Hl) continue;
+        if (ty < -p.r || ty > p.r || ly < p.ylo || ly >= p.yhi) continue;
         const float zy = ddy[u] - static_cast<float>(ty);
         const float hy = fmaxf(0.f, 1.f - fabsf(zy));
         const float sy = hat_slope(zy);
@@ -235,10 +252,10 @@ msda_bwd_cell_mask_kernel(const uint32_t* __restrict__ qmask, uint32_t* __restri
   const long long plane = idx / p.Wc / p.Hc;  // (b * M + m) * 4 + word
   const int cy = static_cast<int>((idx / p.Wc) % p.Hc);
   const uint32_t* src = qmask + plane * p.qplane;
-  const int qy1 = first_query(cy - p.o + 1, p.f, p.Hq);
-  const int qx0 = first_query(cx - p.o, p.f, p.Wq), qx1 = first_query(cx - p.o + 1, p.f, p.Wq);
+  const int qy1 = first_query_row(cy - p.oy + 1, p);
+  const int qx0 = first_query(cx - p.ox, p.f, p.Wq), qx1 = first_query(cx - p.ox + 1, p.f, p.Wq);
   uint32_t bits = 0;
-  for (int qy = first_query(cy - p.o, p.f, p.Hq); qy < qy1; ++qy)
+  for (int qy = first_query_row(cy - p.oy, p); qy < qy1; ++qy)
     for (int qx = qx0; qx < qx1; ++qx) bits |= src[static_cast<long long>(qy) * p.Wq + qx];
   cmask[idx] = bits;
 }
@@ -313,7 +330,7 @@ __device__ __forceinline__ bool cell_query(const MsdaBwdParams& p, int py, int p
   ty = row - p.r;
   tx = t - row * (2 * p.r + 1) - p.r;
   const int jy = div_small(j, p.fdiv);
-  const int y0 = p.f * (py - ty) + p.f / 2, x0 = p.f * (px - tx) + p.f / 2;
+  const int y0 = p.f * (py - ty + p.vy0) + p.f / 2 - p.qy0, x0 = p.f * (px - tx) + p.f / 2;
   qy = max(y0, 0) + jy;
   qx = max(x0, 0) + j - jy * p.f;
   return qy < min(y0 + p.f, p.Hq) && qx < min(x0 + p.f, p.Wq);
@@ -368,10 +385,10 @@ msda_bwd_gather_kernel(const float* __restrict__ dx, const float* __restrict__ d
   unsigned long long lo = 0, hi = 0;
   if (L == 1) {
     for (int ty = -p.r, t = 0; ty <= p.r && active; ++ty) {
-      const int cy = py - ty + p.o;
+      const int cy = py - ty + p.oy;
       const bool row_on = cy >= 0 && cy < p.Hc;
       for (int tx = -p.r; tx <= p.r; ++tx, ++t) {
-        const int cx = px - tx + p.o;
+        const int cx = px - tx + p.ox;
         if (row_on && cx >= 0 && cx < p.Wc &&
             ((cm[(t >> 5) * p.cplane + static_cast<long long>(cy) * p.Wc + cx] >> (t & 31)) & 1u))
           set_tap(lo, hi, t);
@@ -387,7 +404,7 @@ msda_bwd_gather_kernel(const float* __restrict__ dx, const float* __restrict__ d
         kept[k] = false;
         if (active && t < p.taps) {
           const int ty = div_small(t, p.sdiv);
-          const int cy = py - (ty - p.r) + p.o, cx = px - (t - ty * S - p.r) + p.o;
+          const int cy = py - (ty - p.r) + p.oy, cx = px - (t - ty * S - p.r) + p.ox;
           if (cy >= 0 && cy < p.Hc && cx >= 0 && cx < p.Wc)
             kept[k] = (cm[(t >> 5) * p.cplane + static_cast<long long>(cy) * p.Wc + cx] >>
                        (t & 31)) & 1u;
@@ -511,11 +528,14 @@ msda_bwd_walk_kernel(const float* __restrict__ dx, const float* __restrict__ dy,
     const int m = VEC ? unit : unit / p.D;
     c0 = VEC ? unit * DV : unit;  // first channel, m * D + d
     const float reach = static_cast<float>(p.r) + 1.f;
-    // base cell rows py - r .. py + r (corner row ty = r .. -r), by slice
-    for (int cy = slice; cy <= 2 * p.r; cy += kSlices) {
+    // base cell rows py - r .. py + r (corner row ty = r .. -r), by slice;
+    // a row of v off the level map (a tile's halo past the global edge)
+    // holds no kept corner
+    const int cy_end = py >= p.ylo && py < p.yhi ? 2 * p.r : -1;
+    for (int cy = slice; cy <= cy_end; cy += kSlices) {
       const int by = py - p.r + cy, ty = p.r - cy;
-      const int qy1 = first_query(by + 1, p.f, p.Hq);
-      for (int qy = first_query(by, p.f, p.Hq); qy < qy1; ++qy) {
+      const int qy1 = first_query_row(by + 1, p);
+      for (int qy = first_query_row(by, p); qy < qy1; ++qy) {
         const long long qrow = (static_cast<long long>(b) * p.Hq + qy) * p.Wq;
         for (int cx = 0; cx <= 2 * p.r; ++cx) {
           const int bx = px - p.r + cx, tx = p.r - cx;
@@ -660,17 +680,26 @@ extern "C" int nmrf_msda_taps_bwd(const void* v, const void* dx, const void* dy,
                                   const void* g, void* dv, void* gdx, void* gdy, void* gaw,
                                   void* scratch, long long scratch_bytes, int dtype, int B,
                                   int Hl, int Wl, int Hq, int Wq, int M, int D, int P,
-                                  int radius, void* stream, int* variant) {
+                                  int radius, int qy0, int vy0, int Hg, void* stream,
+                                  int* variant) {
   using namespace nmrf;
   MsdaBwdParams p;
   p.B = B; p.Hl = Hl; p.Wl = Wl; p.Hq = Hq; p.Wq = Wq;
   p.M = M; p.D = D; p.P = P; p.r = radius;
-  p.f = Hl > 0 ? Hq / Hl : 0; p.MD = M * D; p.MP = M * P; p.nq = B * Hq * Wq;
-  if (p.f < 1 || p.f * Hl != Hq || p.f * Wl != Wq || radius < 0)
+  p.f = Wl > 0 ? Wq / Wl : 0; p.MD = M * D; p.MP = M * P; p.nq = B * Hq * Wq;
+  p.qy0 = qy0; p.vy0 = vy0;
+  p.ylo = vy0 < 0 ? -vy0 : 0;
+  p.yhi = Hg - vy0 < Hl ? Hg - vy0 : Hl;
+  if (p.f < 1 || p.f * Wl != Wq || qy0 < 0 || qy0 + Hq > Hg * p.f || Hq < 1 || radius < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   p.taps = (2 * radius + 1) * (2 * radius + 1);
-  p.o = p.f > 1 ? 1 : 0;
-  p.Hc = Hl + p.o; p.Wc = Wl + p.o;
+  // the base cells of the query rows, as rows of v: on the whole map -1 ..
+  // Hl - 1 at f > 1 and 0 .. Hl - 1 at f 1 (a cell is its query)
+  const int cell0 = (2 * qy0 + 1 + p.f) / (2 * p.f) - 1 - vy0;
+  const int cell1 = (2 * (qy0 + Hq - 1) + 1 + p.f) / (2 * p.f) - 1 - vy0;
+  p.oy = -cell0;
+  p.ox = p.f > 1 ? 1 : 0;
+  p.Hc = cell1 - cell0 + 1; p.Wc = Wl + p.ox;
   p.lanes = 1;
   while (p.lanes < 32 && 2 * p.lanes <= p.f * p.f) p.lanes *= 2;
   p.slots = (p.f * p.f + p.lanes - 1) / p.lanes;

@@ -101,11 +101,12 @@ def build_model(cfg, device=None, mesh=None):
 
     mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
     1 the model's decode region runs on H tiles of the features over the
-    mesh's spatial group, and so does the resnet backbone on H tiles of the
-    images (with halo rows from the neighbour tiles); the swin backbone
-    runs on the whole images on every rank of a spatial group (drive either
-    through ``parallel.make_sharded_forward`` or ``make_train_step(...,
-    mesh=)``).  The parameters are the same, so ``params_from_jax`` and
+    mesh's spatial group, and so does the backbone on H tiles of the
+    images, with halo rows from the neighbour tiles (a Swin-T stage whose
+    tile holds fewer than 7 rows, or an odd count before a merge, runs
+    whole on every rank); drive either through
+    ``parallel.make_sharded_forward`` or ``make_train_step(..., mesh=)``.
+    The parameters are the same, so ``params_from_jax`` and
     ``load_state_dict`` apply unchanged.  The device is then the mesh's
     unless given."""
     if mesh is not None and device is None:

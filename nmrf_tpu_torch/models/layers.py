@@ -53,15 +53,18 @@ class Conv2d(nn.Conv2d):
     multiple of the stride.  The rows the tile's outputs read beyond it
     come from the neighbour tiles (:meth:`halo_rows`; zero rows at the
     global edges, as the zero padding) and the convolution runs with H
-    padding 0: the output is the tile of the unsharded output."""
+    padding 0: the output is the tile of the unsharded output.  The halo
+    exchanges are counted under ``site``."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
-                 dilation=1, bias=True, groups=1, dtype=None, spatial=None):
+                 dilation=1, bias=True, groups=1, dtype=None, spatial=None,
+                 site="halo"):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, groups=groups,
                          bias=bias)
         self.compute_dtype = dtype
         self.spatial = spatial
+        self.site = site
 
     def halo_rows(self):
         """(above, below): the input rows beyond an H tile that its outputs
@@ -82,7 +85,8 @@ class Conv2d(nn.Conv2d):
             above, below = self.halo_rows()
             halo = max(above, below)
             if halo:
-                x = halo_exchange_h(x, halo, self.spatial).narrow(
+                x = halo_exchange_h(x, halo, self.spatial,
+                                    site=self.site).narrow(
                     1, halo - above, above + x.shape[1] + below)
             padding = (0, self.padding[1])
         dt = _dt(self.compute_dtype, x)
@@ -211,12 +215,13 @@ def instance_norm_2d(x, eps=1e-5):
     return (xf - mean) * torch.rsqrt(var + eps)
 
 
-def instance_norm(x, spatial=None):
+def instance_norm(x, spatial=None, site="moments"):
     """:func:`instance_norm_2d`, or with a spatial group (x an H tile) the
-    global moments of ``instance_norm_2d_sharded``; float32."""
+    global moments of ``instance_norm_2d_sharded`` (counted under
+    ``site``); float32."""
     if spatial is None:
         return instance_norm_2d(x)
-    return instance_norm_2d_sharded(x, spatial)
+    return instance_norm_2d_sharded(x, spatial, site=site)
 
 
 class Mlp(nn.Module):

@@ -8,9 +8,8 @@ per-layer losses.
 
 With a spatial group (``parallel/spatial.py``) the decode region (cost
 volume through disparity, :meth:`NMRF.decode`) runs on an H tile of the
-features, its collectives in the modules, and so does the resnet backbone
-on an H tile of the images; ``parallel/mesh.py`` cuts the tiles (of the
-images for resnet, of the swin backbone's features for swin) and
+features, its collectives in the modules, and so does either backbone on
+an H tile of the images; ``parallel/mesh.py`` cuts the images' tiles and
 reassembles the outputs."""
 
 import torch
@@ -84,7 +83,7 @@ class NMRF(nn.Module):
             self.backbone = SwinAdaptor(
                 backbone_out_channels, drop_path_rate=backbone_drop_path,
                 tap_radius=msda_tap_radius, use_kernels=use_kernels,
-                gelu_approx=gelu_approx, dtype=dtype)
+                gelu_approx=gelu_approx, dtype=dtype, spatial=spatial)
         else:
             raise ValueError(f"unknown backbone {backbone_type!r}")
         self.concatconv = ConvINReluConv(backbone_out_channels, 128, 64,

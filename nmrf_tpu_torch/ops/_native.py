@@ -44,14 +44,14 @@ _SIGNATURES = {
                              [_P] * 9 + [_I] * 14 + [_F, _P]),
     "stripe_attention_bwd": ("nmrf_stripe_attention_bwd",
                              [_P] * 9 + [_I] * 9 + [_F, _P]),
-    "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 10 + [_P, _P]),
+    "msda_taps": ("nmrf_msda_taps", [_P] * 5 + [_I] * 13 + [_P, _P]),
     "masked_attention": ("nmrf_masked_attention", [_P] * 5 + [_I] * 7 + [_F, _P]),
     "masked_attention_bwd": ("nmrf_masked_attention_bwd",
                              [_P] * 10 + [_I] * 7 + [_F, _P]),
     "window_attention_pos_bwd": ("nmrf_window_attention_pos_bwd",
                                  [_P] * 6 + [_I] * 14 + [_F, _P]),
     "msda_taps_bwd": ("nmrf_msda_taps_bwd",
-                      [_P] * 10 + [_L] + [_I] * 10 + [_P, _P]),
+                      [_P] * 10 + [_L] + [_I] * 13 + [_P, _P]),
 }
 # dtype codes of the kernels' ``dtype`` argument (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -6,14 +6,14 @@ spatial index r % spatial (the order of ``make_mesh``'s
 ``devices.reshape(data, spatial)``), and each data index has its own
 spatial group.  Under :func:`spatial_sharded_apply`:
 
-* **the backbone**: the resnet backbone runs on the rank's H tile of its
-  data shard's images, with halo rows from the neighbour tiles and global
-  instance-norm moments (``models/backbone.py``), and returns the tile of
-  both feature levels: the function the JAX package's GSPMD-partitioned
-  convolutions compute.  The swin backbone runs on the data shard's whole
-  images on every rank of a spatial group, which keeps its H tile of both
-  levels: the same function, the backbone's work repeated over the group
-  (an H-sharded swin backbone is later work, ``ROADMAP.md``);
+* **the backbone** runs on the rank's H tile of its data shard's images
+  and returns the tile of both feature levels: the function the JAX
+  package's GSPMD-partitioned backbone computes.  The resnet backbone with
+  halo rows from the neighbour tiles and global instance-norm moments
+  (``models/backbone.py``); the swin backbone with Swin-T's windows
+  completed from the neighbour tiles, stages too short for a tile run
+  whole on every rank, and the deformable neck's value maps exchanged for
+  the rows its taps reach (``models/swin.py``, ``models/adaptor.py``);
 * **the decode region** (cost volume through disparity,
   ``NMRF.decode``) runs on the tile, with the collectives of
   ``parallel/spatial.py`` inside the modules;
@@ -220,20 +220,12 @@ def _tile_height(H, mesh):
 def sharded_features(model, mesh, img1, img2):
     """The rank's H tile of both feature levels of each image (lists [1/8,
     1/4], as ``model.extract_feature`` gives them for the whole images):
-    the resnet backbone on the rank's tile of the images with halos, the
-    swin backbone on the whole images, its levels then cut to the tile."""
+    the backbone (resnet or swin, built with the mesh) on the rank's tile
+    of the images."""
     sp = mesh.spatial_group
     h = _tile_height(img1.shape[1], mesh)
-    if getattr(model.backbone, "spatial", None) is not None:
-        return model.extract_feature(img1.narrow(1, sp.index * h, h),
-                                     img2.narrow(1, sp.index * h, h))
-
-    def tile(f):
-        n = f.shape[1] // mesh.spatial
-        return f.narrow(1, sp.index * n, n)
-
-    f1, f2 = model.extract_feature(img1, img2)
-    return [tile(f) for f in f1], [tile(f) for f in f2]
+    return model.extract_feature(img1.narrow(1, sp.index * h, h),
+                                 img2.narrow(1, sp.index * h, h))
 
 
 def spatial_sharded_apply(model, mesh, img1, img2, replicated=False):
@@ -288,11 +280,15 @@ def sum_gradients(params, mesh):
     only through its own block of the global outputs (the output gather's
     backward takes that block), and through the backbone's work on its
     tile plus the halo rows it read from its neighbours, whose gradients
-    the halo exchange's backward sends back to the tiles they came from
-    (the swin backbone, on whole images, gets no gradient outside the
-    rank's tile).  So the per-rank gradients are disjoint parts of the
-    gradient of the one global loss and their sum is that gradient.  A
-    mean would scale it by 1 / world size."""
+    the halo exchange's backward sends back to the tiles they came from.
+    The swin backbone's parameters too: a window cut by a tile edge is
+    computed by both ranks, each keeping (and so differentiating) its own
+    rows, and a Swin stage run whole on every rank is differentiated by
+    each through its own rows' outputs only (the all-gather's backward
+    sums the group's parts of its input gradient).  So the per-rank
+    gradients are disjoint parts of the gradient of the one global loss
+    and their sum is that gradient.  A mean would scale it by 1 / world
+    size."""
     live = [p for p in params if p.grad is not None]
     if not live:
         return

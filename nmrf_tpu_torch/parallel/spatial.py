@@ -156,13 +156,13 @@ def global_roll_h(x, shift, group, h_axis=1):
 
 class _HaloH(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, halo, group, h_axis, wrap):
-        ctx.args = (halo, group, h_axis, wrap)
+    def forward(ctx, x, halo, group, h_axis, wrap, site):
+        ctx.args = (halo, group, h_axis, wrap, site)
         n, i = group.size, group.index
         H = x.shape[h_axis]
         edges = torch.cat([x.narrow(h_axis, 0, halo),
                            x.narrow(h_axis, H - halo, halo)], dim=h_axis)
-        parts = group.all_gather(edges, "halo")
+        parts = group.all_gather(edges, site)
         from_prev = parts[(i - 1) % n].narrow(h_axis, halo, halo)  # its bottom
         from_next = parts[(i + 1) % n].narrow(h_axis, 0, halo)     # its top
         if not wrap:
@@ -174,7 +174,7 @@ class _HaloH(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        halo, group, h_axis, wrap = ctx.args
+        halo, group, h_axis, wrap, site = ctx.args
         n, i = group.size, group.index
         H = g.shape[h_axis] - 2 * halo
         g_prev = g.narrow(h_axis, 0, halo)          # belongs to tile i-1
@@ -185,63 +185,67 @@ class _HaloH(torch.autograd.Function):
             if i == n - 1:
                 g_next = torch.zeros_like(g_next)
         parts = group.all_gather(torch.cat([g_prev, g_next], dim=h_axis),
-                                 "halo")
+                                 site)
         dx = g.narrow(h_axis, halo, H).clone()
         # tile i-1's lower halo was my top rows, tile i+1's upper my bottom
         dx.narrow(h_axis, 0, halo).add_(parts[(i - 1) % n].narrow(h_axis, halo, halo))
         dx.narrow(h_axis, H - halo, halo).add_(parts[(i + 1) % n].narrow(h_axis, 0, halo))
-        return dx, None, None, None, None
+        return dx, None, None, None, None, None
 
 
-def halo_exchange_h(x, halo, group, h_axis=1, wrap=False):
+def halo_exchange_h(x, halo, group, h_axis=1, wrap=False, site="halo"):
     """x extended by ``halo`` rows of each H-neighbour tile: local H becomes
-    H + 2 halo.  The global edges get zero rows unless ``wrap``."""
+    H + 2 halo.  The global edges get zero rows unless ``wrap``.  The
+    exchanges (forward and backward) are counted under ``site``."""
     assert halo <= x.shape[h_axis], (halo, x.shape[h_axis])
-    return _HaloH.apply(x, int(halo), group, h_axis, bool(wrap))
+    return _HaloH.apply(x, int(halo), group, h_axis, bool(wrap), site)
 
 
 class _AllGatherH(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, h_axis):
-        ctx.args = (group, h_axis, x.shape[h_axis])
-        return torch.cat(group.all_gather(x, "stripe"), dim=h_axis)
+    def forward(ctx, x, group, h_axis, site):
+        ctx.args = (group, h_axis, x.shape[h_axis], site)
+        return torch.cat(group.all_gather(x, site), dim=h_axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, h_axis, H = ctx.args
-        total = group.all_reduce(g, "stripe")
-        return total.narrow(h_axis, group.index * H, H), None, None
+        group, h_axis, H, site = ctx.args
+        total = group.all_reduce(g, site)
+        return total.narrow(h_axis, group.index * H, H), None, None, None
 
 
-def all_gather_h(x, group, h_axis=1):
-    """The global H axis: the group's tiles concatenated in tile order."""
-    return _AllGatherH.apply(x, group, h_axis)
+def all_gather_h(x, group, h_axis=1, site="stripe"):
+    """The global H axis: the group's tiles concatenated in tile order (the
+    gather, and its backward's all-reduce, counted under ``site``)."""
+    return _AllGatherH.apply(x, group, h_axis, site)
 
 
 class _MeanOverGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.all_reduce(x, "moments") / group.size
+    def forward(ctx, x, group, site):
+        ctx.group, ctx.site = group, site
+        return group.all_reduce(x, site) / group.size
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.group.all_reduce(g, "moments") / ctx.group.size, None
+        return (ctx.group.all_reduce(g, ctx.site) / ctx.group.size, None,
+                None)
 
 
-def mean_over_group(x, group):
+def mean_over_group(x, group, site="moments"):
     """The mean of x over the group's ranks (``lax.pmean``)."""
-    return _MeanOverGroup.apply(x, group)
+    return _MeanOverGroup.apply(x, group, site)
 
 
-def instance_norm_2d_sharded(x, group, eps=1e-5):
+def instance_norm_2d_sharded(x, group, eps=1e-5, site="moments"):
     """Affine-free instance norm over the GLOBAL spatial extent of an
     H-sharded [B, H_loc, W, C] tensor: two passes, the mean and then the
     mean of squared deviations, each local mean averaged over the group's
     equal-size tiles.  Returns float32."""
     x32 = x.float()
-    m = mean_over_group(x32.mean(dim=(1, 2), keepdim=True), group)
-    v = mean_over_group(((x32 - m) ** 2).mean(dim=(1, 2), keepdim=True), group)
+    m = mean_over_group(x32.mean(dim=(1, 2), keepdim=True), group, site)
+    v = mean_over_group(((x32 - m) ** 2).mean(dim=(1, 2), keepdim=True),
+                        group, site)
     return (x32 - m) * torch.rsqrt(v + eps)
 
 

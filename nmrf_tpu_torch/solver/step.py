@@ -43,9 +43,10 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
     ``msda_tap_oob``, the largest share of samples beyond the tap radius
     over the neck's extractors, as its maximum over the interval since the
     last ``step.read_oob()``: a device scalar, with no host sync per step,
-    so a spike between two readbacks is not lost.  With a data axis each
-    extractor's share is the global batch's (its shards' mean, one
-    all-reduce), so every rank holds the same value.  ``step.read_oob(guard=
+    so a spike between two readbacks is not lost.  On a mesh each
+    extractor's share is the global batch's (the mean of the ranks' shares
+    over their equal data shards and H tiles, one all-reduce), so every
+    rank holds the same value.  ``step.read_oob(guard=
     None)`` reads it back (one sync), starts a new interval and returns the
     float (None when no step reported one).  Given a
     ``utils.guards.TapOOBGuard`` it passes the value to ``guard.check``;
@@ -99,13 +100,13 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
         result = {k: v.detach().float() for k, v in losses.items()}
         if fracs:
             frac = torch.cat(fracs)
-            if mesh is not None and mesh.data > 1:
-                # each rank's shares are means over its own images: their
-                # mean over the world is that over the global batch (the
-                # ranks of a spatial group hold one data shard's backbone
-                # alike), taken before the maximum over layers and levels
-                # as the JAX global step takes it; one all-reduce on the
-                # device, no host sync
+            if mesh is not None and mesh.world.size > 1:
+                # each rank's shares are means over its own queries (its
+                # data shard's images, its H tile's rows): equal shards and
+                # tiles, so their mean over the world is that over the
+                # global batch, taken before the maximum over layers and
+                # levels as the JAX global step takes it; one all-reduce on
+                # the device, no host sync
                 frac = mesh.world.all_reduce(frac, "tap_metric") \
                     / mesh.world.size
             frac = frac.max()

@@ -108,25 +108,29 @@ _register()
 # roofline bounds of one launch: (bytes ms, operations ms)
 # --------------------------------------------------------------------------- #
 
-def msda_bound(B, Hq, Wq, f, M, P, D, esize):
+def msda_bound(B, Hq, Wq, f, M, P, D, esize, level_rows=None):
     """(bytes ms, ops ms) of one B5 launch: dx, dy and aw (f32) and the
-    level map read once, the output written once; per sample and corner one
-    weight and D multiply-adds, in f32 on the CUDA cores."""
+    level map (Hq / f rows, or ``level_rows`` on an H tile) read once, the
+    output written once; per sample and corner one weight and D
+    multiply-adds, in f32 on the CUDA cores."""
     samples = B * Hq * Wq * M * P
-    nbytes = (3 * samples * 4 + B * (Hq // f) * (Wq // f) * M * D * esize
+    rows = Hq // f if level_rows is None else level_rows
+    nbytes = (3 * samples * 4 + B * rows * (Wq // f) * M * D * esize
               + B * Hq * Wq * M * D * esize)
     ops = samples * 4 * (2 * D + 4)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
-def msda_bwd_bound(B, Hq, Wq, f, M, P, D, esize, corners):
-    """(bytes ms, ops ms) of one B5b launch: the level map, dx, dy, aw (f32)
-    and g read once, d value (value's dtype) and d dx, d dy, d aw (f32)
-    written once; per kept corner the D-channel dot product with g, the
-    hat weights and slopes and three products, and the D multiply-adds of
-    d value, in f32 on the CUDA cores."""
+def msda_bwd_bound(B, Hq, Wq, f, M, P, D, esize, corners, level_rows=None):
+    """(bytes ms, ops ms) of one B5b launch: the level map (Hq / f rows, or
+    ``level_rows`` on an H tile), dx, dy, aw (f32) and g read once, d value
+    (value's dtype) and d dx, d dy, d aw (f32) written once; per kept
+    corner the D-channel dot product with g, the hat weights and slopes
+    and three products, and the D multiply-adds of d value, in f32 on the
+    CUDA cores."""
     samples = B * Hq * Wq * M * P
-    level = B * (Hq // f) * (Wq // f) * M * D * esize
+    rows = Hq // f if level_rows is None else level_rows
+    level = B * rows * (Wq // f) * M * D * esize
     nbytes = 6 * samples * 4 + 2 * level + B * Hq * Wq * M * D * esize
     ops = corners * (4 * D + 16)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3

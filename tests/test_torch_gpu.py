@@ -31,7 +31,9 @@ and its scalar kernel off them.  The tap-MSDA backward B5b is held
 against its plain version at the swin training step's four extractor
 shapes and off them (backward tolerances), with its tap masks and, past
 r 5, walking every cell, against itself (same bits), and through the
-autograd function against the plain versions' gradients.  Which kernel ran
+autograd function against the plain versions' gradients; B5 and B5b
+also at a rank's H tile (row offsets of the queries and the level map).
+Which kernel ran
 (K1's tensor-core or CUDA-core kernel, B5's and B5b's vector or scalar
 path, B5b's masks or walk) is read from the count each wrapper keeps of
 the variant its C entry reports launching.  The serving kernels' registered
@@ -790,6 +792,51 @@ def test_msda_bwd_kernel_past_the_mask_radius(cuda, dtype, f):
     assert ran == {"vector_walk": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 6), dtype)
     for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 6)):
+        assert torch.equal(a, b)
+
+
+# a rank's H tile of the sharded swin step's query grid (96 x 192): (f, q0,
+# query rows, v0, map rows, level rows); the tiled levels carry radius + 1
+# halo rows each side, zero past the global edges
+_MSDA_TILE_CASES = [(1, 48, 48, 42, 60, 96), (2, 48, 48, 16, 38, 48),
+                    (4, 0, 48, -6, 24, 24), (8, 12, 12, 0, 12, 12),
+                    (8, 0, 48, 0, 12, 12)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", _MSDA_TILE_CASES,
+                         ids=["f1", "f2", "f4_top_edge", "f8_q0_12",
+                              "f8_rank0_whole"])
+@pytest.mark.parametrize("r", [5, 6])
+def test_msda_kernels_on_a_tile(cuda, dtype, tile, r):
+    """B5 and B5b at a rank's H tile (query rows from q0, the level map's
+    rows from v0 with its halo rows; at f 8 from q0 12, not a multiple of
+    f) match their plain versions at the forward and backward tolerances,
+    B5b with its masks at r 5 and walking at r 6, and the same bits on a
+    second launch."""
+    f, q0, hq, v0, n, Hg = tile
+    g = torch.Generator(device=cuda).manual_seed(70 + f)
+    B, Wq, M, P, D = 16, 192, 8, 4, 8
+    rows = torch.arange(v0, v0 + n, device=cuda)
+    on_map = ((rows >= 0) & (rows < Hg)).float()[None, :, None, None]
+    vmap = (torch.randn(B, n, Wq // f, M * D, generator=g, device=cuda)
+            * on_map).to(dtype)
+    dx, dy = ((torch.rand(B, hq, Wq, M * P, generator=g, device=cuda) * 2 - 1)
+              * (r - 0.5) for _ in range(2))
+    aw = torch.rand(B, hq, Wq, M * P, generator=g, device=cuda)
+    gout = torch.randn(B, hq, Wq, M * D, generator=g, device=cuda).to(dtype)
+    offsets = (q0, v0, Hg)
+    got = msda.msda_taps(vmap, dx, dy, aw, M, r, *offsets)
+    atol, rtol = _GPU_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), msda.msda_taps_plain(vmap, dx, dy, aw, M, r, *offsets).float(),
+        atol=atol, rtol=rtol)
+    args = (vmap, dx, dy, aw, gout, M, r, *offsets)
+    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args))
+    assert ran == {"vector_masks" if r <= 5 else "vector_walk": 1}, ran
+    _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args), dtype)
+    for a, b in zip(got, msda.msda_taps_bwd(*args)):
         assert torch.equal(a, b)
 
 

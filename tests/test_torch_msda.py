@@ -168,3 +168,34 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_no_launch():
         msda.msda_taps(vmap[:, :, :5], dx, dy, aw, 2, 2)
     with pytest.raises(TypeError, match="float32"):
         msda.msda_taps(vmap, dx.double(), dy, aw, 2, 2)
+
+
+@pytest.mark.parametrize("f,r,q0,margin", [
+    (1, 5, 12, 1), (2, 5, 24, 0), (4, 2, 12, 1),
+    (8, 5, 12, 1),   # q0 not a multiple of f
+    (8, 5, 36, 2),   # the last tile: its map past the bottom edge
+    (1, 2, 0, 3),    # the first tile: its map past the top edge
+])
+def test_tap_plain_at_an_offset_is_the_whole_map_cut_to_the_tile(f, r, q0,
+                                                                 margin):
+    """On an H tile (query rows q0 .. q0 + 11 of 48, the level map's rows
+    the tile reads within r plus ``margin`` each side, zero past the global
+    edges as the halo exchange gives them) the plain tap version equals
+    the whole map's, cut to the tile; the wrapper takes it on the CPU, and
+    a map that lacks a row the tile reads raises."""
+    rng = np.random.RandomState(20 + 7 * f + r + q0)
+    Hq, hq = 48, 12
+    vmap, dx, dy, aw = _tap_case(rng, f, r, Hq=Hq, Wq=16)
+    Hl = Hq // f
+    want = msda.msda_taps_plain(_t(vmap), _t(dx), _t(dy), _t(aw), 2, r)
+    lo, hi = msda.tap_value_rows(hq, f, r, q0, Hl)
+    v0 = lo - margin
+    padded = np.pad(vmap, ((0, 0), (margin, margin), (0, 0), (0, 0)))
+    local = _t(padded[:, v0 + margin:hi + 2 * margin])
+    tile = [_t(x[:, q0:q0 + hq]) for x in (dx, dy, aw)]
+    got = msda.msda_taps_plain(local, *tile, 2, r, q0, v0, Hl)
+    torch.testing.assert_close(got, want[:, q0:q0 + hq], atol=1e-6, rtol=0)
+    torch.testing.assert_close(msda.msda_taps(local, *tile, 2, r, q0, v0, Hl),
+                               got, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="do not hold"):
+        msda.msda_taps(local[:, 1:], *tile, 2, r, q0, v0 + margin + 1, Hl)

@@ -21,6 +21,13 @@
   lanes; past r 5 the walk over every base cell within r.  With the swin
   neck's samples (each head's points along one direction), the masks keep
   only part of the cells and of their queries.
+* on an H tile (query rows from q0, the level map's rows from v0, with
+  halo rows past the global edges): the plain version and the kernel's
+  model at those offsets equal the plain version on the whole map, cut to
+  the tile's queries and the map's rows, with the whole map's g zero
+  outside the tile, atol 1e-5 (the same sums; d value gathers only the
+  tile's queries); the model's base cells, first query rows and cell
+  masks are the ``.cu``'s forms with ``qy0``, ``vy0`` and ``oy``.
 """
 
 import numpy as np
@@ -161,6 +168,9 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_counts_no_launch():
 
 # ---- a model of csrc/msda_taps_bwd.cu ---- #
 
+WHOLE = (0, 0, None)  # (q0, v0, level rows): the whole map
+
+
 def _base(q, f):
     return (2 * q + 1 + f) // (2 * f) - 1
 
@@ -171,21 +181,40 @@ def _first_query(b, f, n):
     return torch.where(num <= 0, 0, torch.clamp((num + 1) // 2, max=n))
 
 
+def _first_query_row(b, f, n, rows):
+    """The .cu's first_query_row: the first local query row in [0, n] whose
+    base cell is at least row b of the map (rows: q0, v0, level rows)."""
+    q0, v0, _ = rows
+    num = 2 * f * (b + v0 + 1) - 1 - f
+    q = torch.where(num <= 0, 0, (num + 1) // 2)
+    return torch.clamp(q - q0, 0, n)
+
+
+def _row_frame(Hl, Hq, f, rows):
+    """The local base row of each query row and the map's rows on the
+    level, [ylo, yhi)."""
+    q0, v0, Hg = rows
+    Hg = Hl if Hg is None else Hg
+    return (_base(torch.arange(Hq) + q0, f) - v0, max(0, -v0),
+            min(Hl, Hg - v0))
+
+
 def _hat_slope(z):
     return torch.where(z.abs() < 1, torch.where(z > 0, -1.0, torch.where(
         z < 0, 1.0, 0.0)), 0.0)
 
 
-def _sample_model(v, dx, dy, aw, g, M, r):
+def _sample_model(v, dx, dy, aw, g, M, r, rows=WHOLE):
     """The sample kernel: per (query, head, point) its two corner rows and
     columns, each kept corner gathered and dotted with g."""
     B, Hl, Wl, MD = v.shape
     _, Hq, Wq, MP = dx.shape
-    P, D, f = MP // M, MD // M, Hq // Hl
+    P, D, f = MP // M, MD // M, Wq // Wl
     shape = (B, Hq, Wq, M, P)
     dx5, dy5, aw5 = (t.reshape(shape) for t in (dx, dy, aw))
     g5 = g.reshape(B, Hq, Wq, M, 1, D)
-    by = _base(torch.arange(Hq), f)[None, :, None, None, None]
+    by, ylo, yhi = _row_frame(Hl, Hq, f, rows)
+    by = by[None, :, None, None, None]
     bx = _base(torch.arange(Wq), f)[None, None, :, None, None]
     ok = (dx5.abs() <= r + 1) & (dy5.abs() <= r + 1)
     y0 = torch.where(ok, dy5, 0.0).floor().long()
@@ -198,8 +227,8 @@ def _sample_model(v, dx, dy, aw, g, M, r):
         for j in range(2):
             ty, tx = y0 + i, x0 + j
             ly, lx = by + ty, bx + tx
-            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (ly >= 0) \
-                & (ly < Hl) & (lx >= 0) & (lx < Wl)
+            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (ly >= ylo) \
+                & (ly < yhi) & (lx >= 0) & (lx < Wl)
             zy, zx = dy5 - ty, dx5 - tx
             hy, hx = (1 - zy.abs()).clamp_min(0), (1 - zx.abs()).clamp_min(0)
             corner = v5[bi, ly.clamp(0, Hl - 1), lx.clamp(0, Wl - 1), mi]
@@ -210,21 +239,26 @@ def _sample_model(v, dx, dy, aw, g, M, r):
     return [o.reshape(dx.shape) for o in (out[2], out[1], out[0])]
 
 
-def _walk_model(dx, dy, aw, g, Hl, Wl, M, r):
+def _walk_model(dx, dy, aw, g, Hl, Wl, M, r, rows=WHOLE):
     """The walk kernel (r > 5): each level pixel walks the base cells
     within r of it, each cell's query range per axis from first_query, and
     takes the samples with a corner on the pixel."""
     B, Hq, Wq, MP = dx.shape
     MD = g.shape[-1]
-    P, D, f = MP // M, MD // M, Hq // Hl
+    P, D, f = MP // M, MD // M, Wq // Wl
     dx5, dy5, aw5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy, aw))
     g5 = g.reshape(B, Hq, Wq, M, D)
     py = torch.arange(Hl)[:, None].expand(Hl, Wl)
     px = torch.arange(Wl)[None, :].expand(Hl, Wl)
+    # a pixel off the level map (a tile's halo past the global edge) walks
+    # no cell
+    _, ylo, yhi = _row_frame(Hl, Hq, f, rows)
+    on_map = ((py >= ylo) & (py < yhi))[None, :, :, None, None]
     acc = torch.zeros(B, Hl, Wl, M, D)
     for cy in range(2 * r + 1):
         by, ty = py - r + cy, r - cy
-        qy0, qy1 = _first_query(by, f, Hq), _first_query(by + 1, f, Hq)
+        qy0 = _first_query_row(by, f, Hq, rows)
+        qy1 = _first_query_row(by + 1, f, Hq, rows)
         assert ((qy1 - qy0) <= f).all()
         for cx in range(2 * r + 1):
             bx, tx = px - r + cx, r - cx
@@ -237,7 +271,8 @@ def _walk_model(dx, dy, aw, g, Hl, Wl, M, r):
                         continue
                     qy, qx = qy.clamp(max=Hq - 1), qx.clamp(max=Wq - 1)
                     w = _pixel_weight(dx5, dy5, aw5, qy, qx, ty, tx, r)
-                    w = torch.where(valid[None, :, :, None, None], w, 0.0)
+                    w = torch.where(valid[None, :, :, None, None] & on_map,
+                                    w, 0.0)
                     acc += w.sum(-1, keepdim=True) * g5[:, qy, qx]
     return acc.reshape(B, Hl, Wl, MD)
 
@@ -256,14 +291,15 @@ def _pixel_weight(dx5, dy5, aw5, qy, qx, ty, tx, r):
     return torch.where(hit, saw * hy * hx, 0.0)
 
 
-def _tap_masks(dx, dy, Hl, Wl, M, r):
+def _tap_masks(dx, dy, Hl, Wl, M, r, rows=WHOLE):
     """The sample kernel's masks: [B, Hq, Wq, M, (2r+1)^2] bool, tap
     (ty + r)(2r + 1) + tx + r set for each kept corner of the (query,
     head)'s samples (within r + 1, |ty|, |tx| <= r, on the map)."""
     B, Hq, Wq, MP = dx.shape
-    P, f, S = MP // M, Hq // Hl, 2 * r + 1
+    P, f, S = MP // M, Wq // Wl, 2 * r + 1
     dx5, dy5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy))
-    by = _base(torch.arange(Hq), f)[None, :, None, None, None]
+    by, ylo, yhi = _row_frame(Hl, Hq, f, rows)
+    by = by[None, :, None, None, None]
     bx = _base(torch.arange(Wq), f)[None, None, :, None, None]
     ok = (dx5.abs() <= r + 1) & (dy5.abs() <= r + 1)
     y0 = torch.where(ok, dy5, 0.0).floor().long()
@@ -272,29 +308,34 @@ def _tap_masks(dx, dy, Hl, Wl, M, r):
     for i in range(2):
         for j in range(2):
             ty, tx = y0 + i, x0 + j
-            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (by + ty >= 0) \
-                & (by + ty < Hl) & (bx + tx >= 0) & (bx + tx < Wl)
+            keep = ok & (ty.abs() <= r) & (tx.abs() <= r) & (by + ty >= ylo) \
+                & (by + ty < yhi) & (bx + tx >= 0) & (bx + tx < Wl)
             t = torch.where(keep, (ty + r) * S + tx + r, 0)
             hot = F.one_hot(t, S * S).bool() & keep[..., None]  # [.., P, taps]
             masks |= hot.any(-2)
     return masks
 
 
-def _cell_masks(qmask, Hl, Wl):
-    """The cell-mask kernel: per base cell (-o .. Hl - 1 per axis, o = 1
-    at f > 1) the OR of its queries' masks, [B, Hl + o, Wl + o, M, taps];
-    at f 1 the query masks themselves."""
+def _cell_masks(qmask, Hl, Wl, rows=WHOLE):
+    """The cell-mask kernel: per base cell (rows -oy .. Hc - oy - 1 of the
+    map, the base cells of the query rows: -1 .. Hl - 1 on the whole map at
+    f > 1; columns -ox .. Wl - 1, ox = 1 at f > 1) the OR of its queries'
+    masks, [B, Hc, Wl + ox, M, taps]; at f 1 the query masks themselves
+    (a cell is its query).  Returns the masks, oy and ox."""
     B, Hq, Wq = qmask.shape[:3]
-    f = Hq // Hl
+    f = Wq // Wl
+    base = _row_frame(Hl, Hq, f, rows)[0]
+    oy, Hc = -int(base[0]), int(base[-1] - base[0]) + 1
     if f == 1:
-        return qmask, 0
-    cells = torch.zeros(B, Hl + 1, Wl + 1, *qmask.shape[3:], dtype=torch.bool)
-    for cy in range(Hl + 1):
-        y0, y1 = (int(_first_query(torch.tensor(c), f, Hq)) for c in (cy - 1, cy))
+        return qmask, oy, 0
+    cells = torch.zeros(B, Hc, Wl + 1, *qmask.shape[3:], dtype=torch.bool)
+    for cy in range(Hc):
+        y0, y1 = (int(_first_query_row(torch.tensor(c), f, Hq, rows))
+                  for c in (cy - oy, cy - oy + 1))
         for cx in range(Wl + 1):
             x0, x1 = (int(_first_query(torch.tensor(c), f, Wq)) for c in (cx - 1, cx))
             cells[:, cy, cx] = qmask[:, y0:y1, x0:x1].flatten(1, 2).any(1)
-    return cells, 1
+    return cells, oy, 1
 
 
 def _gather_lanes(f):
@@ -306,7 +347,7 @@ def _gather_lanes(f):
     return lanes
 
 
-def _gather_model(dx, dy, aw, g, Hl, Wl, M, r):
+def _gather_model(dx, dy, aw, g, Hl, Wl, M, r, rows=WHOLE):
     """The gather kernel (r <= 5, f <= 8): per (level pixel, head) the taps
     whose base cell's mask holds the pixel; L lanes split each kept cell's
     queries (slot j of the cell's f x f block, row j // f and column j % f,
@@ -317,9 +358,10 @@ def _gather_model(dx, dy, aw, g, Hl, Wl, M, r):
     cells kept and of candidate queries loaded."""
     B, Hq, Wq, MP = dx.shape
     MD = g.shape[-1]
-    P, D, f, S = MP // M, MD // M, Hq // Hl, 2 * r + 1
-    qmask = _tap_masks(dx, dy, Hl, Wl, M, r)
-    cmask, o = _cell_masks(qmask, Hl, Wl)
+    P, D, f, S = MP // M, MD // M, Wq // Wl, 2 * r + 1
+    qmask = _tap_masks(dx, dy, Hl, Wl, M, r, rows)
+    cmask, oy, ox = _cell_masks(qmask, Hl, Wl, rows)
+    Hc = cmask.shape[1]
     dx5, dy5, aw5 = (t.reshape(B, Hq, Wq, M, P) for t in (dx, dy, aw))
     g5 = g.reshape(B, Hq, Wq, M, D)
     L = _gather_lanes(f)
@@ -335,12 +377,13 @@ def _gather_model(dx, dy, aw, g, Hl, Wl, M, r):
         for t in range(S * S):
             ty, tx = t // S - r, t % S - r
             by, bx = py - ty, px - tx
-            inside = (by + o >= 0) & (by < Hl) & (bx + o >= 0) & (bx < Wl)
-            cy, cx = (by + o).clamp(0, Hl + o - 1), (bx + o).clamp(0, Wl + o - 1)
+            inside = (by + oy >= 0) & (by + oy < Hc) & (bx + ox >= 0) & (bx < Wl)
+            cy, cx = (by + oy).clamp(0, Hc - 1), (bx + ox).clamp(0, Wl + ox - 1)
             kept = inside[None, :, :, None] & cmask[bi, cy[..., None], cx[..., None], mi, t]
             kept_cells += int(kept.sum()) if k == 0 else 0
-            qy0, qx0 = _first_query(by, f, Hq), _first_query(bx, f, Wq)
-            qy1, qx1 = _first_query(by + 1, f, Hq), _first_query(bx + 1, f, Wq)
+            qy0, qx0 = _first_query_row(by, f, Hq, rows), _first_query(bx, f, Wq)
+            qy1 = _first_query_row(by + 1, f, Hq, rows)
+            qx1 = _first_query(bx + 1, f, Wq)
             for lane in range(L):
                 j = lane + k * L  # slot j: row j // f, column j % f of the block
                 if j >= f * f:
@@ -367,12 +410,12 @@ def _gather_model(dx, dy, aw, g, Hl, Wl, M, r):
     return acc[0].reshape(B, Hl, Wl, MD), share
 
 
-def _value_model(dx, dy, aw, g, Hl, Wl, M, r):
+def _value_model(dx, dy, aw, g, Hl, Wl, M, r, rows=WHOLE):
     """The value path of ``csrc/msda_taps_bwd.cu``: the tap masks and the
     gather kernel up to r 5 and f 8, the walk kernel past them."""
-    if r <= 5 and dx.shape[1] // Hl <= 8:  # kMaskRadius, kSlotsPerLane lanes
-        return _gather_model(dx, dy, aw, g, Hl, Wl, M, r)[0]
-    return _walk_model(dx, dy, aw, g, Hl, Wl, M, r)
+    if r <= 5 and dx.shape[2] // Wl <= 8:  # kMaskRadius, kSlotsPerLane lanes
+        return _gather_model(dx, dy, aw, g, Hl, Wl, M, r, rows)[0]
+    return _walk_model(dx, dy, aw, g, Hl, Wl, M, r, rows)
 
 
 @pytest.mark.parametrize("f,r,shape", [
@@ -419,3 +462,72 @@ def test_gather_model_skips_cells_and_queries_off_the_samples(f):
     assert kept < (0.2 if f == 1 else 0.5), kept
     if f > 1:
         assert loaded < 0.9, loaded
+
+
+# ---- on an H tile ---- #
+
+def tile_case(rng, f, r, q0, hq, margin, Hq=48, Wq=16, M=2, D=4, P=3):
+    """A whole-map case and its H tile: query rows q0 .. q0 + hq - 1 and the
+    map's rows the tile reads within r (``tap_value_rows``) plus ``margin``
+    rows each side, the rows past the global edges zero, as the halo
+    exchange gives them.  Returns (whole inputs, tile inputs, v0)."""
+    whole = _case(rng, f, r, Hq=Hq, Wq=Wq, M=M, D=D, P=P, whole=0.2)
+    vmap, dx, dy, aw, g = whole
+    Hl = Hq // f
+    lo, hi = msda.tap_value_rows(hq, f, r, q0, Hl)
+    v0, v1 = lo - margin, hi + margin
+    padded = np.pad(vmap, ((0, 0), (margin, margin), (0, 0), (0, 0)))
+    local = padded[:, v0 + margin:v1 + margin]
+    tile = (local,) + tuple(x[:, q0:q0 + hq] for x in (dx, dy, aw, g))
+    return whole, tile, v0
+
+
+TILE_CASES = [  # f, r, q0, hq, margin: the query tile and the map's halo
+    (1, 2, 12, 12, 1),
+    (2, 5, 24, 12, 1),
+    (4, 5, 12, 12, 0),   # q0 a multiple of f
+    (8, 5, 12, 12, 1),   # q0 not a multiple of f (the 1/32 level at 4 ranks)
+    (8, 2, 36, 12, 0),   # the last tile, its map past the bottom edge
+    (2, 6, 12, 12, 1),   # past the masks' 128 taps: the walk
+    (1, 5, 0, 12, 3),    # the first tile, its map past the top edge
+]
+
+
+@pytest.mark.parametrize("f,r,q0,hq,margin", TILE_CASES)
+def test_plain_bwd_at_an_offset_is_the_whole_map_cut_to_the_tile(f, r, q0, hq,
+                                                                  margin):
+    rng = np.random.RandomState(50 + 7 * f + r + q0)
+    whole, tile, v0 = tile_case(rng, f, r, q0, hq, margin)
+    Hl = whole[0].shape[1]
+    g_whole = np.zeros_like(whole[4])
+    g_whole[:, q0:q0 + hq] = tile[4]
+    want = msda.msda_taps_bwd_plain(*(_t(x) for x in whole[:4]), _t(g_whole),
+                                    2, r)
+    got = msda.msda_taps_bwd_plain(*(_t(x) for x in tile), 2, r, q0, v0, Hl)
+    for name, a, b in zip(("ddx", "ddy", "daw"), got[1:], want[1:]):
+        torch.testing.assert_close(a, b[:, q0:q0 + hq], **TOL,
+                                   msg=lambda m: f"{name}: {m}")
+    n = tile[0].shape[1]
+    rows = np.arange(v0, v0 + n)
+    on = (rows >= 0) & (rows < Hl)
+    torch.testing.assert_close(got[0][:, on], want[0][:, rows[on]], **TOL)
+    assert (got[0][:, ~on] == 0).all()
+
+
+@pytest.mark.parametrize("f,r,q0,hq,margin", TILE_CASES)
+def test_kernel_model_at_an_offset_matches_plain(f, r, q0, hq, margin):
+    rng = np.random.RandomState(90 + 7 * f + r + q0)
+    whole, tile, v0 = tile_case(rng, f, r, q0, hq, margin)
+    Hl = whole[0].shape[1]
+    v, dx, dy, aw, g = (_t(x) for x in tile)
+    rows = (q0, v0, Hl)
+    want = msda.msda_taps_bwd_plain(v, dx, dy, aw, g, 2, r, *rows)
+    got = [_value_model(dx, dy, aw, g, v.shape[1], v.shape[2], 2, r, rows)]
+    got += _sample_model(v, dx, dy, aw, g, 2, r, rows)
+    for name, a, b in zip(("dv", "ddx", "ddy", "daw"), got, want):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"{name}: {m}")
+    # the kernel's scratch holds the model's masks
+    base = _row_frame(v.shape[1], hq, f, rows)[0]
+    cells = (int(base[-1] - base[0]) + 1) * (v.shape[2] + 1) if f > 1 else 0
+    assert msda.msda_bwd_scratch_words(*v.shape[:3], hq, dx.shape[2], 2, q0,
+                                       v0) == 2 * 2 * 4 * (hq * dx.shape[2] + cells)

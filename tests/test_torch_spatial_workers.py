@@ -1,7 +1,8 @@
 """Process bodies of ``tests/test_torch_spatial.py``,
 ``tests/test_torch_spatial_fused.py``, ``tests/test_torch_swin_mesh.py``,
-``tests/test_torch_spatial_backbone.py``, ``tests/test_torch_spatial_swin.py``
-and ``tests/test_torch_checkpoint.py``: each runs in a process of its own
+``tests/test_torch_spatial_backbone.py``, ``tests/test_torch_spatial_swin.py``,
+``tests/test_torch_spatial_swin_backbone.py`` and
+``tests/test_torch_checkpoint.py``: each runs in a process of its own
 (with torch.distributed initialised by ``nmrf_tpu_torch.parallel.spawn``,
 gloo, on the CPU, where it needs one), imports PyTorch and the port only,
 and saves what it computed to a directory the test reads.  This module
@@ -414,6 +415,88 @@ def swin_spatial_worker(rank, data, spatial, in_dir, out_dir):
     calls.clear()
     result["pushed"] = float(step(shard_batch(batch, mesh))["msda_tap_oob"])
     torch.save(result, f"{out_dir}/swin_spatial_{rank}.pt")
+
+
+SWIN_BACKBONE_HW = (192, 64)   # image rows and columns
+SWIN_BACKBONE_PAIRS = 1
+
+
+def swin_backbone_cfg(spatial=1):
+    """The swin backbone test's config: ``swin_small_cfg`` (Swin-T, the
+    neck at OUT_CHANNELS 128, drop-path 0.4, the tap path's functions) with
+    one layer a NMP stage (the decode is not run)."""
+    cfg = swin_small_cfg(get_cfg())
+    cfg.NMP.NUM_PROP_LAYERS = 1
+    cfg.NMP.NUM_INFER_LAYERS = 1
+    cfg.NMP.NUM_REFINE_LAYERS = 1
+    cfg.SOLVER.LOSS_WEIGHTS = [1.0, 2.0]
+    cfg.TPU.MESH_SPATIAL = spatial
+    return cfg
+
+
+def swin_backbone_inputs():
+    """The two views [pairs, H, W, 3] (0..255) and a cotangent of each
+    feature level ([1/8, 1/4], OUT_CHANNELS 128) of each view, from numpy."""
+    rng = np.random.RandomState(11)
+    H, W = SWIN_BACKBONE_HW
+    B = SWIN_BACKBONE_PAIRS
+    images = [(rng.rand(B, H, W, 3) * 255).astype(np.float32) for _ in range(2)]
+    cots = [[rng.randn(B, H // s, W // s, 128).astype(np.float32)
+             for s in (8, 4)] for _ in range(2)]
+    return images, cots
+
+
+def swin_backbone_run(model, features, radius):
+    """One forward and backward of ``features()`` (the swin backbone of
+    ``model`` on the test's images, in train mode) with every extractor at
+    tap ``radius`` and the drop-path generator seeded from the config's
+    seed: the features of both views and levels, the backbone's gradients
+    for ``backbone_loss`` (``rows`` of the cotangents when a tile) and the
+    stages that ran on tiles."""
+    from nmrf_tpu_torch.models.adaptor import MSDeformAttn
+
+    for m in model.modules():
+        if isinstance(m, MSDeformAttn):
+            m.tap_radius = radius
+    model.drop_path_masks.generator.manual_seed(0)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    return features()
+
+
+def swin_backbone_worker(rank, in_dir, out_dir, radii):
+    """The swin backbone (Swin-T and the deformable neck) on this rank's H
+    tile of the test images (``parallel.mesh.sharded_features``) on a
+    1 x world grid, for each tap radius of ``radii`` (0: the exact gather
+    path): the tile's features of both levels and views, the world-summed
+    gradients of the backbone's parameters for ``backbone_loss``, the
+    stages that ran on tiles, and the collectives by site of the forward
+    and backward (``mesh.counts``, the gradients' sum not counted)."""
+    from nmrf_tpu_torch.parallel.mesh import sharded_features
+
+    torch.set_num_threads(1)
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(1, world, device="cpu")
+    model = build_model(swin_backbone_cfg(world), mesh=mesh)
+    model.load_state_dict(torch.load(f"{in_dir}/weights.pt"), strict=True)
+    (img1, img2), cots = swin_backbone_inputs()
+    result = {}
+    for radius in radii:
+        def features():
+            f1, f2 = sharded_features(model, mesh, torch.from_numpy(img1),
+                                      torch.from_numpy(img2))
+            backbone_loss(f1, f2, cots, (rank, world)).backward()
+            return f1, f2
+
+        mesh.counts.reset()
+        f1, f2 = swin_backbone_run(model, features, radius)
+        counts = mesh.counts.summary()
+        sum_gradients(list(model.backbone.parameters()), mesh)
+        result[radius] = {
+            "features": [[f.detach() for f in f1], [f.detach() for f in f2]],
+            "grads": {k: p.grad for k, p in model.backbone.named_parameters()},
+            "tiled": model.backbone.backbone.tiled, "counts": counts}
+    torch.save(result, f"{out_dir}/swin_backbone_{rank}.pt")
 
 
 RESUME_MICRO_STEPS = 8  # 4 updates of ACCUM_STEPS 2
