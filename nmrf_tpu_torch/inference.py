@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .data.frame_io import InputPadder
 
@@ -76,16 +77,34 @@ def predict(model, img1, img2, divis_by=None):
     """img1/img2: [H, W, 3] arrays (0..255).  Pads to ``divis_by`` (the
     model's ``divis_by``, recorded by ``build_model`` from the config, unless
     given), runs on the model's device under ``torch.inference_mode`` and
-    returns the [H, W] float32 numpy disparity."""
+    returns the [H, W] float32 numpy disparity.
+
+    The request runs inside the profiler range ``nmrf::predict``, its
+    phases in order inside ``nmrf::predict.prep`` (the float32 cast and
+    the pad), ``.copy_in`` (both frames to the device), ``.forward`` (the
+    model and the disparity's cast: the host's issue of the request's
+    launches), ``.wait`` (on a card, a synchronise of the current stream,
+    which the copy back would wait for anyway) and ``.copy_out`` (the
+    disparity to the host and the unpad)."""
     device = next(model.parameters()).device
     divis_by = model.divis_by if divis_by is None else divis_by
-    padder = InputPadder(img1.shape, mode="proposal", divis_by=divis_by)
-    p1, p2 = padder.pad(np.asarray(img1, np.float32), np.asarray(img2, np.float32))
-    with torch.inference_mode():
-        a = torch.from_numpy(p1[None]).to(device)
-        b = torch.from_numpy(p2[None]).to(device)
-        disp = model(a, b)["disp"]
-    return padder.unpad(disp.float().cpu().numpy())[0]
+    with record_function("nmrf::predict"):
+        with record_function("nmrf::predict.prep"):
+            padder = InputPadder(img1.shape, mode="proposal",
+                                 divis_by=divis_by)
+            p1, p2 = padder.pad(np.asarray(img1, np.float32),
+                                np.asarray(img2, np.float32))
+        with torch.inference_mode():
+            with record_function("nmrf::predict.copy_in"):
+                a = torch.from_numpy(p1[None]).to(device)
+                b = torch.from_numpy(p2[None]).to(device)
+            with record_function("nmrf::predict.forward"):
+                disp = model(a, b)["disp"].float()
+            with record_function("nmrf::predict.wait"):
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+            with record_function("nmrf::predict.copy_out"):
+                return padder.unpad(disp.cpu().numpy())[0]
 
 
 def main(argv=None):

@@ -14,6 +14,7 @@ reassembles the outputs."""
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..ops.correlation import correlation_volume
 from .adaptor import SwinAdaptor
@@ -122,56 +123,73 @@ class NMRF(nn.Module):
         """Both images through the backbone at once: per-image feature lists
         [1/8, 1/4] (reference ``NMRF.py:172-187``)."""
         B = img1.shape[0]
-        feats = self.backbone(torch.cat([img1, img2], dim=0))[::-1]
-        return [f[:B] for f in feats], [f[B:] for f in feats]
+        with record_function("nmrf::backbone"):
+            feats = self.backbone(torch.cat([img1, img2], dim=0))[::-1]
+            return [f[:B] for f in feats], [f[B:] for f in feats]
 
     def decode(self, f1_list, f2_list, spatial_out=False):
         """Cost volume -> DPN -> NMP inference and refinement -> disparity
         (``nmrf.py:218-299``).  ``spatial_out`` returns prob and the
         proposals as [B, h8, w8, ...] instead of flat, so that H tiles can
-        be concatenated and flattened globally."""
-        B = f1_list[0].shape[0]
-        cost_volume = correlation_volume(f1_list[0], f2_list[0],
-                                         self.max_disp // 8, self.cost_group)
-        prob, label_seeds, labels = self.dpn(cost_volume, f1_list[0])
+        be concatenated and flattened globally.
 
-        fmap1 = self.concatconv(f1_list[0])
-        fmap2 = self.concatconv(f2_list[0])
-        fmap1_gw = self.gw(f1_list[0])
-        fmap2_gw = self.gw(f2_list[0])
-        h8, w8 = fmap1.shape[1:3]
-        # the labels reach the NMP stages without gradient (the proposals
-        # learn through the proposal loss only)
-        labels_curr = labels[-1].reshape(B, h8, w8, self.num_proposals).detach()
-
-        tgt = self.inference(labels_curr, fmap1, fmap2, fmap1_gw, fmap2_gw)
-        coarse = torch.relu(labels_curr[None, ..., None] + self.infer_head(tgt))
-        logits = 0.25 * self.infer_score_head(tgt)
-        coarse = _subpatch_to_full(coarse, 8)  # [L, B, H, W, N]
-        logits = _subpatch_to_full(logits, 8)
+        Every op runs inside one of the profiler ranges ``nmrf::cost_volume``,
+        ``nmrf::dpn``, ``nmrf::inference`` (from the 1/8 projections to the
+        8x8 decode) and ``nmrf::refinement`` (from the argmax to the 4x4
+        decode); ``extract_feature`` runs inside ``nmrf::backbone``.  A
+        profiler trace links each backward node to its forward op by
+        sequence number, so these ranges also name the backward's work."""
+        B, h8, w8 = f1_list[0].shape[:3]
+        with record_function("nmrf::cost_volume"):
+            cost_volume = correlation_volume(f1_list[0], f2_list[0],
+                                             self.max_disp // 8,
+                                             self.cost_group)
+        with record_function("nmrf::dpn"):
+            prob, label_seeds, labels = self.dpn(cost_volume, f1_list[0])
+            lead = (B, h8, w8) if spatial_out else (B, -1)
+            prob_out = prob.reshape(B, h8, w8, -1) if spatial_out else prob
+            proposal = labels[-1].reshape(*lead, self.num_proposals)
+            initial = label_seeds.reshape(*lead, self.num_proposals)
 
         out = {}
+        with record_function("nmrf::inference"):
+            fmap1 = self.concatconv(f1_list[0])
+            fmap2 = self.concatconv(f2_list[0])
+            fmap1_gw = self.gw(f1_list[0])
+            fmap2_gw = self.gw(f2_list[0])
+            # the labels reach the NMP stages without gradient (the
+            # proposals learn through the proposal loss only)
+            labels_curr = labels[-1].reshape(B, h8, w8,
+                                             self.num_proposals).detach()
+
+            tgt = self.inference(labels_curr, fmap1, fmap2, fmap1_gw, fmap2_gw)
+            coarse = torch.relu(labels_curr[None, ..., None]
+                                + self.infer_head(tgt))
+            logits = 0.25 * self.infer_score_head(tgt)
+            coarse = _subpatch_to_full(coarse, 8)  # [L, B, H, W, N]
+            logits = _subpatch_to_full(logits, 8)
+            if not self.with_refinement:
+                out["disp"] = _select_argmax(coarse[-1], logits[-1]) * 8
+
         if self.with_refinement:
-            disp_curr = _select_argmax(coarse[-1], logits[-1]) * 2
-            disp_curr = _lower_median_pool(disp_curr, 4).detach()  # [B, H/4, W/4]
-            rf1 = self.concatconv(f1_list[1])
-            rf2 = self.concatconv(f2_list[1])
-            rf1_gw = self.gw(f1_list[1])
-            rf2_gw = self.gw(f2_list[1])
-            tgt_r = self.refinement(disp_curr, rf1, rf2, rf1_gw, rf2_gw)
-            disp_pred = torch.relu(disp_curr[None, ..., None]
-                                   + self.refine_head(tgt_r))
-            disp_pred = _subpatch_to_full(disp_pred[..., None, :], 4)
-            disp_pred = disp_pred.squeeze(-1)  # [L, B, H, W]
-            out["disp"] = disp_pred[-1] * 4
-            out["disp_pred"] = disp_pred[-1]
-        else:
-            out["disp"] = _select_argmax(coarse[-1], logits[-1]) * 8
-        lead = (B, h8, w8) if spatial_out else (B, -1)
-        out["prob"] = prob.reshape(B, h8, w8, -1) if spatial_out else prob
-        out["proposal"] = labels[-1].reshape(*lead, self.num_proposals)
-        out["initial_proposal"] = label_seeds.reshape(*lead,
-                                                      self.num_proposals)
+            with record_function("nmrf::refinement"):
+                disp_curr = _select_argmax(coarse[-1], logits[-1]) * 2
+                # [B, H/4, W/4]
+                disp_curr = _lower_median_pool(disp_curr, 4).detach()
+                rf1 = self.concatconv(f1_list[1])
+                rf2 = self.concatconv(f2_list[1])
+                rf1_gw = self.gw(f1_list[1])
+                rf2_gw = self.gw(f2_list[1])
+                tgt_r = self.refinement(disp_curr, rf1, rf2, rf1_gw, rf2_gw)
+                disp_pred = torch.relu(disp_curr[None, ..., None]
+                                       + self.refine_head(tgt_r))
+                disp_pred = _subpatch_to_full(disp_pred[..., None, :], 4)
+                disp_pred = disp_pred.squeeze(-1)  # [L, B, H, W]
+                out["disp"] = disp_pred[-1] * 4
+                out["disp_pred"] = disp_pred[-1]
+        out["prob"] = prob_out
+        out["proposal"] = proposal
+        out["initial_proposal"] = initial
         if self.training and self.aux_loss:
             out["coarse_disp_layers"] = coarse
             out["logits_layers"] = logits

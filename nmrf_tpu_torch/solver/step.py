@@ -2,9 +2,11 @@
 forward in train mode, criterion, backward, gradient clip and an AdamW
 update with the schedule, with ``SOLVER.ACCUM_STEPS`` micro-batches per
 update as ``optax.MultiSteps`` takes them; on one device, or over a
-(data, spatial) process grid.  The step's parts run inside the profiler
-ranges ``nmrf::forward``, ``nmrf::loss``, ``nmrf::backward`` and
-``nmrf::optimizer`` (``tools/profile_train.py`` splits a trace by them)."""
+(data, spatial) process grid.  A step runs inside the profiler range
+``nmrf::step``, its parts inside ``nmrf::forward`` (the model's own stage
+ranges inside it, ``models/nmrf.py``), ``nmrf::loss``, ``nmrf::backward``
+and ``nmrf::optimizer`` (``tools/profile_train.py`` splits a trace by
+them)."""
 
 import torch
 from torch.profiler import record_function
@@ -76,7 +78,7 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
             return model(batch["img1"], batch["img2"])
         return spatial_sharded_apply(model, mesh, batch["img1"], batch["img2"])
 
-    def step(batch):
+    def run(batch):
         nonlocal micro
         model.train()
         with record_function("nmrf::forward"):
@@ -124,6 +126,10 @@ def make_train_step(model, criterion, optimizer, scheduler, accum_steps=1, *,
                 optimizer.zero_grad(set_to_none=True)
             micro = 0
         return result
+
+    def step(batch):
+        with record_function("nmrf::step"):
+            return run(batch)
 
     def read_oob(guard=None):
         value = None if oob["max"] is None else float(oob["max"])
