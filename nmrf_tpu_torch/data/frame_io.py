@@ -15,6 +15,7 @@ import re
 from os.path import basename, exists, splitext
 
 import numpy as np
+import torch
 
 
 def _cv2():
@@ -192,7 +193,8 @@ def read_gen(file_name):
 class InputPadder:
     """Pad [.., H, W(, C)] arrays to divisibility.
 
-    Channel-last variant with numpy edge-replication.  mode='proposal' pads
+    Channel-last variant with numpy edge-replication (``pad_tensor``: the
+    same on a torch tensor, on its device).  mode='proposal' pads
     right/bottom only (the NMRF eval mode).
     """
 
@@ -217,6 +219,23 @@ class InputPadder:
             pads[h_axis] = (self._pad[2], self._pad[3])
             pads[h_axis + 1] = (self._pad[0], self._pad[1])
             out.append(np.pad(x, pads, mode="edge"))
+        return out
+
+    def pad_tensor(self, x):
+        """x: a [B, H, W, C] tensor of any dtype.  The float32 tensor on its
+        device that ``pad`` makes of ``x`` cast to float32: the cast into a
+        new tensor's middle, then the edge rows and the edge columns, each
+        side one slice copy (three launches in proposal mode)."""
+        left, right, top, bottom = self._pad
+        B, H, W, C = x.shape
+        out = x.new_empty((B, top + H + bottom, left + W + right, C),
+                          dtype=torch.float32)
+        cols = slice(left, left + W)
+        out[:, top:top + H, cols] = x
+        out[:, :top, cols] = out[:, top:top + 1, cols]
+        out[:, top + H:, cols] = out[:, top + H - 1:top + H, cols]
+        out[:, :, :left] = out[:, :, left:left + 1]
+        out[:, :, left + W:] = out[:, :, left + W - 1:left + W]
         return out
 
     def unpad(self, x):

@@ -42,7 +42,9 @@ operators (``nmrf::window_attention``, ``nmrf::stripe_attention``,
 equal the plain versions at the forward tolerances; a small model of each
 variant exported on the card holds one operator node per launch, and its
 loaded artifact launches the kernels as often and equals the live model
-bit for bit.
+bit for bit.  ``predict`` on the card allocates a pinned staging buffer
+only for a new frame shape or dtype, and hands the model the CPU path's
+input bit for bit.
 """
 
 from pathlib import Path
@@ -1109,3 +1111,57 @@ def test_exported_artifact_runs_the_kernels(cuda, swin, tmp_path):
         assert torch.equal(got[key], want[key]), key
     with pytest.raises(Exception):
         module(a[:, :32], b[:, :32])
+
+
+# ---- predict's frames on the card ---- #
+
+@pytest.mark.gpu
+def test_predict_stages_frames_through_reused_pinned_buffers(cuda):
+    """``predict`` on the card (2 layers per NMP stage, f32): a pinned
+    staging buffer is allocated (``nmrf::predict.stage_alloc``) for the
+    first request of a shape and dtype only; the model's input equals the
+    CPU path's and the numpy prep's (``np.pad`` of the float32 cast) bit
+    for bit; the disparity equals the same model's on the numpy prep bit
+    for bit, a float32 caller's of the same values too, and the CPU
+    model's up to the card's numerics (TF32 off)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmrf_tpu_torch import predict
+    from nmrf_tpu_torch.data.frame_io import InputPadder
+
+    cfg = get_cfg()
+    cfg.NMP.NUM_PROP_LAYERS = cfg.NMP.NUM_INFER_LAYERS = 2
+    cfg.NMP.NUM_REFINE_LAYERS = 2
+    cpu_model = build_model(cfg, device="cpu")
+    model = build_model(cfg, device=cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    seen = []
+    for m in (model, cpu_model):
+        m.register_forward_pre_hook(
+            lambda module, args: seen.append([x.cpu() for x in args]))
+    rng = np.random.RandomState(3)
+    pairs = [[rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+              for _ in range(2)] for h, w in ((60, 124), (60, 124), (92, 180))]
+    pairs.append([x.astype(np.float32) for x in pairs[0]])
+    allocs, disps = [], []
+    for pair in pairs:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            disps.append(predict(model, *pair))
+        allocs.append(sum(e.name == "nmrf::predict.stage_alloc"
+                          for e in prof.events()))
+    assert allocs == [1, 0, 1, 1]
+    assert np.array_equal(disps[3], disps[0])
+
+    padder = InputPadder(pairs[0][0].shape, mode="proposal",
+                         divis_by=model.divis_by)
+    a, b = (torch.from_numpy(p[None]).to(cuda) for p in padder.pad(
+        *(np.asarray(x, np.float32) for x in pairs[0])))
+    with torch.inference_mode():
+        numpy_prep = padder.unpad(model(a, b)["disp"].float().cpu().numpy())[0]
+    assert np.array_equal(disps[0], numpy_prep)
+    on_cpu = predict(cpu_model, *pairs[0])
+    for x, y, z in zip(seen[0], seen[-1], seen[-2]):
+        assert x.dtype == torch.float32
+        assert torch.equal(x, y) and torch.equal(x, z)
+    gap = np.abs(disps[0] - on_cpu)
+    assert np.quantile(gap, 0.9) < 1e-2, (np.median(gap), gap.max())
