@@ -1,7 +1,9 @@
 """Default configuration tree of the PyTorch port.
 
 The port's own copy of ``nmrf_tpu/config/defaults.py``: the keys are the
-same, so the same YAML configs and override strings drive both packages.
+same, so the same YAML configs and override strings drive both packages,
+but for the port's own ``MODEL.ARCH`` and ``RAFT`` node (a second
+architecture, RAFT-Stereo).
 The ``TPU`` node keeps its name; in the port its keys mean what the
 comments below say.
 """
@@ -14,6 +16,21 @@ def get_cfg() -> CN:
     _C.VERSION = 2
 
     # ---- Model ----
+    # The architecture ``build_model`` builds: "nmrf" or "raft_stereo" (the
+    # port's own key, with the RAFT node below; the JAX package has neither).
+    _C.MODEL = CN()
+    _C.MODEL.ARCH = "nmrf"
+
+    # RAFT-Stereo at the defaults of its train_stereo.py/evaluate_stereo.py
+    # (models/raft_stereo.py, where 3 GRU levels and a batch-norm context
+    # are fixed); read only under MODEL.ARCH "raft_stereo".
+    _C.RAFT = CN()
+    _C.RAFT.HIDDEN_DIMS = [128, 128, 128]
+    _C.RAFT.N_DOWNSAMPLE = 2
+    _C.RAFT.CORR_LEVELS = 4
+    _C.RAFT.CORR_RADIUS = 4
+    _C.RAFT.VALID_ITERS = 32
+
     _C.BACKBONE = CN()
     _C.BACKBONE.MODEL_TYPE = "resnet"
     _C.BACKBONE.NORM_FN = "instance"

@@ -10,6 +10,7 @@ from .layers import (Conv1d, Conv2d, DropPathMasks, LayerNorm, Linear,
 from .losses import Criterion
 from .nmp import WindowAttention
 from .nmrf import NMRF
+from .raft_stereo import RAFTStereo, build_raft_stereo
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -90,14 +91,16 @@ _DROPOUT_KEYS = ("NMP.ATTN_DROP", "NMP.PROJ_DROP", "NMP.DROP_PATH",
 
 
 def build_model(cfg, device=None, mesh=None):
-    """The NMRF model of a config tree, in eval mode (``model.train()`` for
-    training), on ``device`` (CUDA unless given; raises when CUDA is
-    absent).  Weights are random from ``cfg.SEED``; load trained ones with
-    ``load_state_dict``.  ``BACKBONE.DROP_PATH`` (the swin backbone's
-    stochastic depth) acts in training: its keep masks come from
-    ``model.drop_path_masks``, a ``layers.DropPathMasks`` over a generator
-    on the model's device seeded from ``cfg.SEED`` (on a mesh's data axis,
-    every rank's rows of one mask of the global batch).
+    """The model of a config tree's ``MODEL.ARCH``: NMRF (``"nmrf"``, the
+    default) or RAFT-Stereo (``"raft_stereo"``, its ``RAFT`` node; served
+    only: no mesh, and its ``train()`` raises), in eval mode
+    (``model.train()`` for training), on ``device`` (CUDA unless given;
+    raises when CUDA is absent).  Weights are random from ``cfg.SEED``;
+    load trained ones with ``load_state_dict``.  ``BACKBONE.DROP_PATH``
+    (the swin backbone's stochastic depth) acts in training: its keep
+    masks come from ``model.drop_path_masks``, a ``layers.DropPathMasks``
+    over a generator on the model's device seeded from ``cfg.SEED`` (on a
+    mesh's data axis, every rank's rows of one mask of the global batch).
 
     mesh: a ``parallel.make_mesh`` process grid.  With a spatial axis above
     1 the model's decode region runs on H tiles of the features over the
@@ -109,6 +112,16 @@ def build_model(cfg, device=None, mesh=None):
     The parameters are the same, so ``params_from_jax`` and
     ``load_state_dict`` apply unchanged.  The device is then the mesh's
     unless given."""
+    if cfg.MODEL.ARCH == "raft_stereo":
+        if mesh is not None:
+            raise ValueError("MODEL.ARCH raft_stereo runs on one device: the "
+                             "port has no mesh path for it")
+        device = resolve_device(device)
+        return build_raft_stereo(cfg, _DTYPES[cfg.TPU.COMPUTE_DTYPE]).to(
+            device).eval()
+    if cfg.MODEL.ARCH != "nmrf":
+        raise ValueError(f"MODEL.ARCH {cfg.MODEL.ARCH!r}: the port builds "
+                         "'nmrf' and 'raft_stereo'")
     if mesh is not None and device is None:
         device = mesh.device
     device = resolve_device(device)
@@ -174,5 +187,5 @@ def build_criterion(cfg):
     )
 
 
-__all__ = ["NMRF", "Criterion", "build_criterion", "build_model",
+__all__ = ["NMRF", "Criterion", "RAFTStereo", "build_criterion", "build_model",
            "init_weights", "resolve_device"]

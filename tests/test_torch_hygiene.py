@@ -106,7 +106,11 @@ def test_config_tree_matches_jax_package():
     from nmrf_tpu.config import get_cfg as get_cfg_jax
     from nmrf_tpu_torch.config import get_cfg
 
-    assert get_cfg().to_dict() == get_cfg_jax().to_dict()
+    port, jax_tree = get_cfg().to_dict(), get_cfg_jax().to_dict()
+    # the port's own keys: the architecture switch and RAFT-Stereo's node
+    own = {"MODEL", "RAFT"}
+    assert set(port) - set(jax_tree) == own
+    assert {k: v for k, v in port.items() if k not in own} == jax_tree
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / "configs" / "kitti_mix_train.yaml"))
     cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.BASE_LR", "2e-4"])
