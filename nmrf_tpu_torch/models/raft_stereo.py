@@ -48,8 +48,20 @@ pyramid), ``nmrf::raft.update`` (the iterations; each lookup inside
 ``nmrf::raft.lookup`` there) and ``nmrf::raft.upsample``; ``iterations``
 counts the iterations of the last forward.
 
+On a card without autograd the iterations replay CUDA graphs
+(``UpdateGraphs``): one of the lookup, one of ``update_block``'s body.
+The loop stays a Python loop and ``update_block`` a module call, so its
+hooks fire every iteration, and every tensor passed to or returned from
+it is a fresh copy, never a graph's buffer.  The kernels and their inputs
+are the eager loop's, so the outputs are its own to the bit.  The graphs
+are captured on the first forward at a shape (and at the parameters'
+addresses), inside ``nmrf::raft.graph_capture`` within
+``nmrf::raft.update``; a forward that finds them held by another call runs
+eagerly, as the CPU and any forward that records a gradient do.
+
 Training (upstream's sequence loss) is not ported: ``train()`` raises."""
 
+import contextlib
 import math
 
 import torch
@@ -57,6 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from . import graphs
 from .backbone import ResidualBlock
 from .layers import Conv2d, instance_norm, to_dtype
 
@@ -244,7 +257,8 @@ class BasicMultiUpdateBlock(nn.Module):
     (upstream's names from RAFT's 1/8 base: ``gru08`` runs at 1/4,
     ``gru16`` at 1/8, ``gru32`` at 1/16), then the flow head and the mask
     head (scaled by 0.25) on the 1/4 state.  Returns (states, mask,
-    delta flow)."""
+    delta flow); with ``replay`` (the request's ``UpdateGraphs``, whose
+    static context biases hold ``inp``) from a replay of its graph."""
 
     def __init__(self, hidden_dims, corr_levels, corr_radius, n_downsample,
                  dtype=None):
@@ -260,7 +274,9 @@ class BasicMultiUpdateBlock(nn.Module):
             Conv2d(hidden_dims[2], 256, 3, padding=1, dtype=dtype), nn.ReLU(),
             Conv2d(256, factor ** 2 * 9, 1, dtype=dtype))
 
-    def forward(self, net, inp, corr, flow):
+    def forward(self, net, inp, corr, flow, replay=None):
+        if replay is not None:
+            return replay.update(net, corr, flow)
         net = list(net)
         net[2] = self.gru32(net[2], *inp[2], pool2x(net[1]))
         net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]),
@@ -347,6 +363,54 @@ def convex_upsample(flow, mask, factor):
     return up.permute(0, 1, 3, 2, 4).reshape(B, factor * h, factor * w)
 
 
+class UpdateGraphs:
+    """The update loop's CUDA graphs at one shape, over static buffers:
+    ``lookup(flow)`` replays the lookup at ``columns + flow`` and
+    ``update(net, corr, flow)`` the body of ``update_block``; each copies
+    its per-iteration inputs in and returns fresh copies of its outputs.
+    ``load(pyramid, inp)`` copies in what a request holds constant (the
+    pyramid and the context biases), once a request; the lookup's
+    constants (the columns and ``CorrBlock1D.grid``) are made once, at
+    capture.  Both graphs share one memory pool and replay in the order
+    they were captured."""
+
+    def __init__(self, model, pyramid, net, inp):
+        B, h, w, _ = pyramid.shape
+        device = pyramid.device
+        pool = torch.cuda.graph_pool_handle()
+        self.pyramid = graphs.static_like(pyramid)
+        self.inp = [[graphs.static_like(t) for t in level] for level in inp]
+        self.flow = torch.zeros((B, h, w), device=device)
+        # kept for the life of the graph, which reads them
+        self._consts = (torch.arange(w, device=device, dtype=torch.float32),
+                        model.corr_block.grid(w, device))
+        columns, grid = self._consts
+        self._lookup = graphs.Captured(
+            lambda p, f: model.corr_block.lookup(p, columns + f, grid),
+            [self.pyramid, self.flow], pool)
+        self.update_in = [graphs.static_like(t) for t in net] + [
+            graphs.static_like(self._lookup.outputs),
+            torch.zeros((B, h, w, 2), device=device)]
+        self._update = graphs.Captured(
+            lambda n0, n1, n2, corr, flow: model.update_block.forward(
+                [n0, n1, n2], self.inp, corr, flow), self.update_in, pool)
+
+    def load(self, pyramid, inp):
+        graphs.copy_in([self.pyramid, *(t for level in self.inp
+                                        for t in level)],
+                       [pyramid, *(t for level in inp for t in level)])
+
+    def lookup(self, flow):
+        self.flow.copy_(flow)
+        return graphs.copy_out([self._lookup.replay()])[0]
+
+    def update(self, net, corr, flow):
+        graphs.copy_in(self.update_in, [*net, corr, flow])
+        net, mask, delta = self._update.replay()
+        *net, mask, delta = graphs.copy_out([*net, mask, delta])
+        return net, mask, delta
+
+
 class RAFTStereo(nn.Module):
     """forward(img1, img2): [B, H, W, 3] float32 0..255, H and W multiples
     of ``divis_by``, -> {"disp": [B, H, W] float32, "disp_lowres": the
@@ -369,6 +433,7 @@ class RAFTStereo(nn.Module):
             Conv2d(d, 3 * d, 3, padding=1, dtype=dtype) for d in hidden_dims)
         self.fnet = BasicEncoder(256, n_downsample, dtype)
         self.corr_block = CorrBlock1D(corr_levels, corr_radius)
+        self.update_graphs = graphs.GraphCache("nmrf::raft.graph_capture")
 
     def train(self, mode=True):
         if mode:
@@ -389,25 +454,49 @@ class RAFTStereo(nn.Module):
                for level, conv in zip(cnet, self.context_zqr_convs)]
         return net, inp, fmap1, fmap2
 
+    def _loop_graphs(self, pyramid, net, inp):
+        """A ``with`` context that gives the loop's ``UpdateGraphs`` at this
+        shape, or None where the loop runs eagerly: off a card, with a
+        gradient recorded, inside a capture, or while another call holds
+        them."""
+        if not graphs.capturable(pyramid):
+            return contextlib.nullcontext()
+        tensors = [pyramid, *net, *(t for level in inp for t in level)]
+        key = (pyramid.device,
+               tuple((t.shape, t.stride(), t.dtype) for t in tensors),
+               tuple((p.data_ptr(), p.dtype)
+                     for p in self.update_block.parameters()))
+        return self.update_graphs.hold(
+            key, lambda: UpdateGraphs(self, pyramid, net, inp))
+
     def forward(self, img1, img2):
         with record_function("nmrf::raft.encode"):
             net, inp, fmap1, fmap2 = self.encode(img1, img2)
         with record_function("nmrf::raft.corr"):
             pyramid = self.corr_block(fmap1, fmap2)
-        with record_function("nmrf::raft.update"):
+        with record_function("nmrf::raft.update"), \
+                self._loop_graphs(pyramid, net, inp) as loop:
             B, h, w, _ = fmap1.shape
-            columns = torch.arange(w, device=fmap1.device,
-                                   dtype=torch.float32)
+            if loop is None:
+                columns = torch.arange(w, device=fmap1.device,
+                                       dtype=torch.float32)
+                grid = self.corr_block.grid(w, fmap1.device)
+
+                def lookup(flow):
+                    return self.corr_block.lookup(pyramid, columns + flow,
+                                                  grid)
+            else:
+                loop.load(pyramid, inp)
+                lookup = loop.lookup
             flow = fmap1.new_zeros((B, h, w), dtype=torch.float32)
             zero = torch.zeros_like(flow)
-            grid = self.corr_block.grid(w, fmap1.device)
             self.iterations = 0
             for _ in range(self.valid_iters):
                 with record_function("nmrf::raft.lookup"):
-                    corr = self.corr_block.lookup(pyramid, columns + flow,
-                                                  grid)
+                    corr = lookup(flow)
                 net, mask, delta = self.update_block(
-                    net, inp, corr, torch.stack([flow, zero], dim=-1))
+                    net, inp, corr, torch.stack([flow, zero], dim=-1),
+                    replay=loop)
                 flow = flow + delta[..., 0]
                 self.iterations += 1
         with record_function("nmrf::raft.upsample"):

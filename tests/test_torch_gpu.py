@@ -44,7 +44,9 @@ variant exported on the card holds one operator node per launch, and its
 loaded artifact launches the kernels as often and equals the live model
 bit for bit.  ``predict`` on the card allocates a pinned staging buffer
 only for a new frame shape or dtype, and hands the model the CPU path's
-input bit for bit.
+input bit for bit.  RAFT-Stereo's update loop replays its CUDA graphs with
+the eager loop's bits in every tensor its hooks see, captured once a
+shape.
 """
 
 from pathlib import Path
@@ -1165,3 +1167,80 @@ def test_predict_stages_frames_through_reused_pinned_buffers(cuda):
         assert torch.equal(x, y) and torch.equal(x, z)
     gap = np.abs(disps[0] - on_cpu)
     assert np.quantile(gap, 0.9) < 1e-2, (np.median(gap), gap.max())
+
+
+# ---- RAFT-Stereo's update loop from CUDA graphs ---- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_raft_update_loop_replays_graphs_to_the_bit(cuda, dtype):
+    """RAFT-Stereo (4 iterations) with forward hooks on ``update_block``
+    and the model, as the benchmark's generator registers them: three
+    ``predict`` calls on the same 60x124 frames open
+    ``nmrf::raft.graph_capture`` once, and each equals the eager loop (run
+    while another call holds the graphs) in the disparity and every hooked
+    tensor at every iteration (the taps and flow passed in, the states,
+    mask and delta returned), to the bit; the first request's tensors are
+    unchanged after the others; a new shape captures again; a forward
+    under ``no_grad`` replays the same graphs, and one that records a
+    gradient runs eagerly, both with the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmrf_tpu_torch import predict
+
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "raft_stereo", "RAFT.VALID_ITERS", 4,
+                         "TPU.COMPUTE_DTYPE", dtype])
+    model = build_model(cfg, device=cuda)
+    kept = []
+    model.update_block.register_forward_hook(
+        lambda m, args, out: kept[-1]["calls"].append(
+            (*args[2:], *out[0], out[1], out[2])))
+    model.register_forward_hook(
+        lambda m, args, out: kept[-1].update(out=out))
+
+    def opened(fn):
+        kept.append({"calls": []})
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        kept[-1]["result"] = out
+        return sum(e.name == "nmrf::raft.graph_capture"
+                   for e in prof.events())
+
+    def same(a, b):
+        assert len(a["calls"]) == len(b["calls"]) == 4
+        for x, y in zip(a["calls"], b["calls"]):
+            assert all(torch.equal(s, t) for s, t in zip(x, y))
+        for key in ("disp", "disp_lowres"):
+            assert torch.equal(a["out"][key].detach(), b["out"][key]), key
+
+    rng = np.random.RandomState(5)
+    pair = [rng.randint(0, 256, (60, 124, 3)).astype(np.uint8)
+            for _ in range(2)]
+    with model.update_graphs.hold("another call", object):
+        assert opened(lambda: predict(model, *pair)) == 0
+    eager = kept.pop()
+    assert [opened(lambda: predict(model, *pair)) for _ in range(3)] == \
+        [1, 0, 0]
+    first = [[t.clone() for t in call] for call in kept[0]["calls"]]
+    for k in kept:
+        same(k, eager)
+        assert np.array_equal(k["result"], eager["result"])
+    for call, copy in zip(kept[0]["calls"], first):
+        assert all(torch.equal(t, c) for t, c in zip(call, copy))
+    assert len(model.update_graphs) == 2  # "another call"'s and the shape's
+
+    a, b = (torch.from_numpy(np.pad(x.astype(np.float32),
+                                    ((0, 4), (0, 4), (0, 0)), mode="edge")
+                             [None]).to(cuda) for x in pair)
+    with torch.no_grad():
+        assert opened(lambda: model(a, b)) == 0
+    same(kept[-1], eager)
+    with torch.enable_grad():
+        assert opened(lambda: model(a, b)) == 0
+    same(kept[-1], eager)
+    other = [rng.randint(0, 256, (92, 180, 3)).astype(np.uint8)
+             for _ in range(2)]
+    assert opened(lambda: predict(model, *other)) == 1
+    assert opened(lambda: predict(model, *other)) == 0
+    assert len(model.update_graphs) == 3

@@ -5,13 +5,19 @@ iterations: each encoder's outputs, the correlation pyramid and its
 lookup (also against a direct formula with taps beyond the row), one
 update step, the whole forward and ``predict``.  Ops at 1e-5, modules at
 1e-4.  And ``build_model`` under ``MODEL.ARCH nmrf`` builds the NMRF
-model it built before RAFT-Stereo came, to the bit."""
+model it built before RAFT-Stereo came, to the bit.  The update loop's
+CUDA graphs off the card: the CPU forward, with or without a gradient,
+captures nothing and is the eager loop's to the bit; the graph path's
+data flow, its capture stood in for, hands every hook fresh tensors with
+the eager loop's bits; ``GraphCache`` lends its graphs to one call at a
+time."""
 
 import hashlib
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from benchmark import frames, harness
 from benchmark.reference import raft_stereo as ref_raft
@@ -249,3 +255,184 @@ def test_predict_serves_it(models):
     with torch.no_grad():
         r = ref(*x)["disp"][0, :60, :124]
     close(torch.from_numpy(disp), r, 1e-4)
+
+
+# ---- the update loop's CUDA graphs, off the card ---- #
+
+CAPTURE = "nmrf::raft.graph_capture"
+
+
+def eager_forward(model, img1, img2):
+    """``RAFTStereo.forward`` as it ran before the loop's graphs came, a
+    step at a time (hooks on the update block left out)."""
+    net, inp, fmap1, fmap2 = model.encode(img1, img2)
+    pyramid = model.corr_block(fmap1, fmap2)
+    B, h, w, _ = fmap1.shape
+    columns = torch.arange(w, device=fmap1.device, dtype=torch.float32)
+    flow = fmap1.new_zeros((B, h, w), dtype=torch.float32)
+    zero = torch.zeros_like(flow)
+    grid = model.corr_block.grid(w, fmap1.device)
+    for _ in range(model.valid_iters):
+        corr = model.corr_block.lookup(pyramid, columns + flow, grid)
+        net, mask, delta = model.update_block.forward(
+            net, inp, corr, torch.stack([flow, zero], dim=-1))
+        flow = flow + delta[..., 0]
+    disp = -convex_upsample(flow, mask, 2 ** model.n_downsample)
+    return {"disp": disp, "disp_lowres": -flow}
+
+
+def captures(fn):
+    """fn()'s result and how often the capture range opened in it."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.name == CAPTURE for e in prof.events())
+
+
+@pytest.fixture
+def port(models):
+    model = build_model(harness.port_cfg(SPEC, SEED), device="cpu")
+    model.load_state_dict(models[0].state_dict())
+    return model
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_cpu_forward_runs_the_eager_loop(port, pair, grad):
+    """On the CPU, with or without a gradient recorded, no graph is
+    captured and the forward is the eager loop's, to the bit."""
+    with torch.no_grad():
+        want = eager_forward(port, *pair)
+    with torch.set_grad_enabled(grad):
+        got, opened = captures(lambda: port(*pair))
+    assert opened == 0 and len(port.update_graphs) == 0
+    assert port.iterations == ITERS
+    for key in want:
+        assert torch.equal(got[key].detach(), want[key]), key
+
+
+class Replayed:
+    """``graphs.Captured`` off the card: ``fn`` run at each replay, its
+    outputs written into the buffers the first run returned, as a graph's
+    replay writes its static outputs."""
+
+    def __init__(self, fn, inputs, pool):
+        self.fn, self.inputs = fn, inputs
+        self.outputs = fn(*inputs)
+
+    def replay(self):
+        for dst, src in zip(leaves(self.outputs),
+                            leaves(self.fn(*self.inputs))):
+            dst.copy_(src)
+        return self.outputs
+
+
+def leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x for t in leaves(item)]
+
+
+def keep_iterations(model):
+    """Hooks as the benchmark's: every update call's taps and flow
+    (``args[2:]``) and returned states, mask and delta; the model's
+    output.  Returns the list each request appends its dict to."""
+    kept = []
+
+    def update(module, args, out):
+        kept[-1]["calls"].append((*args[2:], *out[0], out[1], out[2]))
+
+    def whole(module, args, out):
+        kept[-1]["out"] = out
+
+    model.update_block.register_forward_hook(update)
+    model.register_forward_hook(whole)
+    return kept
+
+
+def request(model, kept, frames_):
+    kept.append({"calls": []})
+    disp, opened = captures(lambda: predict(model, *frames_))
+    kept[-1]["disp"] = torch.from_numpy(disp)
+    return opened
+
+
+def same(a, b):
+    assert len(a["calls"]) == len(b["calls"]) == ITERS
+    for x, y in zip(a["calls"], b["calls"]):
+        assert all(torch.equal(s, t) for s, t in zip(x, y))
+    for key in ("disp", "disp_lowres"):
+        assert torch.equal(a["out"][key], b["out"][key]), key
+    assert torch.equal(a["disp"], b["disp"])
+
+
+def test_graph_path_hands_out_fresh_tensors(port, monkeypatch):
+    """The graph path's data flow on the CPU, ``graphs.Captured`` replaced
+    by ``Replayed``: three requests on the same frames capture once and
+    equal the eager loop's every hooked tensor, at every iteration, to the
+    bit; the tensors kept from the first request are unchanged after the
+    others and none is a static buffer; a new shape captures again; a
+    request that finds the graphs held by another call runs eagerly."""
+    from nmrf_tpu_torch.models import graphs
+
+    kept = keep_iterations(port)
+    frames_ = frames.stereo_pair(frames.rng(SEED, 2), 60, 124, 40)[:2]
+    assert request(port, kept, frames_) == 0
+    eager = kept.pop()
+
+    monkeypatch.setattr(graphs, "capturable",
+                        lambda x: not torch.is_grad_enabled())
+    monkeypatch.setattr(graphs, "Captured", Replayed)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    opened = [request(port, kept, frames_) for _ in range(3)]
+    assert opened == [1, 0, 0] and len(port.update_graphs) == 1
+    first = [[t.clone() for t in call] for call in kept[0]["calls"]]
+    for k in kept:
+        same(k, eager)
+    for call, copy in zip(kept[0]["calls"], first):
+        assert all(torch.equal(t, c) for t, c in zip(call, copy))
+    (entry,) = port.update_graphs._kept.values()
+    static = {t.data_ptr() for t in [
+        entry.pyramid, entry.flow, *entry.update_in,
+        *leaves(entry._lookup.outputs), *leaves(entry._update.outputs)]}
+    assert not static & {t.data_ptr() for k in kept
+                         for call in k["calls"] for t in call}
+
+    other = frames.stereo_pair(frames.rng(SEED, 3), 92, 180, 40)[:2]
+    assert request(port, kept, other) == 1
+    assert len(port.update_graphs) == 2
+    with port.update_graphs.hold("another call", object):
+        assert request(port, kept, frames_) == 0
+    same(kept[-1], eager)
+
+
+def test_graph_cache_lends_to_one_call(monkeypatch):
+    """``GraphCache``: an entry built once a key inside its range, None
+    to a call while another holds the cache, the lock given back when the
+    block or a build raises; a copy starts empty."""
+    import copy
+
+    from nmrf_tpu_torch.models.graphs import GraphCache
+
+    cache = GraphCache(CAPTURE)
+    built = []
+
+    def build():
+        built.append(object())
+        return built[-1]
+
+    def use(key):
+        with cache.hold(key, build) as entry:
+            with cache.hold(key, build) as inner:
+                assert inner is None
+            return entry
+
+    got, opened = captures(lambda: [use("a"), use("a"), use("b")])
+    assert opened == 2 and got == [built[0], built[0], built[1]]
+    with pytest.raises(RuntimeError):
+        with cache.hold("c", lambda: (_ for _ in ()).throw(RuntimeError())):
+            pass
+    with pytest.raises(KeyError):
+        with cache.hold("a", build):
+            raise KeyError("a")
+    assert use("a") is built[0] and len(cache) == 2
+    clone = copy.deepcopy(cache)
+    assert len(clone) == 0 and clone.capture_range == CAPTURE
