@@ -466,7 +466,7 @@ def msda_tile_phase(gen):
     import torch
     import torch.nn.functional as F
 
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.ops import msda
 
     dev = "cuda"
@@ -496,12 +496,12 @@ def msda_tile_phase(gen):
                 want = msda.msda_taps_plain(v, dx, dy, aw, M, r, *tile)
             ef[f"max_abs_err_{dtype_name}"] = check_close(
                 f"msda_taps {shape}", got, want, dtype_name)
-            A.reset_launch_counts()
+            _native.reset_launch_counts()
             got = msda.msda_taps_bwd(v, dx, dy, aw, g, M, r, *tile)
             torch.cuda.synchronize()
-            if A.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
+            if _native.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
                 fail(f"msda_taps_bwd {shape} {dtype_name}: launched "
-                     f"{A.variant_counts()['msda_taps_bwd']}, expected the "
+                     f"{_native.variant_counts()['msda_taps_bwd']}, expected the "
                      "vector path with the tap masks")
             want = msda.msda_taps_bwd_plain(v, dx, dy, aw, g, M, r, *tile)
             eb[f"max_abs_err_{dtype_name}"] = max(
@@ -1047,7 +1047,7 @@ def msda_bwd_phase(gen):
     of the exact path's ``F.grid_sample`` on the same samples."""
     import torch
 
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.ops import msda
 
     M, P, D, r = MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_R
@@ -1063,12 +1063,12 @@ def msda_bwd_phase(gen):
         for dtype_name, dt in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16)):
             args = (v32.to(dt), dx, dy, aw, g32.to(dt), M, r)
-            A.reset_launch_counts()
+            _native.reset_launch_counts()
             got = msda.msda_taps_bwd(*args)
             torch.cuda.synchronize()
-            if A.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
+            if _native.variant_counts()["msda_taps_bwd"] != {"vector_masks": 1}:
                 fail(f"msda_taps_bwd {label} {dtype_name}: launched "
-                     f"{A.variant_counts()['msda_taps_bwd']}, expected the "
+                     f"{_native.variant_counts()['msda_taps_bwd']}, expected the "
                      "vector path with the tap masks")
             want = msda.msda_taps_bwd_plain(*args)
             entry[f"max_abs_err_{dtype_name}"] = max(
@@ -1107,8 +1107,6 @@ def captured_msda_bwd_inputs(step, batch):
         seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
         return launch(*args)
 
-    # the wrapper counts its launches on the module's name, here record
-    record.launches, record.variants = 0, {}
     msda.msda_taps_bwd = record
     try:
         step(batch)
@@ -1423,7 +1421,7 @@ def serve_phase(swin=False):
     import torch
 
     from nmrf_tpu_torch import build_model, predict
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     model = build_model(main_path_cfg("bfloat16", True, True, swin))
     rng = np.random.RandomState(0)
@@ -1435,7 +1433,7 @@ def serve_phase(swin=False):
     warmup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     host_ms, disps = [], []
@@ -1446,7 +1444,7 @@ def serve_phase(swin=False):
         host_ms.append((time.perf_counter() - t) * 1e3)
     end.record()
     torch.cuda.synchronize()
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     frame_ms = start.elapsed_time(end) / REQUESTS
 
     for d in disps:
@@ -1503,7 +1501,7 @@ def train_phase(fused=False, swin=False):
     0 at init."""
     import torch
 
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     cfg, step, batch = train_setup(swin)
     B = cfg.SOLVER.IMS_PER_BATCH
@@ -1515,14 +1513,14 @@ def train_phase(fused=False, swin=False):
     warmup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     history += [step(batch) for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     step_ms = start.elapsed_time(end) / steps
 
     rows = [{k: float(v) for k, v in h.items()} for h in history]
@@ -1542,7 +1540,7 @@ def train_phase(fused=False, swin=False):
                      **{window_bwd: 10 * steps}, **taps)
     oob = {}
     if swin:
-        variants = A.variant_counts()
+        variants = _native.variant_counts()
         if variants["msda_taps_bwd"] != {"vector_masks": 4 * steps} or \
                 variants["msda_taps"] != {"vector": 4 * steps}:
             fail(f"swin steps: B5/B5b variants {variants}, expected only the "
@@ -1625,7 +1623,7 @@ def parity_phase(swin=False):
     import torch
 
     from nmrf_tpu_torch import build_model
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     kern = build_model(main_path_cfg("float32", False, True, swin))
     plain = build_model(main_path_cfg("float32", False, False, swin))
@@ -1645,11 +1643,11 @@ def parity_phase(swin=False):
     outs, launches = {}, {}
     for name, model in (("kernels", kern), ("plain", plain)):
         handle = model.infer_score_head.register_forward_hook(grab(name))
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         with torch.inference_mode():
             outs[name] = model(img1, img2)
         torch.cuda.synchronize()
-        launches[name] = A.launch_counts()
+        launches[name] = _native.launch_counts()
         handle.remove()
     got, ref = outs["kernels"], outs["plain"]
     if any(launches["plain"].values()) or not all(
@@ -1709,7 +1707,7 @@ def stage_grad_phase():
     import torch
 
     from nmrf_tpu_torch import build_model
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     kern = build_model(main_path_cfg("float32", False, True))
     plain = build_model(main_path_cfg("float32", False, False))
@@ -1745,7 +1743,7 @@ def stage_grad_phase():
             inputs = [a.clone().requires_grad_(a.is_floating_point())
                       for a in args]
             if tag == "kernels":
-                A.reset_launch_counts()
+                _native.reset_launch_counts()
             with fused_pos() if fused else contextlib.nullcontext():
                 out = stage(*inputs)
                 out = out[0] if isinstance(out, tuple) else out
@@ -1758,7 +1756,7 @@ def stage_grad_phase():
             grads[tag].update({f"{name}.input{i}": x.grad
                                for i, x in enumerate(inputs) if x.grad is not None})
             if tag == "kernels":
-                launches = A.launch_counts()
+                launches = _native.launch_counts()
         if not any(launches.values()):
             fail(f"{name}: the stage gradient ran no kernel")
         if fused and (launches["window_attention_bwd"]
@@ -1787,7 +1785,7 @@ def swin_grad_phase():
     import torch
 
     from nmrf_tpu_torch import build_model
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     kern = build_model(main_path_cfg("float32", False, True, swin=True))
     plain = build_model(main_path_cfg("float32", False, False, swin=True))
@@ -1799,14 +1797,14 @@ def swin_grad_phase():
     for tag, model in (("kernels", kern), ("plain", plain)):
         net = model.backbone.train()
         model.drop_path_masks.generator.manual_seed(7)
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         outs = net(images)
         if cots is None:
             cots = [torch.randn(o.shape, generator=gen, device="cuda")
                     * (o.numel() / o.shape[-1]) ** -0.5 for o in outs]
         sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
         torch.cuda.synchronize()
-        counts = A.launch_counts()
+        counts = _native.launch_counts()
         if tag == "kernels":
             launches = counts
         elif any(counts.values()):
@@ -2015,7 +2013,7 @@ def entry_point_phase():
     import torch
 
     from nmrf_tpu_torch import train as cli
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.utils.checkpoint import restore_checkpoint
     from nmrf_tpu_torch.utils.misc import deterministic
 
@@ -2024,7 +2022,7 @@ def entry_point_phase():
     report = {}
     try:
         with deterministic():
-            A.reset_launch_counts()
+            _native.reset_launch_counts()
             a = cli.main(["--checkpoint-dir", d] + ENTRY_OPTS + [
                 "SOLVER.MAX_ITER", "6", "SOLVER.CHECKPOINT_PERIOD", "3"])
             if a["step"] != 6 or _step_dirs(d) != ["step_00000003",
@@ -2071,7 +2069,7 @@ def entry_point_phase():
                               **e["timing"]}
             if not np.isfinite(res["epe"]) or not logged:
                 fail(f"--eval-only: {report['eval']}")
-            counts, variants = A.launch_counts(), A.variant_counts()
+            counts, variants = _native.launch_counts(), _native.variant_counts()
         steps, frames = 6 + 3 + 3, 2
         _expect_launches(counts, f"{steps} CLI steps and {frames} eval frames",
                          window_attention=10 * (steps + frames),
@@ -2186,7 +2184,7 @@ def sharded_serve(mesh):
 
     from nmrf_tpu_torch import build_model
     from nmrf_tpu_torch.data.frame_io import InputPadder
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import make_sharded_forward
 
     model = build_model(main_path_cfg("bfloat16", True, True,
@@ -2214,7 +2212,7 @@ def sharded_serve(mesh):
         profile = None
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     host_ms, disps = [], []
@@ -2225,7 +2223,7 @@ def sharded_serve(mesh):
         host_ms.append((time.perf_counter() - t) * 1e3)
     end.record()
     torch.cuda.synchronize()
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     for d in disps:
         if d.shape != (H_KITTI, W_KITTI) or not np.isfinite(d).all() or (d < 0).any():
             fail(f"sharded disparity: shape {d.shape}, not finite and non-negative")
@@ -2248,7 +2246,7 @@ def sharded_parity(mesh):
     import torch.distributed as dist
 
     from nmrf_tpu_torch import build_model
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import make_sharded_forward
 
     cfg = main_path_cfg("float32", False, True, grid=(mesh.data, mesh.spatial))
@@ -2259,7 +2257,7 @@ def sharded_parity(mesh):
     stem = []  # the rows of the backbone stem's input and output
     handle = model.backbone.conv1.register_forward_hook(
         lambda _m, inputs, out: stem.append((inputs[0].shape[1], out.shape[1])))
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     got = make_sharded_forward(model, mesh)(img1, img2)
     torch.cuda.synchronize()
     handle.remove()
@@ -2267,7 +2265,7 @@ def sharded_parity(mesh):
     if stem != [(tile, tile // 2)]:
         fail(f"rank {mesh.rank}: the resnet stem took {stem} rows (input, "
              f"output), expected its tile of {tile} image rows")
-    report = {"launches": A.launch_counts(),
+    report = {"launches": _native.launch_counts(),
               "backbone_stem_rows": {"image": 384, "input": stem[0][0],
                                      "output": stem[0][1]}}
     _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded forward",
@@ -2311,7 +2309,7 @@ def sharded_grad_check(mesh, swin=False):
 
     from nmrf_tpu_torch import build_criterion, build_model
     from nmrf_tpu_torch.data import synthetic_batch
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import (shard_batch, spatial_sharded_apply,
                                          sum_gradients)
 
@@ -2339,13 +2337,13 @@ def sharded_grad_check(mesh, swin=False):
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, mesh=mesh).train()
     local = shard_batch(batch, mesh)
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     losses = criterion(spatial_sharded_apply(model, mesh, local["img1"],
                                              local["img2"]), local)
     losses["total"].backward()
     sum_gradients(list(model.parameters()), mesh)
     torch.cuda.synchronize()
-    report["launches"] = A.launch_counts()
+    report["launches"] = _native.launch_counts()
     report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     taps = {"msda_taps": 4, "msda_taps_bwd": 4} if swin else {}
     _expect_launches(report["launches"], f"rank {mesh.rank}, f32 sharded step"
@@ -2405,7 +2403,7 @@ def _sharded_train(mesh, fused):
     from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                                 make_train_step)
     from nmrf_tpu_torch.data import synthetic_batch
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import shard_batch
 
     cfg = main_path_cfg("bfloat16", False, True, grid=(mesh.data, mesh.spatial))
@@ -2431,14 +2429,14 @@ def _sharded_train(mesh, fused):
         history.append(step(batch))
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     history += [step(batch) for _ in range(SHARD_TRAIN_STEPS)]
     end.record()
     torch.cuda.synchronize()
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     S = SHARD_TRAIN_STEPS
     window_bwd = "window_attention_pos_bwd" if fused else "window_attention_bwd"
     _expect_launches(counts, f"rank {mesh.rank}, {S} sharded steps"
@@ -2566,7 +2564,7 @@ def sharded_swin_backbone(mesh):
     from nmrf_tpu_torch import build_model
     from nmrf_tpu_torch.data import synthetic_batch
     from nmrf_tpu_torch.models.layers import DropPathMasks, set_drop_path_masks
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel.mesh import sharded_features
 
     sp = mesh.spatial_group
@@ -2612,10 +2610,10 @@ def sharded_swin_backbone(mesh):
                 for m in (model.backbone.neck.stem.stem["0"],
                           model.backbone.backbone.patch_embed)]
             mesh.counts.reset()
-            A.reset_launch_counts()
+            _native.reset_launch_counts()
             got = run("tile")
             torch.cuda.synchronize()
-            counts, comm = A.launch_counts(), mesh.counts.summary()
+            counts, comm = _native.launch_counts(), mesh.counts.summary()
             for h in hooks:
                 h.remove()
             if rows != [H // mesh.spatial] * 2:
@@ -2696,7 +2694,7 @@ def sharded_swin_serve(mesh):
 
     from nmrf_tpu_torch import build_model
     from nmrf_tpu_torch.data.frame_io import InputPadder
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import make_sharded_forward
 
     cfg = main_path_cfg("float32", False, True, swin=True,
@@ -2717,10 +2715,10 @@ def sharded_swin_serve(mesh):
                              divis_by=SHARD_DIVIS)
         a, b = (torch.from_numpy(p[None]).to(mesh.device)
                 for p in padder.pad(*pair))
-        A.reset_launch_counts()  # the sharded forwards' launches only
+        _native.reset_launch_counts()  # the sharded forwards' launches only
         got = fwd(a, b)
         torch.cuda.synchronize()
-        for k, v in A.launch_counts().items():
+        for k, v in _native.launch_counts().items():
             counts[k] = counts.get(k, 0) + v
         if mesh.rank == 0:
             scores = {}
@@ -2753,7 +2751,7 @@ def sharded_swin_train(mesh):
     from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                                 make_train_step)
     from nmrf_tpu_torch.data import synthetic_batch
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import shard_batch
 
     cfg = main_path_cfg("bfloat16", False, True, swin=True,
@@ -2771,14 +2769,14 @@ def sharded_swin_train(mesh):
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     history += [step(batch) for _ in range(SWIN_SHARD_STEPS)]
     end.record()
     torch.cuda.synchronize()
-    counts, variants = A.launch_counts(), A.variant_counts()
+    counts, variants = _native.launch_counts(), _native.variant_counts()
     S = SWIN_SHARD_STEPS
     _expect_launches(counts, f"rank {mesh.rank}, {S} sharded swin steps",
                      msda_taps=4 * S, msda_taps_bwd=4 * S,
@@ -2846,7 +2844,7 @@ def swin_data_worker(rank, out_dir):
     from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                                 make_train_step)
     from nmrf_tpu_torch.data import synthetic_batch
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.parallel import make_mesh, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2863,12 +2861,12 @@ def swin_data_worker(rank, out_dir):
                                         max_disp=cfg.SOLVER.MAX_DISP, seed=0,
                                         disp_quantum=8), mesh)
     dist.barrier()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     t0 = time.perf_counter()
     history = [step(batch) for _ in range(SWIN_DATA_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts, variants = A.launch_counts(), A.variant_counts()
+    counts, variants = _native.launch_counts(), _native.variant_counts()
     S = SWIN_DATA_STEPS
     _expect_launches(counts, f"rank {rank}, {S} swin data-parallel steps",
                      window_attention=10 * S, stripe_attention=10 * S,
@@ -3022,12 +3020,12 @@ def uncounted_variants():
     wrappers count no variant."""
     from nmrf_tpu_torch.ops import _native
 
-    count = _native.Variant.count
-    _native.Variant.count = lambda self, wrapper, names: None
+    count = _native._count_variant
+    _native._count_variant = lambda name, variants, code: None
     try:
         yield
     finally:
-        _native.Variant.count = count
+        _native._count_variant = count
 
 
 def compare_phase(src_dir, gen):
@@ -3386,7 +3384,7 @@ def serving_entry_phase(swin=False):
 
     from nmrf_tpu_torch import build_model, inference, predict
     from nmrf_tpu_torch.data.frame_io import read_disp_kitti
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
     from nmrf_tpu_torch.tools import export_serving, serve_http
     from nmrf_tpu_torch.utils.export import load_exported, load_meta
 
@@ -3432,14 +3430,14 @@ def serving_entry_phase(swin=False):
         try:
             url = f"http://127.0.0.1:{srv.server_port}/disparity"
             _post(url, *pairs[0])  # warm-up: cuDNN plans, first launches
-            A.reset_launch_counts()
+            _native.reset_launch_counts()
             served, walls, splits = [], [], []
             for pair in pairs[1:]:
                 disp, wall, timing = _post(url, *pair)
                 served.append(disp)
                 walls.append(wall)
                 splits.append(timing)
-            counts = A.launch_counts()
+            counts = _native.launch_counts()
         finally:
             srv.shutdown()
             srv.server_close()
@@ -3495,12 +3493,12 @@ def serving_entry_phase(swin=False):
             "--device", "cuda"]
         opts = ["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.GELU_APPROX", "True",
                 "DATASETS.ROOT", root]
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         t0 = time.perf_counter()
         written = inference.main(["--dataset-name", "kitti_2015", "--output",
                                   out] + flags + opts)
         cli_s = time.perf_counter() - t0
-        counts = A.launch_counts()
+        counts = _native.launch_counts()
         _expect_launches(counts, f"{name}: the KITTI submission of 2 pairs",
                          window_attention=20, stripe_attention=20,
                          msda_taps=8 if swin else 0)
@@ -3624,14 +3622,14 @@ def run_entry(main, argv, what, phase="phase 10"):
     result, its stdout lines, the launches)."""
     import io
 
-    from nmrf_tpu_torch.ops import attention as A
+    from nmrf_tpu_torch.ops import _native
 
     buf = io.StringIO()
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         result = main(argv)
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     lines = buf.getvalue().splitlines()
     log(f"{phase} {what}: {time.perf_counter() - t0:.1f} s; stdout "
         + json.dumps(lines[-8:]))

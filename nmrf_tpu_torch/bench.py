@@ -83,7 +83,7 @@ def main(argv=None):
     "flops_by_op", "bytes", "bytes_by_op", "card", "profile": the trace
     summary or None}."""
     from .models import build_model, resolve_device
-    from .ops import attention
+    from .ops import _native
     from .tools import flops
     from .tools.profile_model import print_summary, profile, summarize_trace
     from .utils.benchmarks import (KITTI_HW, Window, chain, device_identity,
@@ -119,7 +119,7 @@ def main(argv=None):
                      if k.startswith("nmrf.")) + f"), bytes at op boundaries "
          f"{nbytes / 1e9:.3f} GB")
 
-    attention.reset_launch_counts()
+    _native.reset_launch_counts()
     wall, dev = [], []
     with torch.inference_mode():
         for _ in range(args.repeat):
@@ -127,7 +127,7 @@ def main(argv=None):
                 chain(forward, inputs, K)
             wall.append(w.wall_ms / K)
             dev.append(w.ms / K)
-    launches = attention.launch_counts()
+    launches = _native.launch_counts()
     ms = float(np.mean(wall))
     _log(f"{args.repeat} chains of {K}: wall ms/frame mean {ms:.3f} min "
          f"{min(wall):.3f} max {max(wall):.3f} samples "

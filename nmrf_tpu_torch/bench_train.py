@@ -90,7 +90,7 @@ def main(argv=None):
 def _run(args, device, world):
     from .config import get_cfg
     from .models import build_criterion, build_model
-    from .ops import attention
+    from .ops import _native
     from .parallel import make_mesh, shard_batch
     from .solver import build_optimizer, make_train_step
     from .tools import flops
@@ -139,12 +139,12 @@ def _run(args, device, world):
     losses = step(batch)
     _log(f"warmup total: {float(losses['total'])}")
 
-    attention.reset_launch_counts()
+    _native.reset_launch_counts()
     with Window(device) as w:
         for _ in range(ITERS):
             losses = step(batch)
         total = float(losses["total"])  # the readback closes the window
-    launches = attention.launch_counts()
+    launches = _native.launch_counts()
     dt = w.wall_ms / ITERS / 1e3
     _log(f"{ITERS} steps: wall {w.wall_ms / ITERS:.3f} ms/step, "
          f"{'CUDA events' if device.type == 'cuda' else 'cpu'} "

@@ -4,6 +4,11 @@
 
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,23 +75,70 @@ __device__ __forceinline__ void store_vec16(__nv_bfloat16* dst, const float* src
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// shared memory attributes of a kernel taking smem dynamic bytes, and the
-// blocks of its grid over `units`: as many as run at once on the card
+// the most shared memory a block may opt into on sm_90a (227 KB), the only
+// target the port is built for
+constexpr size_t kMaxBlockSmem = 232448;
+
+// Launch set-up, the one place the kernels call the runtime before a launch.
+// What it sets or asks is cached by kernel instantiation and current device
+// (function attributes belong to a device's context), so after the first
+// launch of a kernel at a shared-memory size a launch makes no call but
+// cudaGetDevice.  ctypes releases the GIL around an entry point, so two host
+// threads can be in here at once: one mutex guards the caches.
+namespace setup {
+inline std::mutex mutex;
+// (kernel, device) -> the dynamic shared memory its attribute was set to
+inline std::map<std::pair<const void*, int>, int> smem_set;
+// (kernel, device, threads, smem) -> the blocks of it that run at once
+inline std::map<std::tuple<const void*, int, int, int>, int> resident;
+
+// under the mutex: set fn's dynamic shared memory attribute to smem unless
+// it was set to at least that on dev (attributes only grow)
+inline cudaError_t grow_smem(const void* fn, int dev, int smem) {
+  const auto it = smem_set.find({fn, dev});
+  if (it != smem_set.end() && it->second >= smem) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) smem_set[{fn, dev}] = smem;
+  return err;
+}
+}  // namespace setup
+
+// let kernel take smem bytes of dynamic shared memory on the current device
+template <typename Kernel>
+inline cudaError_t ensure_smem(Kernel kernel, size_t smem) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(setup::mutex);
+  return setup::grow_smem(reinterpret_cast<const void*>(kernel), dev, static_cast<int>(smem));
+}
+
+// ensure_smem, the carveout that prefers shared memory, and the blocks of a
+// grid over `units`: as many as run at once on the card
 template <typename Kernel>
 inline cudaError_t launch_config(Kernel kernel, int threads, int smem, int units, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = units < per_sm * sms ? units : per_sm * sms;
+  std::lock_guard<std::mutex> lock(setup::mutex);
+  err = setup::grow_smem(fn, dev, smem);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(fn, dev, threads, smem);
+  auto it = setup::resident.find(key);
+  if (it == setup::resident.end()) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    it = setup::resident.emplace(key, per_sm * sms).first;
+  }
+  *blocks = units < it->second ? units : it->second;
   return cudaSuccess;
 }
 

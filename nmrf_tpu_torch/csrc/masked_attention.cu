@@ -321,7 +321,7 @@ int launch_mma(const void* q, const void* k, const void* v, const float* mask, v
       static_cast<long long>((p.Rq + t.q_rows - 1) / t.q_rows) * p.G * p.heads;
   if (units > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
   t.units = static_cast<int>(units);
-  t.resident = masked_fwd_smem_bytes<HD>(t, true) <= 232448;
+  t.resident = masked_fwd_smem_bytes<HD>(t, true) <= kMaxBlockSmem;
   const int smem = static_cast<int>(masked_fwd_smem_bytes<HD>(t, t.resident));
   const int threads = t.q_rows / 16 * 32;
   int blocks = 0;

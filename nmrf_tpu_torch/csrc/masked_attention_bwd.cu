@@ -646,8 +646,8 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const float* mas
   if (units1 > (1 << 30) || units2 > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
   t1.units = static_cast<int>(units1);
   t2.units = static_cast<int>(units2);
-  t1.resident = masked_dq_smem_bytes<HD>(t1, true) <= 232448;
-  t2.resident = masked_dkv_smem_bytes<HD>(p.Rq, true) <= 232448;
+  t1.resident = masked_dq_smem_bytes<HD>(t1, true) <= kMaxBlockSmem;
+  t2.resident = masked_dkv_smem_bytes<HD>(p.Rq, true) <= kMaxBlockSmem;
   const int smem1 = static_cast<int>(masked_dq_smem_bytes<HD>(t1, t1.resident));
   const int smem2 = static_cast<int>(masked_dkv_smem_bytes<HD>(p.Rq, t2.resident));
   const int threads1 = t1.q_rows / 16 * 32;

@@ -236,8 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* out, StripeParams 
            cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     constexpr int smem = static_cast<int>(stripe_fwd_smem_bytes<HD>());
-    cudaError_t err = cudaFuncSetAttribute(stripe_attention_mma_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = ensure_smem(stripe_attention_mma_kernel<HD>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((p.T + kMmaRows - 1) / kMmaRows, p.B * p.ni * p.nj, p.heads);
     stripe_attention_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(

@@ -518,11 +518,8 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* g, v
                    void* dk, void* dv, float* lse, float* dsum, StripeParams p,
                    cudaStream_t stream) {
   const int smem = static_cast<int>(stripe_mma_smem_bytes<HD>());
-  cudaError_t err = cudaFuncSetAttribute(stripe_bwd_dq_mma_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stripe_bwd_dkv_mma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = ensure_smem(stripe_bwd_dq_mma_kernel<HD>, smem);
+  if (err == cudaSuccess) err = ensure_smem(stripe_bwd_dkv_mma_kernel<HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.T + kMmaRows - 1) / kMmaRows, p.B * p.ni * p.nj, p.heads);
   const bf16* q_ = static_cast<const bf16*>(q);

@@ -305,7 +305,6 @@ window_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ tab
 using bf16 = __nv_bfloat16;
 
 constexpr int kMmaMaxWarps = 9;             // one warp per 16 rows of a window group
-constexpr size_t kMaxBlockSmem = 232448;    // 227 KB, the most a block may have
 
 // byte offsets of the tensor-core kernel's shared memory: q|k|v rows
 // [rows, HD + 8] bf16, qr|kr [rows, P] f32 (qr later holds the mass), the
@@ -646,9 +645,7 @@ int launch(const void* qkv, const float* table, void* out, WindowParams p, cudaS
   }
   *variant = 0;
   const size_t smem = window_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = ensure_smem(window_attention_kernel<T, HD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.nwin + p.wpb - 1) / p.wpb, p.heads);
   window_attention_kernel<T, HD><<<grid, kWinWarps * 32, smem, stream>>>(

@@ -823,9 +823,7 @@ template <int HD, int MT>
 int launch_mma(const void* qkv, const float* table, const void* g, float* dqkv, float* dqr,
                float* dkr, float* mass, WindowBwdParams p, int nshift, size_t smem,
                cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(window_bwd_mma_kernel<HD, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = ensure_smem(window_bwd_mma_kernel<HD, MT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.nwin + p.wpb - 1) / p.wpb, p.heads);
   window_bwd_mma_kernel<HD, MT><<<grid, p.wpb * MT * 32, smem, stream>>>(
@@ -833,8 +831,6 @@ int launch_mma(const void* qkv, const float* table, const void* g, float* dqkv, 
       p, nshift);
   return static_cast<int>(cudaGetLastError());
 }
-
-constexpr size_t kMaxBlockSmem = 232448;  // 227 KB, the most a block may have
 
 template <typename T, int HD>
 int launch_bwd(const void* qkv, const float* table, const void* g, float* dqkv, float* dqr,
@@ -856,9 +852,7 @@ int launch_bwd(const void* qkv, const float* table, const void* g, float* dqkv, 
   }
   if (err == -1) {
     const size_t smem = window_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows);
-    cudaError_t e = cudaFuncSetAttribute(window_attention_bwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+    const cudaError_t e = ensure_smem(window_attention_bwd_kernel<T, HD>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 grid((p.nwin + p.wpb - 1) / p.wpb, p.heads);
     window_attention_bwd_kernel<T, HD><<<grid, kBwdWarps * 32, smem, stream>>>(

@@ -1039,9 +1039,7 @@ template <int HD, int MT>
 int launch_pos_mma(const void* qkv, const float* table, const void* g, void* dqkv,
                    float* partial, PosBwdParams p, int nshift, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(window_pos_bwd_mma_kernel<HD, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = ensure_smem(window_pos_bwd_mma_kernel<HD, MT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   window_pos_bwd_mma_kernel<HD, MT><<<dim3(p.nblk, p.heads), p.wpb * MT * 32, smem, stream>>>(
       static_cast<const bf16*>(qkv), table, static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
@@ -1055,11 +1053,6 @@ int launch_pos_bwd(const void* qkv, const float* table, const void* g, void* dqk
   const int P = p.wh * p.ww;
   const int Tw = P * p.N;
   const int trows = (2 * p.wh - 1) * (2 * p.ww - 1);
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
   int err = -1;  // -1: the main kernel not launched yet
   if constexpr (sizeof(T) == 2) {
     const int nshift = p.N == 1 ? 0 : p.N == 2 ? 1 : p.N == 4 ? 2 : p.N == 8 ? 3 : -1;
@@ -1067,17 +1060,15 @@ int launch_pos_bwd(const void* qkv, const float* table, const void* g, void* dqk
     size_t a, b, c, d;
     const size_t smem =
         pos_mma_smem<HD>(p.wpb * Tw, P, Tw, p.wpb, (trows + 15) / 16 * 16, &a, &b, &c, &d);
-    if (nshift >= 0 && smem <= static_cast<size_t>(max_smem)) {
+    if (nshift >= 0 && smem <= kMaxBlockSmem) {
       if (mt == 1) err = launch_pos_mma<HD, 1>(qkv, table, g, dqkv, partial, p, nshift, smem, stream);
       if (mt == 9) err = launch_pos_mma<HD, 9>(qkv, table, g, dqkv, partial, p, nshift, smem, stream);
     }
   }
   if (err == -1) {
-    p.keep_table = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, 1) <=
-                   static_cast<size_t>(max_smem);
+    p.keep_table = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, 1) <= kMaxBlockSmem;
     const size_t smem = pos_bwd_smem_bytes<T, HD>(p.wpb * Tw, P, Tw, trows, p.keep_table);
-    e = cudaFuncSetAttribute(window_pos_bwd_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e = ensure_smem(window_pos_bwd_kernel<T, HD>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     window_pos_bwd_kernel<T, HD><<<dim3(p.nblk, p.heads), kPosWarps * 32, smem, stream>>>(
         static_cast<const T*>(qkv), table, static_cast<const T*>(g), static_cast<T*>(dqkv),

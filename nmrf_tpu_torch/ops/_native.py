@@ -7,6 +7,10 @@ the shared headers, so an edited source is rebuilt), then loaded with
 ``ctypes``.  Nothing is built when the module is imported: the first launch
 of a kernel builds it, and :func:`build_all` builds every kernel at once with
 one ``nvcc`` process per source.
+
+Every wrapper launches its kernel through :func:`launch`, which also counts
+the launches by kernel name (:func:`launch_counts`, :func:`variant_counts`,
+:func:`reset_launch_counts`).
 """
 
 import ctypes
@@ -33,7 +37,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # argument types of each library's single entry point (pointers, dtype code,
 # shape ints, scale, stream; K1, B5 and B5b then the address of the int in
-# which they report the variant they launched, see ``Variant``)
+# which they report the variant they launched, see ``launch``)
 _SIGNATURES = {
     "window_attention": ("nmrf_window_attention",
                          [_P] * 3 + [_I] * 13 + [_F, _P, _P]),
@@ -58,6 +62,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _loaded = {}
+# launches of each kernel, and of K1, B5 and B5b by the variant their entry
+# reported, since the last ``reset_launch_counts``
+_launches = dict.fromkeys(KERNELS, 0)
+_variants = {name: {} for name in ("window_attention", "msda_taps",
+                                   "msda_taps_bwd")}
 
 
 def _nvcc():
@@ -129,30 +138,51 @@ def library(name):
         return fn
 
 
-def stream():
-    """PyTorch's current CUDA stream, as a kernel's ``stream`` argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def check_launch(kernel, err):
-    """Raise if a kernel's C entry point returned a CUDA error."""
+def launch(name, *args, variants=None):
+    """Launch kernel ``name``'s C entry point on ``args`` and PyTorch's
+    current CUDA stream, raise if it returned a CUDA error, and count the
+    launch.  An entry that chooses among kernels (K1, B5 and B5b) takes the
+    address of an int last, into which it writes the code of the one it
+    launched: ``variants`` maps those codes to names, and the launch is
+    counted under that name too (raising if no known code was written)."""
+    code = ctypes.c_int(-1)
+    tail = () if variants is None else (ctypes.addressof(code),)
+    err = library(name)(*args, torch.cuda.current_stream().cuda_stream, *tail)
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    with _lock:
+        _launches[name] += 1
+        if variants is not None:
+            _count_variant(name, variants, code.value)
 
 
-class Variant:
-    """The int an entry point that chooses among kernels writes the code of
-    the one it launched into.  Pass ``.address`` as its last argument, then
-    ``count(wrapper, names)`` adds one to ``wrapper.variants[names[code]]``
-    (raising if no known code was written)."""
+def _count_variant(name, variants, code):
+    variant = variants.get(code)
+    if variant is None:
+        raise RuntimeError(f"{name}: the kernel reported no known variant "
+                           f"({code})")
+    _variants[name][variant] = _variants[name].get(variant, 0) + 1
 
-    def __init__(self):
-        self.value = ctypes.c_int(-1)
-        self.address = ctypes.addressof(self.value)
 
-    def count(self, wrapper, names):
-        name = names.get(self.value.value)
-        if name is None:
-            raise RuntimeError(f"{wrapper.__name__}: the kernel reported no "
-                               f"known variant ({self.value.value})")
-        wrapper.variants[name] = wrapper.variants.get(name, 0) + 1
+def reset_launch_counts():
+    """Set the launch count of every kernel (``KERNELS``) to 0 and empty
+    the per-variant counts of K1, B5 and B5b."""
+    with _lock:
+        _launches.update(dict.fromkeys(KERNELS, 0))
+        for counts in _variants.values():
+            counts.clear()
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset}."""
+    with _lock:
+        return dict(_launches)
+
+
+def variant_counts():
+    """{kernel name: {variant: launches}} of the kernels whose entry point
+    chooses among kernels and reports the one it launched: K1
+    (``attention.WINDOW_VARIANTS``), B5 and B5b (``msda.MSDA_VARIANTS``,
+    ``msda.MSDA_BWD_VARIANTS``)."""
+    with _lock:
+        return {name: dict(counts) for name, counts in _variants.items()}

@@ -9,8 +9,9 @@ Each function here has three parts:
   ``stripe_attention_bwd``), which checks its inputs and, for CUDA
   tensors, launches the hand-written kernel from
   ``nmrf_tpu_torch/csrc`` on the current stream, raising if the launch
-  fails.  It counts its launches in ``<wrapper>.launches`` (K1's also
-  per kernel it launched, ``window_attention.variants``);
+  fails, through ``_native.launch``, which counts the launches by kernel
+  name (``_native.launch_counts``; K1's also by the kernel its entry
+  chose, ``_native.variant_counts``);
 * the plain PyTorch version (``*_plain``) of the same function.  The wrapper
   takes it only for tensors on the CPU; the tests and ``chip_smoke.py``
   hold the kernel against it.  The plain backward versions write the
@@ -44,7 +45,6 @@ import numpy as np
 import torch
 
 from . import _native, library
-from .msda import msda_taps, msda_taps_bwd
 
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
 _DTYPE_CODES = _native.DTYPE_CODES
@@ -79,36 +79,6 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
-
-
-def _wrappers():
-    return (window_attention, stripe_attention, window_attention_bwd,
-            stripe_attention_bwd, msda_taps, masked_attention,
-            masked_attention_bwd, window_attention_pos_bwd, msda_taps_bwd)
-
-
-def reset_launch_counts():
-    """Set the launch count of every kernel wrapper of the port to 0 (K1,
-    K2, K1b, K2b, B6, B6b and B7 here and B5 and B5b,
-    ``ops/msda.py:msda_taps`` and ``msda_taps_bwd``), and empty the
-    per-variant counts of K1, B5 and B5b."""
-    for fn in _wrappers():
-        fn.launches = 0
-        if hasattr(fn, "variants"):
-            fn.variants = {}
-
-
-def launch_counts():
-    """{wrapper name: kernel launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in _wrappers()}
-
-
-def variant_counts():
-    """{wrapper name: {variant: launches}} of the wrappers whose entry
-    point chooses among kernels and reports the one it launched: K1
-    (``WINDOW_VARIANTS``), B5 and B5b (``ops/msda.py``)."""
-    return {fn.__name__: dict(fn.variants) for fn in _wrappers()
-            if hasattr(fn, "variants")}
 
 
 def _check_tensor(name, t, ndim):
@@ -364,16 +334,12 @@ def _window_attention_launch(qkv, rel_table, shift, window, num_heads,
     wh, ww = window
     table = rel_table.detach().to(qkv.dtype).float().contiguous()
     out = torch.empty((B, Hp, Wp, N, C), dtype=qkv.dtype, device=qkv.device)
-    variant = _native.Variant()
-    err = _native.library("window_attention")(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+    _native.launch(
+        "window_attention", qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
         int(shift), int(bool(candidate_mask)), int(row0),
         Hp if hp_total is None else int(hp_total), (C // num_heads) ** -0.5,
-        _native.stream(), variant.address)
-    _native.check_launch("window_attention", err)
-    window_attention.launches += 1
-    variant.count(window_attention, WINDOW_VARIANTS)
+        variants=WINDOW_VARIANTS)
     return out
 
 
@@ -491,15 +457,13 @@ def window_attention_bwd(g, qkv, rel_table, shift, window, num_heads,
     dve = torch.empty((h, P, P, C // h), **f32)
     nsplit = _dve_splits(G * N, P, h)
     dve_partial = torch.empty((nsplit,) + tuple(dve.shape), **f32)
-    err = _native.library("window_attention_bwd")(
-        qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        dqr.data_ptr(), dkr.data_ptr(), mass.data_ptr(), dve.data_ptr(),
-        dve_partial.data_ptr(), _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h,
-        wh, ww, int(shift), int(bool(candidate_mask)), int(row0),
-        Hp if hp_total is None else int(hp_total), nsplit, (C // h) ** -0.5,
-        _native.stream())
-    _native.check_launch("window_attention_bwd", err)
-    window_attention_bwd.launches += 1
+    _native.launch(
+        "window_attention_bwd", qkv.data_ptr(), table.data_ptr(),
+        g.data_ptr(), dqkv.data_ptr(), dqr.data_ptr(), dkr.data_ptr(),
+        mass.data_ptr(), dve.data_ptr(), dve_partial.data_ptr(),
+        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, h, wh, ww, int(shift),
+        int(bool(candidate_mask)), int(row0),
+        Hp if hp_total is None else int(hp_total), nsplit, (C // h) ** -0.5)
     return _window_bwd_finish(dqkv, qkv, table, dqr, dkr, dve, window, h)
 
 
@@ -531,22 +495,14 @@ def window_attention_pos_bwd(g, qkv, rel_table, shift, window, num_heads,
     dqkv = torch.empty_like(qkv)
     partial = torch.empty((nblk,) + tuple(table.shape), **f32)
     d_table = torch.empty(table.shape, **f32)
-    err = _native.library("window_attention_pos_bwd")(
-        qkv.data_ptr(), table.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        partial.data_ptr(), d_table.data_ptr(), _DTYPE_CODES[qkv.dtype], B,
-        Hp, Wp, N, C, num_heads, wh, ww, int(shift),
-        int(bool(candidate_mask)), int(row0),
+    _native.launch(
+        "window_attention_pos_bwd", qkv.data_ptr(), table.data_ptr(),
+        g.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), d_table.data_ptr(),
+        _DTYPE_CODES[qkv.dtype], B, Hp, Wp, N, C, num_heads, wh, ww,
+        int(shift), int(bool(candidate_mask)), int(row0),
         Hp if hp_total is None else int(hp_total), nblk,
-        (C // num_heads) ** -0.5, _native.stream())
-    _native.check_launch("window_attention_pos_bwd", err)
-    window_attention_pos_bwd.launches += 1
+        (C // num_heads) ** -0.5)
     return dqkv, d_table
-
-
-window_attention.launches = 0
-window_attention.variants = {}
-window_attention_bwd.launches = 0
-window_attention_pos_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -645,12 +601,10 @@ def _stripe_kernel_checks(kernel, tensors, num_heads):
 def _stripe_attention_launch(q, k, v, H_sp, W_sp, num_heads):
     B, Hp, Wp, N, C = q.shape
     out = torch.empty_like(q)
-    err = _native.library("stripe_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
-        (C // num_heads) ** -0.5, _native.stream())
-    _native.check_launch("stripe_attention", err)
-    stripe_attention.launches += 1
+    _native.launch(
+        "stripe_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads,
+        H_sp, W_sp, (C // num_heads) ** -0.5)
     return out
 
 
@@ -715,18 +669,12 @@ def stripe_attention_bwd(g, q, k, v, H_sp, W_sp, num_heads):
     rows = (B * (Hp // H_sp) * (Wp // W_sp), num_heads, H_sp * W_sp * N)
     lse, dsum = (torch.empty(rows, dtype=torch.float32, device=q.device)
                  for _ in range(2))
-    err = _native.library("stripe_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, Hp, Wp, N, C, num_heads, H_sp, W_sp,
-        (C // num_heads) ** -0.5, _native.stream())
-    _native.check_launch("stripe_attention_bwd", err)
-    stripe_attention_bwd.launches += 1
+    _native.launch(
+        "stripe_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), _DTYPE_CODES[q.dtype], B, Hp, Wp, N,
+        C, num_heads, H_sp, W_sp, (C // num_heads) ** -0.5)
     return dq, dk, dv
-
-
-stripe_attention.launches = 0
-stripe_attention_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -800,12 +748,10 @@ def _masked_attention_launch(q, k, v, mask, scale):
     mask = mask.float().contiguous()
     _masked_kernel_checks("masked_attention", (q, k, v, mask))
     out = torch.empty_like(q)
-    err = _native.library("masked_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], G, mask.shape[0], h, Rq, Rk,
-        hd, float(scale), _native.stream())
-    _native.check_launch("masked_attention", err)
-    masked_attention.launches += 1
+    _native.launch(
+        "masked_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], G,
+        mask.shape[0], h, Rq, Rk, hd, float(scale))
     return out
 
 
@@ -856,15 +802,9 @@ def masked_attention_bwd(g, q, k, v, mask, scale):
     # Rq]) and D_i ([h, G, Rq])
     f32 = dict(dtype=torch.float32, device=q.device)
     stats, dsum = torch.empty((2, h, G, Rq), **f32), torch.empty((h, G, Rq), **f32)
-    err = _native.library("masked_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), dsum.data_ptr(), _DTYPE_CODES[q.dtype], G,
-        mask.shape[0], h, Rq, Rk, hd, float(scale), _native.stream())
-    _native.check_launch("masked_attention_bwd", err)
-    masked_attention_bwd.launches += 1
+    _native.launch(
+        "masked_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), dsum.data_ptr(),
+        _DTYPE_CODES[q.dtype], G, mask.shape[0], h, Rq, Rk, hd, float(scale))
     return dq, dk, dv
-
-
-masked_attention.launches = 0
-masked_attention_bwd.launches = 0

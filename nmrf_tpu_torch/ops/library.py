@@ -6,7 +6,7 @@
 * a CUDA implementation, the kernel's launch function
   (``ops/attention.py:_window_attention_launch``,
   ``_stripe_attention_launch``, ``ops/msda.py:_msda_taps_launch``), which
-  counts its launches as the wrapper always did;
+  launches and counts through ``ops/_native.py:launch``;
 * a fake implementation, which gives the output's shape and dtype, so that
   ``torch.export`` traces the forward with fake tensors and records one
   graph node per launch.

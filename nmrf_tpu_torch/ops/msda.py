@@ -13,9 +13,9 @@ tap-MSDA kernel B5.
   radius; :func:`tap_out_of_range_fraction` measures that precondition.
 * ``msda_taps`` is the wrapper of kernel B5 (``csrc/msda_taps.cu``, which
   replaces ``nmrf_tpu/ops/pallas/msda.py:_msda_tap_kernel``): for CUDA
-  tensors it launches the kernel or raises, counting launches in
-  ``msda_taps.launches`` (and by kernel in ``msda_taps.variants``), through
-  the registered operator ``nmrf::msda_taps`` (``ops/library.py``); for
+  tensors it launches the kernel or raises (``_native.launch``, which counts
+  the launch and the variant that ran), through the registered operator
+  ``nmrf::msda_taps`` (``ops/library.py``); for
   CPU tensors it takes ``msda_taps_plain``, the
   port's copy of the JAX package's dense (2r+1)^2-tap hat sum
   (``_tap_level_reference``).  The kernel gathers the 4 corners of each
@@ -247,16 +247,11 @@ def _msda_taps_launch(value_map, dx, dy, aw, num_heads, radius, q0=0, v0=0,
     if out.numel() == 0:
         return out
     M = num_heads
-    variant = _native.Variant()
-    err = _native.library("msda_taps")(
-        value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
-        out.data_ptr(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq,
-        Wq, M, MD // M, MP // M, int(radius), int(q0), int(v0),
-        Hl if level_rows < 0 else int(level_rows), _native.stream(),
-        variant.address)
-    _native.check_launch("msda_taps", err)
-    msda_taps.launches += 1
-    variant.count(msda_taps, MSDA_VARIANTS)
+    _native.launch(
+        "msda_taps", value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        aw.data_ptr(), out.data_ptr(), _native.DTYPE_CODES[value_map.dtype],
+        B, Hl, Wl, Hq, Wq, M, MD // M, MP // M, int(radius), int(q0), int(v0),
+        Hl if level_rows < 0 else int(level_rows), variants=MSDA_VARIANTS)
     return out
 
 
@@ -272,9 +267,6 @@ msda_taps_op = library.define(
     "-> Tensor",
     _msda_taps_launch, _msda_taps_fake)
 
-
-msda_taps.launches = 0
-msda_taps.variants = {}
 # B5's and B5b's kernels by the code their entries report
 # (csrc/msda_taps.cu, csrc/msda_taps_bwd.cu: bit 0 the vector path, bit 1
 # B5b's tap masks)
@@ -356,10 +348,10 @@ def msda_taps_bwd(value_map, dx, dy, aw, g, num_heads, radius, q0=0, v0=0,
     its dtype, d dx, d dy, d aw in float32), summed in f32, with the
     forward's rules: a corner more than ``radius`` level pixels from the
     base cell, or past the map, adds nothing to any of them.  For CUDA
-    tensors it launches the kernel or raises, counting launches in
-    ``msda_taps_bwd.launches`` and by the variant its entry reports in
-    ``msda_taps_bwd.variants`` (``MSDA_BWD_VARIANTS``: the vector or scalar
-    path, the tap masks up to r 5 and f 8, else the walk); for
+    tensors it launches the kernel or raises (``_native.launch``, which
+    counts the launches and the variant the entry reports,
+    ``MSDA_BWD_VARIANTS``: the vector or scalar path, the tap masks up to r
+    5 and f 8, else the walk); for
     CPU tensors it takes :func:`msda_taps_bwd_plain`.  ``q0``, ``v0`` and
     ``level_rows`` place the queries and the map on an H tile, as for
     :func:`msda_taps`; d value_map holds the gradient of the map's rows.
@@ -388,22 +380,14 @@ def msda_taps_bwd(value_map, dx, dy, aw, g, num_heads, radius, q0=0, v0=0,
     scratch = torch.empty(
         msda_bwd_scratch_words(B, Hl, Wl, Hq, Wq, M, q0, v0),
         dtype=torch.int32, device=dev)
-    variant = _native.Variant()
-    err = _native.library("msda_taps_bwd")(
-        value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(), aw.data_ptr(),
-        g.data_ptr(), dvalue.data_ptr(), ddx.data_ptr(), ddy.data_ptr(),
-        daw.data_ptr(), scratch.data_ptr(), 4 * scratch.numel(),
-        _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl, Hq, Wq, M, MD // M,
-        MP // M, int(radius), int(q0), int(v0), Hg, _native.stream(),
-        variant.address)
-    _native.check_launch("msda_taps_bwd", err)
-    msda_taps_bwd.launches += 1
-    variant.count(msda_taps_bwd, MSDA_BWD_VARIANTS)
+    _native.launch(
+        "msda_taps_bwd", value_map.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        aw.data_ptr(), g.data_ptr(), dvalue.data_ptr(), ddx.data_ptr(),
+        ddy.data_ptr(), daw.data_ptr(), scratch.data_ptr(),
+        4 * scratch.numel(), _native.DTYPE_CODES[value_map.dtype], B, Hl, Wl,
+        Hq, Wq, M, MD // M, MP // M, int(radius), int(q0), int(v0), Hg,
+        variants=MSDA_BWD_VARIANTS)
     return dvalue, ddx, ddy, daw
-
-
-msda_taps_bwd.launches = 0
-msda_taps_bwd.variants = {}
 
 
 class TapLevel(torch.autograd.Function):

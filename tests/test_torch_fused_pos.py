@@ -41,6 +41,7 @@ from nmrf_tpu.models import nmp as nmp_jax
 from nmrf_tpu.models.nmp import NEG_INF, _relative_position_index
 from nmrf_tpu.ops.pallas import attention as fa
 from nmrf_tpu_torch.models import nmp
+from nmrf_tpu_torch.ops import _native
 from nmrf_tpu_torch.ops import attention as A
 
 from .test_torch_grads import _jax_grads, _port_grads
@@ -239,7 +240,7 @@ def test_flag_unset_keeps_the_default_path(setting, monkeypatch, b7_calls):
     with torch.no_grad():
         pm.relative_position_enc_table.copy_(torch.from_numpy(
             _rand(rng, (2 * ws - 1) ** 2, 48)))
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     results = {}
     for flag in ("0", "1"):
         monkeypatch.setenv("NMRF_FUSED_POS", flag)
@@ -252,7 +253,7 @@ def test_flag_unset_keeps_the_default_path(setting, monkeypatch, b7_calls):
     torch.testing.assert_close(results["0"][0], results["1"][0], atol=0, rtol=0)
     for a, b in zip(results["0"][1:], results["1"][1:]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-    assert A.launch_counts() == dict.fromkeys(
+    assert _native.launch_counts() == dict.fromkeys(
         ("window_attention", "stripe_attention", "window_attention_bwd",
          "stripe_attention_bwd", "msda_taps", "masked_attention",
          "masked_attention_bwd", "window_attention_pos_bwd", "msda_taps_bwd"),

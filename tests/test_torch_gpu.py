@@ -33,10 +33,11 @@ shapes and off them (backward tolerances), with its tap masks and, past
 r 5, walking every cell, against itself (same bits), and through the
 autograd function against the plain versions' gradients; B5 and B5b
 also at a rank's H tile (row offsets of the queries and the level map).
-Which kernel ran
+K1 and K1b launched from two threads of a fresh process give the bits of
+a launch alone.  Which kernel ran
 (K1's tensor-core or CUDA-core kernel, B5's and B5b's vector or scalar
-path, B5b's masks or walk) is read from the count each wrapper keeps of
-the variant its C entry reports launching.  The serving kernels' registered
+path, B5b's masks or walk) is read from the count ``ops/_native.py:launch``
+keeps of the variant each C entry reports launching.  The serving kernels' registered
 operators (``nmrf::window_attention``, ``nmrf::stripe_attention``,
 ``nmrf::msda_taps``) pass ``torch.library.opcheck`` in f32 and bf16 and
 equal the plain versions at the forward tolerances; a small model of each
@@ -58,6 +59,7 @@ import torch
 from nmrf_tpu_torch import (build_criterion, build_model, build_optimizer,
                             get_cfg, make_train_step)
 from nmrf_tpu_torch.data import synthetic_batch
+from nmrf_tpu_torch.ops import _native
 from nmrf_tpu_torch.ops import attention as A
 from nmrf_tpu_torch.ops import msda
 
@@ -84,11 +86,11 @@ def test_window_kernel_matches_plain(cuda, dtype, case):
     g = torch.Generator(device=cuda).manual_seed(0)
     qkv = torch.randn(1, Hp, Wp, N, 384, generator=g, device=cuda).to(dtype)
     table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
-    before = A.window_attention.launches
+    before = _native.launch_counts()["window_attention"]
     with torch.inference_mode():
         got = A.window_attention(qkv, table, shift, (ws, ws), 4, cand)
         want = A.window_attention_plain(qkv, table, shift, (ws, ws), 4, cand)
-    assert A.window_attention.launches == before + 1
+    assert _native.launch_counts()["window_attention"] == before + 1
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -100,11 +102,11 @@ def test_stripe_kernel_matches_plain(cuda, dtype, H_sp, W_sp):
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn(1, 47, 156, 4, 64, generator=g, device=cuda).to(dtype)
                for _ in range(3))
-    before = A.stripe_attention.launches
+    before = _native.launch_counts()["stripe_attention"]
     with torch.inference_mode():
         got = A.stripe_attention(q, k, v, H_sp, W_sp, 2)
         want = A.stripe_attention_plain(q, k, v, H_sp, W_sp, 2)
-    assert A.stripe_attention.launches == before + 1
+    assert _native.launch_counts()["stripe_attention"] == before + 1
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -126,10 +128,10 @@ def test_window_bwd_kernel_matches_autograd_of_plain(cuda, dtype, case):
     gout = torch.randn(1, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
     qkv.requires_grad_()
     table.requires_grad_()
-    before = A.window_attention_bwd.launches
+    before = _native.launch_counts()["window_attention_bwd"]
     got = A.window_attention_bwd(gout, qkv.detach(), table.detach(), shift,
                                  (ws, ws), 4, cand)
-    assert A.window_attention_bwd.launches == before + 1
+    assert _native.launch_counts()["window_attention_bwd"] == before + 1
     out = A.window_attention_plain(qkv, table, shift, (ws, ws), 4, cand)
     want = torch.autograd.grad(out, (qkv, table), gout)
     atol, rtol = _GPU_BWD_TOL[dtype]
@@ -149,9 +151,9 @@ def test_stripe_bwd_kernel_matches_autograd_of_plain(cuda, dtype, shape):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, gout = (torch.randn(1, H, W, 4, 64, generator=g, device=cuda)
                      .to(dtype) for _ in range(4))
-    before = A.stripe_attention_bwd.launches
+    before = _native.launch_counts()["stripe_attention_bwd"]
     got = A.stripe_attention_bwd(gout, q, k, v, H_sp, W_sp, 2)
-    assert A.stripe_attention_bwd.launches == before + 1
+    assert _native.launch_counts()["stripe_attention_bwd"] == before + 1
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
     out = A.stripe_attention_plain(*qkv, H_sp, W_sp, 2)
     want = torch.autograd.grad(out, qkv, gout)
@@ -218,13 +220,13 @@ def test_cuda_input_requiring_grad_goes_through_the_kernels(cuda):
     (once each) and gets the plain versions' gradients."""
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(1, 4, 6, 2, 64, generator=g, device=cuda, requires_grad=True)
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     A.stripe_attention(q, q, q, 4, 1, 2).square().sum().backward()
     qkv = torch.randn(1, 8, 8, 1, 384, generator=g, device=cuda,
                       requires_grad=True)
     table = torch.randn(49, 384, generator=g, device=cuda, requires_grad=True)
     A.window_attention(qkv, table, 0, (4, 4), 4, False).square().sum().backward()
-    after = A.launch_counts()
+    after = _native.launch_counts()
     assert {k: after[k] - counts[k] for k in after} == dict(
         dict.fromkeys(after, 1), msda_taps=0, masked_attention=0,
         masked_attention_bwd=0, window_attention_pos_bwd=0, msda_taps_bwd=0)
@@ -258,10 +260,10 @@ def test_train_steps_through_kernels_match_plain(cuda):
         optimizer, scheduler = build_optimizer(model, cfg)
         step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
                                grad_clip=cfg.SOLVER.GRAD_CLIP)
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         losses[use_kernels] = [step(batch) for _ in range(2)]
         want = 2 * 4 if use_kernels else 0
-        assert A.launch_counts() == dict(dict.fromkeys(A.launch_counts(), want),
+        assert _native.launch_counts() == dict(dict.fromkeys(_native.launch_counts(), want),
                                          msda_taps=0, masked_attention=0,
                                          masked_attention_bwd=0,
                                          window_attention_pos_bwd=0,
@@ -288,11 +290,11 @@ def test_msda_taps_kernel_matches_plain(cuda, dtype, f, spread):
     dx, dy = ((torch.rand(2, Hq, Wq, 32, generator=g, device=cuda) * 2 - 1)
               * spread for _ in range(2))
     aw = torch.rand(2, Hq, Wq, 32, generator=g, device=cuda)
-    before = msda.msda_taps.launches
+    before = _native.launch_counts()["msda_taps"]
     with torch.inference_mode():
         got = msda.msda_taps(vmap, dx, dy, aw, 8, 5)
         want = msda.msda_taps_plain(vmap, dx, dy, aw, 8, 5)
-    assert msda.msda_taps.launches == before + 1
+    assert _native.launch_counts()["msda_taps"] == before + 1
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -314,11 +316,11 @@ def test_swin_forward_through_kernels_matches_plain(cuda):
     for use_kernels in (True, False):
         cfg.TPU.USE_PALLAS = use_kernels
         model = build_model(cfg, device=cuda)
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         with torch.inference_mode():
             outs[use_kernels] = model(*imgs)
         want = 4 if use_kernels else 0
-        assert A.launch_counts() == {"window_attention": want,
+        assert _native.launch_counts() == {"window_attention": want,
                                      "stripe_attention": want,
                                      "window_attention_bwd": 0,
                                      "stripe_attention_bwd": 0,
@@ -344,12 +346,12 @@ def _stripe_tile_mask(tile, device):
 def _check_masked_kernels(q, k, v, mask, gout, scale):
     """B6 against its plain version and B6b against autograd through it,
     one launch each."""
-    before = A.launch_counts()
+    before = _native.launch_counts()
     with torch.inference_mode():
         got = A.masked_attention(q, k, v, mask, scale)
         want = A.masked_attention_plain(q, k, v, mask, scale)
     dgot = A.masked_attention_bwd(gout, q, k, v, mask, scale)
-    after = A.launch_counts()
+    after = _native.launch_counts()
     assert after["masked_attention"] == before["masked_attention"] + 1
     assert after["masked_attention_bwd"] == before["masked_attention_bwd"] + 1
     atol, rtol = _GPU_TOL[q.dtype]
@@ -473,9 +475,9 @@ def test_window_pos_bwd_kernel_matches_plain(cuda, dtype, case):
     table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
     gout = torch.randn(2, Hp, Wp, N, 128, generator=g, device=cuda).to(dtype)
     args = (gout, qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
-    before = A.window_attention_pos_bwd.launches
+    before = _native.launch_counts()["window_attention_pos_bwd"]
     got = A.window_attention_pos_bwd(*args)
-    assert A.window_attention_pos_bwd.launches == before + 1
+    assert _native.launch_counts()["window_attention_pos_bwd"] == before + 1
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     atol, rtol = _GPU_BWD_TOL[dtype]
     for a, b in zip(got, A.window_attention_pos_bwd_plain(*args)):
@@ -524,9 +526,9 @@ def test_window_pos_bwd_mma_kernel_batch8_matches_plain(cuda, case):
     gout = torch.randn(8, Hp, Wp, N, 128, generator=g, device=cuda,
                        dtype=torch.bfloat16)
     args = (gout, qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
-    before = A.window_attention_pos_bwd.launches
+    before = _native.launch_counts()["window_attention_pos_bwd"]
     got = A.window_attention_pos_bwd(*args)
-    assert A.window_attention_pos_bwd.launches == before + 1
+    assert _native.launch_counts()["window_attention_pos_bwd"] == before + 1
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
     atol, rtol = _GPU_BWD_TOL[torch.bfloat16]
     for a, b in zip(got, A.window_attention_pos_bwd_plain(*args)):
@@ -545,11 +547,11 @@ def test_stripe_kernel_bf16_serving_and_training_shapes(cuda, batch, shape):
     g = torch.Generator(device=cuda).manual_seed(16)
     q, k, v = (torch.randn(batch, H, W, 4, 64, generator=g, device=cuda,
                            dtype=torch.bfloat16) for _ in range(3))
-    before = A.stripe_attention.launches
+    before = _native.launch_counts()["stripe_attention"]
     with torch.inference_mode():
         got = A.stripe_attention(q, k, v, H_sp, W_sp, 2)
         want = A.stripe_attention_plain(q, k, v, H_sp, W_sp, 2)
-    assert A.stripe_attention.launches == before + 1
+    assert _native.launch_counts()["stripe_attention"] == before + 1
     atol, rtol = _GPU_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -595,10 +597,10 @@ def test_window_attention_grads_through_b7(cuda, monkeypatch, setting):
         with torch.no_grad():
             module.relative_position_enc_table.copy_(table)
         x = qkv.clone().requires_grad_()
-        A.reset_launch_counts()
+        _native.reset_launch_counts()
         (module(x, ws // 2) * R).sum().backward()
         grads[use_kernels] = (x.grad, module.relative_position_enc_table.grad)
-        counts = A.launch_counts()
+        counts = _native.launch_counts()
         assert counts == dict(dict.fromkeys(counts, 0), **(
             {"window_attention": 1, "window_attention_pos_bwd": 1}
             if use_kernels else {}))
@@ -608,13 +610,14 @@ def test_window_attention_grads_through_b7(cuda, monkeypatch, setting):
 
 # ---- K1's tensor-core kernel and B5's vector kernel ---- #
 
-def _ran(wrapper, fn):
-    """fn()'s result and the kernels it launched through ``wrapper``:
-    {variant: launches}, from the count the wrapper keeps of the variant
-    its C entry reports (``wrapper.variants``)."""
-    before = dict(wrapper.variants)
+def _ran(kernel, fn):
+    """fn()'s result and the variants of ``kernel`` it launched:
+    {variant: launches}, from the count ``_native.launch`` keeps of the
+    variant its C entry reports (``_native.variant_counts``)."""
+    before = _native.variant_counts()[kernel]
     out = fn()
-    return out, {k: n - before.get(k, 0) for k, n in wrapper.variants.items()
+    after = _native.variant_counts()[kernel]
+    return out, {k: n - before.get(k, 0) for k, n in after.items()
                  if n != before.get(k, 0)}
 
 
@@ -647,11 +650,11 @@ def test_window_mma_kernel_matches_plain(cuda, case, batch):
                       dtype=torch.bfloat16)
     table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
     args = (qkv, table, shift, (ws, ws), 4, cand, row0, hp_total)
-    before = A.window_attention.launches
+    before = _native.launch_counts()["window_attention"]
     with torch.inference_mode():
-        got, ran = _ran(A.window_attention, lambda: A.window_attention(*args))
+        got, ran = _ran("window_attention", lambda: A.window_attention(*args))
         want = A.window_attention_plain(*args)
-    assert A.window_attention.launches == before + 1
+    assert _native.launch_counts()["window_attention"] == before + 1
     assert ran == {"mma": 1}, ran
     atol, rtol = _GPU_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -672,12 +675,94 @@ def test_window_kernel_outside_the_mma_set(cuda, dtype, case):
     table = 0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g, device=cuda)
     args = (qkv, table, shift, (ws, ws), 4, cand)
     with torch.inference_mode():
-        got, ran = _ran(A.window_attention, lambda: A.window_attention(*args))
+        got, ran = _ran("window_attention", lambda: A.window_attention(*args))
         want = A.window_attention_plain(*args)
     mma = dtype == torch.bfloat16 and ws * ws * N == 144
     assert ran == {"mma" if mma else "cuda_core": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# K1 and K1b from two threads of a fresh process, no kernel yet set up:
+# (Hp, Wp, N, ws, shift, candidate_mask), Refinement first, so that the f32
+# CUDA-core kernels' shared-memory attribute (one per kernel instantiation,
+# both windows) grows at each thread's first Inference launch
+_TWO_THREAD_WINDOWS = [(96, 192, 1, 4, 2, False), (48, 96, 4, 6, 3, True)]
+_TWO_THREAD_ROUNDS = 16
+
+
+def _two_thread_jobs():
+    """[(wrapper name, args)]: K1 and K1b at each window in f32 and bf16,
+    the inputs drawn on the CPU from a seed, so two processes hold the
+    same."""
+    g = torch.Generator().manual_seed(23)
+    jobs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for Hp, Wp, N, ws, shift, cand in _TWO_THREAD_WINDOWS:
+            qkv = torch.randn(1, Hp, Wp, N, 384, generator=g).to("cuda", dtype)
+            table = (0.5 * torch.randn((2 * ws - 1) ** 2, 384, generator=g)).cuda()
+            gout = torch.randn(1, Hp, Wp, N, 128, generator=g).to("cuda", dtype)
+            args = (qkv, table, shift, (ws, ws), 4, cand)
+            jobs += [("window_attention", args), ("window_attention_bwd", (gout,) + args)]
+    return jobs
+
+
+def _run_job(wrapper, args):
+    with torch.inference_mode():
+        out = getattr(A, wrapper)(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _two_thread_worker(rank, want_path):
+    """Two threads, each on its own stream, launch the jobs in turn (one a
+    job ahead of the other) and hold every output to ``want_path``'s."""
+    import sys
+    import threading
+
+    jobs, want = _two_thread_jobs(), torch.load(want_path)
+    torch.cuda.synchronize()
+    _native.reset_launch_counts()
+    bad, errors = [], []
+
+    def run(offset):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for i in range(_TWO_THREAD_ROUNDS):
+                    j = (i + offset) % len(jobs)
+                    got = _run_job(*jobs[j])
+                    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want[j])):
+                        bad.append(j)
+        except Exception as e:  # reported below, from the main thread
+            errors.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and bad == [], (errors, bad)
+    counts = _native.launch_counts()
+    assert counts["window_attention"] == counts["window_attention_bwd"] == _TWO_THREAD_ROUNDS
+
+
+@pytest.mark.gpu
+def test_window_kernels_from_two_threads_match_a_launch_alone(cuda, tmp_path):
+    """K1 and K1b launched alternately at the Refinement and Inference
+    windows, f32 and bf16, from two threads of a fresh process, where the
+    launch set-up of ``csrc/common.cuh`` runs for the first time behind its
+    lock (the f32 kernels' shared-memory attribute growing between the
+    windows), give the bits of a launch alone, and every launch is
+    counted."""
+    want = [tuple(t.cpu() for t in _run_job(*job)) for job in _two_thread_jobs()]
+    torch.save(want, tmp_path / "want.pt")
+    torch.multiprocessing.spawn(_two_thread_worker, args=(str(tmp_path / "want.pt"),),
+                                nprocs=1, join=True)
 
 
 @pytest.mark.gpu
@@ -695,11 +780,11 @@ def test_msda_vector_kernel_at_the_extractor_shapes(cuda, dtype, f):
               for _ in range(2))
     aw = torch.rand(2, Hq, Wq, 32, generator=g, device=cuda)
     assert bool(((dx.abs() > 5) | (dy.abs() > 5)).any())
-    before = msda.msda_taps.launches
+    before = _native.launch_counts()["msda_taps"]
     with torch.inference_mode():
-        got, ran = _ran(msda.msda_taps, lambda: msda.msda_taps(vmap, dx, dy, aw, 8, 5))
+        got, ran = _ran("msda_taps", lambda: msda.msda_taps(vmap, dx, dy, aw, 8, 5))
         want = msda.msda_taps_plain(vmap, dx, dy, aw, 8, 5)
-    assert msda.msda_taps.launches == before + 1
+    assert _native.launch_counts()["msda_taps"] == before + 1
     assert ran == {"vector": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -720,7 +805,7 @@ def test_msda_scalar_kernel_off_the_vector_shapes(cuda, dtype, shape):
               for _ in range(2))
     aw = torch.rand(2, Hq, Wq, M * P, generator=g, device=cuda)
     with torch.inference_mode():
-        got, ran = _ran(msda.msda_taps, lambda: msda.msda_taps(vmap, dx, dy, aw, M, 4))
+        got, ran = _ran("msda_taps", lambda: msda.msda_taps(vmap, dx, dy, aw, M, 4))
         want = msda.msda_taps_plain(vmap, dx, dy, aw, M, 4)
     assert ran == {"scalar": 1}, ran
     atol, rtol = _GPU_TOL[dtype]
@@ -760,9 +845,9 @@ def test_msda_bwd_kernel_at_the_training_shapes(cuda, dtype, f, spread):
     away (beyond the radius and past the borders in the second case), and
     gives the same bits on a second launch."""
     args = _msda_bwd_case(cuda, 30 + f, 16, 96, 192, f, 8, 4, 8, spread, dtype)
-    before = msda.msda_taps_bwd.launches
-    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 5))
-    assert msda.msda_taps_bwd.launches == before + 1
+    before = _native.launch_counts()["msda_taps_bwd"]
+    got, ran = _ran("msda_taps_bwd", lambda: msda.msda_taps_bwd(*args, 8, 5))
+    assert _native.launch_counts()["msda_taps_bwd"] == before + 1
     assert ran == {"vector_masks": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 5), dtype)
     for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 5)):
@@ -779,7 +864,7 @@ def test_msda_bwd_kernel_more_seeds_near_the_borders(cuda, f, seed):
     left border on the card alone (``nmrf_tpu_torch/tools/walk_probe.py``);
     each seed puts a different set of bits on that edge."""
     args = _msda_bwd_case(cuda, seed, 16, 96, 192, f, 8, 4, 8, 8.0, torch.float32)
-    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 5))
+    got, ran = _ran("msda_taps_bwd", lambda: msda.msda_taps_bwd(*args, 8, 5))
     assert ran == {"vector_masks": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 5), torch.float32)
 
@@ -792,7 +877,7 @@ def test_msda_bwd_kernel_past_the_mask_radius(cuda, dtype, f):
     base cell (the vector path's walk kernel) at the training shapes, and
     matches its plain version and itself."""
     args = _msda_bwd_case(cuda, 50 + f, 16, 96, 192, f, 8, 4, 8, 8.0, dtype)
-    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, 8, 6))
+    got, ran = _ran("msda_taps_bwd", lambda: msda.msda_taps_bwd(*args, 8, 6))
     assert ran == {"vector_walk": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, 8, 6), dtype)
     for a, b in zip(got, msda.msda_taps_bwd(*args, 8, 6)):
@@ -837,7 +922,7 @@ def test_msda_kernels_on_a_tile(cuda, dtype, tile, r):
         got.float(), msda.msda_taps_plain(vmap, dx, dy, aw, M, r, *offsets).float(),
         atol=atol, rtol=rtol)
     args = (vmap, dx, dy, aw, gout, M, r, *offsets)
-    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args))
+    got, ran = _ran("msda_taps_bwd", lambda: msda.msda_taps_bwd(*args))
     assert ran == {"vector_masks" if r <= 5 else "vector_walk": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args), dtype)
     for a, b in zip(got, msda.msda_taps_bwd(*args)):
@@ -855,7 +940,7 @@ def test_msda_bwd_kernel_off_the_training_shapes(cuda, dtype, shape, r):
     r and past the borders; with the masks at r 4 and walking at r 6."""
     M, P, D = shape
     args = _msda_bwd_case(cuda, 40, 2, 27, 33, 3, M, P, D, 7.0, dtype)
-    got, ran = _ran(msda.msda_taps_bwd, lambda: msda.msda_taps_bwd(*args, M, r))
+    got, ran = _ran("msda_taps_bwd", lambda: msda.msda_taps_bwd(*args, M, r))
     assert ran == {"scalar_masks" if r <= 5 else "scalar_walk": 1}, ran
     _check_msda_bwd(got, msda.msda_taps_bwd_plain(*args, M, r), dtype)
 
@@ -882,10 +967,10 @@ def test_tap_level_gradients_through_the_kernels(cuda):
     grads = {}
     for use_kernels in (True, False):
         inputs = [t.clone().requires_grad_() for t in (value, locs, w)]
-        before = A.launch_counts()
+        before = _native.launch_counts()
         msda.ms_deform_attn_taps(inputs[0], levels, inputs[1], inputs[2],
                                  (Hq, Wq), 5, use_kernels).backward(cot)
-        after = A.launch_counts()
+        after = _native.launch_counts()
         want = 2 if use_kernels else 0
         assert after["msda_taps"] - before["msda_taps"] == want
         assert after["msda_taps_bwd"] - before["msda_taps_bwd"] == want
@@ -966,16 +1051,16 @@ def _sharded_small_worker(rank, out_dir, data, spatial):
     model = build_model(cfg, mesh=mesh)
     batch = synthetic_batch(2, 96, 64, 48, seed=0)
     img1, img2 = (torch.from_numpy(batch[k]).to(mesh.device) for k in ("img1", "img2"))
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     got = make_sharded_forward(model, mesh)(img1, img2)
-    fwd_counts = A.launch_counts()
+    fwd_counts = _native.launch_counts()
     model.train()
     local = shard_batch(batch, mesh)
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     loss = build_criterion(cfg)(spatial_sharded_apply(
         model, mesh, local["img1"], local["img2"]), local)["total"]
     loss.backward()
-    step_counts = A.launch_counts()
+    step_counts = _native.launch_counts()
     result = {"fwd": fwd_counts, "step": step_counts, "loss": float(loss.detach())}
     if rank == 0:
         ref = build_model(cfg, device=mesh.device)
@@ -996,7 +1081,7 @@ def _check_sharded_small(tmp_path, world):
     backward; the outputs and the loss of the unsharded model."""
     import json
 
-    fwd = dict.fromkeys(A.launch_counts(), 0)
+    fwd = dict.fromkeys(_native.launch_counts(), 0)
     fwd.update(window_attention=4, stripe_attention=2, masked_attention=2)
     step = dict(fwd, window_attention_bwd=4, stripe_attention_bwd=2,
                 masked_attention_bwd=2)
@@ -1102,10 +1187,10 @@ def test_exported_artifact_runs_the_kernels(cuda, swin, tmp_path):
     rng = np.random.RandomState(1)
     a, b = (torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32))
             .to(cuda) for _ in range(2))
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     with torch.no_grad():
         got = module(a, b)
-    counts = A.launch_counts()
+    counts = _native.launch_counts()
     assert {k: counts[k] for k in nodes} == nodes
     with torch.no_grad():
         want = model(a, b)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from nmrf_tpu.ops import msda as msda_jax
-from nmrf_tpu_torch.ops import attention as A
+from nmrf_tpu_torch.ops import _native
 from nmrf_tpu_torch.ops import msda
 
 TOL = dict(atol=2e-5, rtol=1e-5)
@@ -157,13 +157,13 @@ def test_tap_out_of_range_fraction_matches_jax(max_off):
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_no_launch():
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     rng = np.random.RandomState(8)
     vmap, dx, dy, aw = (_t(x) for x in _tap_case(rng, 2, 2))
     got = msda.msda_taps(vmap, dx, dy, aw, 2, 2)
     want = msda.msda_taps_plain(vmap, dx, dy, aw, 2, 2)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert A.launch_counts()["msda_taps"] == 0
+    assert _native.launch_counts()["msda_taps"] == 0
     with pytest.raises(ValueError, match="whole"):
         msda.msda_taps(vmap[:, :, :5], dx, dy, aw, 2, 2)
     with pytest.raises(TypeError, match="float32"):

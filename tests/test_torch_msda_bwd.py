@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from nmrf_tpu.ops import msda as msda_jax
-from nmrf_tpu_torch.ops import attention as A
+from nmrf_tpu_torch.ops import _native
 from nmrf_tpu_torch.ops import msda
 
 from .test_torch_swin_train import few_threads  # noqa: F401
@@ -150,14 +150,14 @@ def test_serving_calls_the_forward_alone(monkeypatch):
 
 
 def test_cpu_bwd_wrapper_takes_the_plain_version_and_counts_no_launch():
-    A.reset_launch_counts()
+    _native.reset_launch_counts()
     rng = np.random.RandomState(5)
     vmap, dx, dy, aw, g = (_t(x) for x in _case(rng, 2, 2))
     got = msda.msda_taps_bwd(vmap, dx, dy, aw, g, 2, 2)
     want = msda.msda_taps_bwd_plain(vmap, dx, dy, aw, g, 2, 2)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
-    assert A.launch_counts()["msda_taps_bwd"] == 0
+    assert _native.launch_counts()["msda_taps_bwd"] == 0
     with pytest.raises(ValueError, match="g must be"):
         msda.msda_taps_bwd(vmap, dx, dy, aw, g[:, :4], 2, 2)
     with pytest.raises(TypeError, match="g must be"):
