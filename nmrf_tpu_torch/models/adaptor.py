@@ -31,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.constants import device_constant
 from ..ops.msda import (ms_deform_attn, ms_deform_attn_taps,
                         tap_out_of_range_fractions)
 from ..parallel.spatial import all_gather_h, halo_exchange_h
+from . import graphs
 from .layers import (GELU, Conv2d, DropPath, LayerNorm, Linear,
                      instance_norm, to_dtype)
 from .swin import SwinTransformer
@@ -98,8 +100,9 @@ class MSDeformAttn(nn.Module):
         offsets = self.sampling_offsets(q).reshape(B, Lq, M, L, P, 2)
         weights = torch.softmax(
             self.attention_weights(q).reshape(B, Lq, M, L * P), dim=-1)
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=torch.float32, device=q.device)
+        normalizer = device_constant(
+            _level_sizes, (tuple(tuple(s) for s in spatial_shapes),),
+            q.device, torch.float32)
         locations = (reference_points[:, :, None, :, None, :]
                      + offsets / normalizer[None, None, None, :, None, :])
         return locations, weights.reshape(B, Lq, M, L, P)
@@ -272,10 +275,21 @@ class ConvStem(nn.Module):
         return x.reshape(B, H * W, C)
 
 
+def _level_sizes(spatial_shapes):
+    return [[w, h] for h, w in spatial_shapes]
+
+
 def get_reference_points(spatial_shapes, device=None, rows=None):
     """Pixel-centre reference grid in [0, 1], [1, sum H*W, 1, 2] (x, y)
     (reference ``adaptor_modules.py:10-22``); ``rows`` (r0, n): only the
     global rows r0 .. r0 + n - 1 of each level (an H tile's)."""
+    return device_constant(
+        _reference_points, (tuple(tuple(s) for s in spatial_shapes),
+                            None if rows is None else tuple(rows)),
+        device or "cpu")[None, :, None]
+
+
+def _reference_points(spatial_shapes, rows):
     pts = []
     for H, W in spatial_shapes:
         ry, rx = np.meshgrid(np.linspace(0.5, H - 0.5, H) / H,
@@ -283,8 +297,7 @@ def get_reference_points(spatial_shapes, device=None, rows=None):
         if rows is not None:
             ry, rx = ry[rows[0]:rows[0] + rows[1]], rx[rows[0]:rows[0] + rows[1]]
         pts.append(np.stack([rx.reshape(-1), ry.reshape(-1)], -1))
-    pts = np.concatenate(pts, 0).astype(np.float32)
-    return torch.as_tensor(pts, device=device)[None, :, None]
+    return np.concatenate(pts, 0).astype(np.float32)
 
 
 class DeformNeck(nn.Module):
@@ -340,6 +353,11 @@ IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
 
 
+def _imagenet(stat):
+    return {"mean": IMAGENET_MEAN, "std": IMAGENET_STD,
+            "inv_std": 1.0 / IMAGENET_STD}[stat]
+
+
 class SwinAdaptor(nn.Module):
     """Swin-T + DeformNeck backbone (reference ``backbone.py:101-158``).
     Input [B, H, W, 3] in 0..255, ImageNet-normalized out of place (in bf16
@@ -361,13 +379,18 @@ class SwinAdaptor(nn.Module):
                                gelu_approx=gelu_approx, dtype=dtype,
                                spatial=spatial)
 
-    def forward(self, x):
-        mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+    def forward(self, x, replay=None):
+        """``replay``: the forward's ``graphs.Segments`` on the graph path,
+        which replays :meth:`features` and returns fresh copies."""
+        return graphs.call(replay, "backbone", self.features, x)
+
+    def features(self, x):
+        mean = device_constant(_imagenet, ("mean",), x.device)
         if self.dtype is not None:
-            inv_std = torch.as_tensor(1.0 / IMAGENET_STD, device=x.device)
+            inv_std = device_constant(_imagenet, ("inv_std",), x.device)
             x = (x.to(self.dtype) - mean.to(self.dtype)) * inv_std.to(self.dtype)
         else:
-            x = (x - mean) / torch.as_tensor(IMAGENET_STD, device=x.device)
+            x = (x - mean) / device_constant(_imagenet, ("std",), x.device)
         out = self.neck(x, self.backbone(x))
         pooled = F.avg_pool2d(out.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
         return [out, pooled]

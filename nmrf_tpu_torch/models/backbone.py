@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import graphs
 from .layers import Conv2d, instance_norm
 
 
@@ -80,7 +81,12 @@ class Backbone(nn.Module):
                                     ResidualBlock(128, 128, **block))
         self.conv2 = Conv2d(128, output_dim, 1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, replay=None):
+        """``replay``: the forward's ``graphs.Segments`` on the graph path,
+        which replays :meth:`features` and returns fresh copies."""
+        return graphs.call(replay, "backbone", self.features, x)
+
+    def features(self, x):
         if self.dtype is not None:
             dt = self.dtype
             x = x.to(dt) * torch.tensor(2.0 / 255.0, dtype=dt) \

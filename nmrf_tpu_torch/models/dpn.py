@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.nms import nms_topk_seeds
+from . import graphs
 from .layers import Conv1d, ConvINReluConv, MLPBlock
 from .stages import Propagation
 
@@ -40,9 +41,14 @@ class DPN(nn.Module):
             normalize_before, use_kernels, dtype, remat, spatial)
         self.prop_head = MLPBlock(prop_embed_dim, prop_embed_dim, 1, 3)
 
-    def forward(self, cost_volume, fmap1):
+    def forward(self, cost_volume, fmap1, replay=None):
         """cost_volume: [B, H, W, G, D]; fmap1: 1/8-res left features.
-        Returns (prob [M, D], label_seeds [M, N], labels [1, M, N])."""
+        Returns (prob [M, D], label_seeds [M, N], labels [1, M, N]).
+        ``replay``: the forward's ``graphs.Segments`` on the graph path,
+        which replays :meth:`propose` and returns fresh copies."""
+        return graphs.call(replay, "dpn", self.propose, cost_volume, fmap1)
+
+    def propose(self, cost_volume, fmap1):
         B, H, W, G, D = cost_volume.shape
         flat = cost_volume.reshape(B * H * W, G, D)
         cost = self.mlp(flat).squeeze(1).float()

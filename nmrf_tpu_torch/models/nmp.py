@@ -158,13 +158,20 @@ class SwinNMP(nn.Module):
 
     def forward(self, label_rep, abs_encoding, shift):
         """label_rep: [B, H, W, N, C]; abs_encoding: [B, H, W, N, C']."""
-        shortcut = label_rep
+        return self.attn_output(label_rep, self.attn(
+            self.attn_input(label_rep, abs_encoding), shift))
+
+    def attn_input(self, label_rep, abs_encoding):
+        """The window attention's input: qkv [B, H, W, N, 3C]."""
         x = self.norm1(label_rep) if self.normalize_before else label_rep
         if self.dtype is not None:
             abs_encoding = abs_encoding.to(self.dtype)
         x = torch.cat([x.to(abs_encoding.dtype), abs_encoding], dim=-1)
-        msg = self.proj(self.attn(self.qkv(x), shift))
-        x = shortcut + msg
+        return self.qkv(x)
+
+    def attn_output(self, label_rep, attended):
+        """The block's output from its input and the window attention's."""
+        x = label_rep + self.proj(attended)
         if self.normalize_before:
             return x + self.mlp(self.norm2(x))
         x = self.norm1(x)

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.encodings import fourier_coord_embed
 from ..ops.sampling import disp_warp, sample_cost
+from . import graphs
 from .layers import GELU, LayerNorm, Linear, Mlp
 from .nmp import BasicAttention, CSWinNMP, SwinNMP
 
@@ -114,10 +115,19 @@ class InferenceLayer(nn.Module):
                            dtype=dtype, spatial=spatial)
 
     def forward(self, tgt, abs_encoding, shift):
+        return self.nmp(self._self_edges(tgt, abs_encoding), abs_encoding,
+                        shift)
+
+    def _self_edges(self, tgt, abs_encoding):
         B, H, W, N, C = tgt.shape
         x = self.self_nmp(tgt.reshape(B * H * W, N, C),
                           abs_encoding.reshape(B * H * W, N, -1))
-        return self.nmp(x.reshape(B, H, W, N, C), abs_encoding, shift)
+        return x.reshape(B, H, W, N, C)
+
+    def attn_input(self, tgt, abs_encoding):
+        """(the Swin block's input, its window attention's qkv)."""
+        x = self._self_edges(tgt, abs_encoding)
+        return x, self.nmp.attn_input(x, abs_encoding)
 
 
 class RefinementLayer(nn.Module):
@@ -135,10 +145,17 @@ class RefinementLayer(nn.Module):
     def forward(self, tgt, abs_encoding, shift):
         return self.nmp(tgt, abs_encoding, shift)
 
+    def attn_input(self, tgt, abs_encoding):
+        """(the Swin block's input, its window attention's qkv)."""
+        return tgt, self.nmp.attn_input(tgt, abs_encoding)
+
 
 class _NMPStage(nn.Module):
     """Shared embedding, window padding and layer loop of Inference and
-    Refinement (``stages.py:_NMPStage``)."""
+    Refinement (``stages.py:_NMPStage``).  In eval mode every layer's
+    ``WindowAttention`` is a module call and the rest runs as the chains
+    between those calls, which replay from graphs on the graph path
+    (:meth:`_run_layers`)."""
 
     layer_cls = None
 
@@ -175,11 +192,9 @@ class _NMPStage(nn.Module):
         feat = torch.cat([f1, warped, corr.to(f1.dtype)], dim=-1)
         return self.ffn(feat)
 
-    def _run_layers(self, label_rep, abs_encoding):
-        """Centered window padding, layers with shifts 0 and ws//2
-        alternating, crop, norm.  -> [1, B, H, W, N, C] f32, or
-        [L, B, H, W, N, C] in train mode with ``return_intermediate``."""
-        B, H, W, N, C = label_rep.shape
+    def _pads(self, H, W):
+        """The centered window padding (top, bottom, left, right) of an H x
+        W map."""
         ws = self.window_size
         H_pad = (ws - H % ws) % ws
         W_pad = (ws - W % ws) % ws
@@ -188,20 +203,79 @@ class _NMPStage(nn.Module):
         assert self.spatial is None or H_pad == 0, (
             f"spatial sharding needs the tile height {H} to be a multiple of "
             f"the window {ws}")
-        tp, lp = H_pad // 2, W_pad // 2
-        if H_pad or W_pad:
-            pad = (0, 0, 0, 0, lp, W_pad - lp, tp, H_pad - tp)
+        return H_pad // 2, H_pad - H_pad // 2, W_pad // 2, W_pad - W_pad // 2
+
+    def _padded(self, pads, label_rep, abs_encoding):
+        tp, bp, lp, rp = pads
+        if tp or bp or lp or rp:
+            pad = (0, 0, 0, 0, lp, rp, tp, bp)
             label_rep = F.pad(label_rep, pad)
             abs_encoding = F.pad(abs_encoding, pad)
-        intermediate = self.training and self.return_intermediate
-        x, ys = label_rep, []
+        return label_rep, abs_encoding
+
+    def _cropped_norm(self, pads, x):
+        """x [L, B, Hp, Wp, N, C] -> the map's own H x W, normalized."""
+        tp, bp, lp, rp = pads
+        return self.norm(x[:, :, tp:x.shape[2] - bp, lp:x.shape[3] - rp])
+
+    def _shift(self, i):
+        return 0 if i % 2 == 0 else self.window_size // 2
+
+    def _run_layers(self, replay, *inputs):
+        """Centered window padding of ``_tokens(*inputs)`` (label_rep,
+        abs_encoding), layers with shifts 0 and ws//2 alternating, crop,
+        norm.  -> [1, B, H, W, N, C] f32, or [L, B, H, W, N, C] in train
+        mode with ``return_intermediate``.
+
+        In train mode each layer is a module call (with ``remat`` a
+        checkpoint of it).  In eval mode the stage runs each layer's pieces,
+        its ``attn_input``, its ``WindowAttention`` call and its
+        ``attn_output``, which its own forward composes: ``<stage>.0`` from
+        ``inputs`` to layer 0's qkv, ``<stage>.i`` from layer i - 1's window
+        attention to layer i's qkv, ``<stage>.norm`` from the last to the
+        normalized output.  On the graph path (``replay``, the forward's
+        ``graphs.Segments``) each of these replays from a graph, each
+        window attention is called on a fresh copy of its qkv, and the
+        output is a fresh tensor."""
+        pads = self._pads(*inputs[0].shape[1:3])
+        if self.training:
+            x, abs_encoding = self._padded(pads, *self._tokens(*inputs))
+            ys = []
+            for i, layer in enumerate(self.layers):
+                x = _run(layer, self.remat, x, abs_encoding, self._shift(i))
+                if self.return_intermediate:
+                    ys.append(x)
+            x = torch.stack(ys) if self.return_intermediate else x[None]
+            return self._cropped_norm(pads, x)
+
+        tag = type(self).__name__.lower()
+
+        def first(*inputs):
+            x, abs_encoding = self._padded(pads, *self._tokens(*inputs))
+            return (abs_encoding, *self.layers[0].attn_input(x, abs_encoding))
+
+        def between(prev, layer):
+            def chain(x, attended, abs_encoding):
+                return layer.attn_input(prev.nmp.attn_output(x, attended),
+                                        abs_encoding)
+            return chain
+
+        def last(prev):
+            def chain(x, attended):
+                return self._cropped_norm(
+                    pads, prev.nmp.attn_output(x, attended)[None])
+            return chain
+
+        abs_encoding, x, qkv = graphs.run(replay, f"{tag}.0", first, *inputs)
         for i, layer in enumerate(self.layers):
-            x = _run(layer, self.remat, x, abs_encoding,
-                     0 if i % 2 == 0 else ws // 2)
-            if intermediate:
-                ys.append(x)
-        x = torch.stack(ys) if intermediate else x[None]
-        return self.norm(x[:, :, tp:tp + H, lp:lp + W])
+            if replay is not None:
+                qkv = graphs.fresh(qkv)
+            attended = layer.nmp.attn(qkv, self._shift(i))
+            if i + 1 < len(self.layers):
+                x, qkv = graphs.run(replay, f"{tag}.{i + 1}",
+                                    between(layer, self.layers[i + 1]), x,
+                                    attended, abs_encoding)
+        return graphs.call(replay, f"{tag}.norm", last(layer), x, attended)
 
 
 class Inference(_NMPStage):
@@ -210,14 +284,18 @@ class Inference(_NMPStage):
 
     layer_cls = InferenceLayer
 
-    def forward(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw):
+    def forward(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw, replay=None):
         """labels: [B, H, W, N] candidate disparities -> [L or 1, B, H, W,
-        N, C]."""
+        N, C].  ``replay``: the forward's ``graphs.Segments`` on the graph
+        path."""
+        return self._run_layers(replay, labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
+
+    def _tokens(self, labels, fmap1, fmap2, fmap1_gw, fmap2_gw):
         labels = labels.float()
         label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
         abs_enc = fourier_coord_embed(labels[..., None], 15,
                                       normalizer=3.14 / 64)
-        return self._run_layers(label_rep, abs_enc)
+        return label_rep, abs_enc
 
 
 class Refinement(_NMPStage):
@@ -226,10 +304,15 @@ class Refinement(_NMPStage):
 
     layer_cls = RefinementLayer
 
-    def forward(self, disp, fmap1, fmap2, fmap1_gw, fmap2_gw):
-        """disp: [B, H, W] -> [L or 1, B, H, W, C]."""
+    def forward(self, disp, fmap1, fmap2, fmap1_gw, fmap2_gw, replay=None):
+        """disp: [B, H, W] -> [L or 1, B, H, W, C].  ``replay``: the
+        forward's ``graphs.Segments`` on the graph path."""
+        return self._run_layers(replay, disp, fmap1, fmap2, fmap1_gw,
+                                fmap2_gw).squeeze(-2)
+
+    def _tokens(self, disp, fmap1, fmap2, fmap1_gw, fmap2_gw):
         labels = disp.float()[..., None]
         label_rep = self._embed(labels, fmap1, fmap2, fmap1_gw, fmap2_gw)
         abs_enc = fourier_coord_embed(labels[..., None], 15,
                                       normalizer=3.14 / 128)
-        return self._run_layers(label_rep, abs_enc).squeeze(-2)
+        return label_rep, abs_enc

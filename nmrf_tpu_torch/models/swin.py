@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import relative_position_index
+from ..ops.constants import device_constant
 from ..parallel.spatial import all_gather_h, halo_exchange_h
 from .layers import GELU, Conv2d, DropPath, LayerNorm, Linear, Mlp, to_dtype
 
@@ -117,8 +118,8 @@ class WindowAttention(nn.Module):
         q, k, v = qkv[0] * hd ** -0.5, qkv[1], qkv[2]
         attn = q @ k.transpose(-2, -1)
         ws = self.window_size
-        idx = torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
-                              device=x.device)
+        idx = device_constant(relative_position_index, (ws, ws),
+                              x.device).reshape(-1)
         bias = self.relative_position_bias_table[idx].reshape(N, N, h)
         attn = attn.float() + bias.permute(2, 0, 1)[None]
         if mask is not None:
@@ -162,7 +163,7 @@ class SwinBlock(nn.Module):
         mask = None
         if s > 0:
             x = torch.roll(x, (-s, -s), dims=(1, 2))
-            mask = torch.as_tensor(swin_shift_mask(Hp, Wp, ws, s), device=x.device)
+            mask = device_constant(swin_shift_mask, (Hp, Wp, ws, s), x.device)
         xw = x.reshape(B, Hp // ws, ws, Wp // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
         a = self.attn(xw.reshape(-1, ws * ws, C), mask)
         x = a.reshape(B, Hp // ws, Wp // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)

@@ -10,9 +10,11 @@ one ``nvcc`` process per source.
 
 Every wrapper launches its kernel through :func:`launch`, which also counts
 the launches by kernel name (:func:`launch_counts`, :func:`variant_counts`,
-:func:`reset_launch_counts`).
+:func:`reset_launch_counts`); :func:`recording` and :func:`add_counts` let
+a CUDA graph count the kernels it replays (``models/graphs.py``).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,6 +63,7 @@ _SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
+_recorder = threading.local()  # .record: the thread's recording()
 _loaded = {}
 # launches of each kernel, and of K1, B5 and B5b by the variant their entry
 # reported, since the last ``reset_launch_counts``
@@ -150,18 +153,41 @@ def launch(name, *args, variants=None):
     err = library(name)(*args, torch.cuda.current_stream().cuda_stream, *tail)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    with _lock:
-        _launches[name] += 1
-        if variants is not None:
-            _count_variant(name, variants, code.value)
+    _count(name, variants, code.value)
 
 
-def _count_variant(name, variants, code):
-    variant = variants.get(code)
-    if variant is None:
-        raise RuntimeError(f"{name}: the kernel reported no known variant "
-                           f"({code})")
-    _variants[name][variant] = _variants[name].get(variant, 0) + 1
+def _count(name, variants=None, code=None):
+    """Count one launch of ``name`` (and of the variant that ``code`` names
+    in ``variants``) in the calling thread's :func:`recording`, or else in
+    the process's counts."""
+    keys = [name]
+    if variants is not None:
+        variant = variants.get(code)
+        if variant is None:
+            raise RuntimeError(f"{name}: the kernel reported no known "
+                               f"variant ({code})")
+        keys.append((name, variant))
+    record = getattr(_recorder, "record", None)
+    if record is not None:
+        for key in keys:
+            record[key] = record.get(key, 0) + 1
+        return
+    add_counts(dict.fromkeys(keys, 1))
+
+
+@contextlib.contextmanager
+def recording():
+    """A ``with`` block whose launches, made by the calling thread, are
+    counted in the dict it gives ({name or (name, variant): launches}) and
+    not in the process's counts: the launches of a CUDA graph's warm-up and
+    capture, made on one thread, for :func:`add_counts` at each replay.
+    Launches by other threads meanwhile count as ever."""
+    outer = getattr(_recorder, "record", None)
+    _recorder.record = record = {}
+    try:
+        yield record
+    finally:
+        _recorder.record = outer
 
 
 def reset_launch_counts():
@@ -177,6 +203,20 @@ def launch_counts():
     """{kernel name: launches since the last reset}."""
     with _lock:
         return dict(_launches)
+
+
+def add_counts(delta, times=1):
+    """Add ``times`` x ``delta`` ({name or (name, variant): launches}, as
+    :func:`recording` keys them) to the counts: a CUDA graph's replay
+    counts the port's kernels recorded at its capture."""
+    with _lock:
+        for key, n in delta.items():
+            if isinstance(key, tuple):
+                name, variant = key
+                _variants[name][variant] = (_variants[name].get(variant, 0)
+                                            + times * n)
+            else:
+                _launches[key] += times * n
 
 
 def variant_counts():

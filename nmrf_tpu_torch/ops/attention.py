@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import _native, library
+from .constants import device_constant
 
 NEG_INF = -1e9  # finite -inf stand-in, softmax-safe
 _DTYPE_CODES = _native.DTYPE_CODES
@@ -163,9 +164,8 @@ def _window_merge(x, shape, window):
 
 
 def _window_index(window, device):
-    wh, ww = window
-    return torch.as_tensor(relative_position_index(wh, ww).reshape(-1),
-                           device=device)
+    return device_constant(relative_position_index, tuple(window),
+                           device).reshape(-1)
 
 
 @lru_cache(maxsize=16)
@@ -207,10 +207,10 @@ def _window_probs(q, k, qe, ke, shape, window, shift, candidate_mask, row0,
     qr = torch.einsum("ghpnc,pshc->ghpns", q5, ke) * scale
     kr = torch.einsum("ghsmc,pshc->ghpsm", k5, qe) * scale
     logits = logits.reshape(G, h, P, N, P, N) + qr[..., None] + kr[:, :, :, None]
-    mask = torch.as_tensor(
-        _window_mask(Hp, Wp, *window, N, int(shift), bool(candidate_mask),
-                     int(row0), None if hp_total is None else int(hp_total)),
-        device=q.device)
+    mask = device_constant(
+        _window_mask, (Hp, Wp, *window, N, int(shift), bool(candidate_mask),
+                       int(row0), None if hp_total is None else int(hp_total)),
+        q.device)
     logits = logits.reshape(B, -1, h, T, T) + mask[None, :, None]
     return torch.softmax(logits.reshape(G, h, T, T), dim=-1)
 
@@ -555,7 +555,7 @@ def _stripe_merge(t, shape, H_sp, W_sp):
 def _stripe_probs(qs, ks, N):
     """Softmax of scale q.k + the anti-same-pixel mask, q pre-scaled."""
     T = qs.shape[2]
-    mask = torch.as_tensor(stripe_mask(T, N), device=qs.device)
+    mask = device_constant(stripe_mask, (T, N), qs.device)
     return torch.softmax(qs @ ks.transpose(-1, -2) + mask, dim=-1)
 
 

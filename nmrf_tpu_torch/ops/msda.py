@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _native, library
+from .constants import device_constant
 from .sampling import grid_sample_2d
 
 
@@ -71,6 +72,10 @@ def base_plus_one(n, f, q0=0):
     return ((2 * q + 1 + f) // (2 * f)).astype(np.int32)
 
 
+def _base_cells(n, f, q0):
+    return base_plus_one(n, f, q0) - 1
+
+
 def tap_level_inputs(locations_l, weights_l, spatial_shape, query_shape,
                      q0=0):
     """Displacements in level pixels relative to each query's base cell.
@@ -88,10 +93,8 @@ def tap_level_inputs(locations_l, weights_l, spatial_shape, query_shape,
     f = Wq // Wl
     assert Wq == Wl * f and q0 + Hq <= Hl * f, (query_shape, q0, spatial_shape)
     dev = locations_l.device
-    base_x = torch.as_tensor(base_plus_one(Wq, f) - 1, dtype=torch.float32,
-                             device=dev)
-    base_y = torch.as_tensor(base_plus_one(Hq, f, q0) - 1, dtype=torch.float32,
-                             device=dev)
+    base_x = device_constant(_base_cells, (Wq, f, 0), dev, torch.float32)
+    base_y = device_constant(_base_cells, (Hq, f, q0), dev, torch.float32)
     loc = locations_l.reshape(B, Hq, Wq, M * P, 2).float()
     dx = loc[..., 0] * Wl - 0.5 - base_x[None, None, :, None]
     dy = loc[..., 1] * Hl - 0.5 - base_y[None, :, None, None]
@@ -133,9 +136,15 @@ def _halo_map(value_map, f, r, Hq, q0=0, v0=0, Hg=None):
     level map)."""
     B, Hl, Wl, MD = value_map.shape
     vpad = F.pad(value_map, (0, 0, r + 1, r + 1, r + 1, r + 1))
-    iy, ix = _halo_index_maps(Hq, Wl * f, f, r, q0, v0, Hl, Hg)
+    args = (Hq, Wl * f, f, r, q0, v0, Hl, Hg)
     dev = value_map.device
-    return vpad[:, torch.as_tensor(iy, device=dev)][:, :, torch.as_tensor(ix, device=dev)]
+    iy = device_constant(_halo_index_map, (0, *args), dev)
+    ix = device_constant(_halo_index_map, (1, *args), dev)
+    return vpad[:, iy][:, :, ix]
+
+
+def _halo_index_map(axis, *args):
+    return _halo_index_maps(*args)[axis]
 
 
 def _msda_shapes(value_map, dx, dy, aw, num_heads, radius, q0=0, v0=0,

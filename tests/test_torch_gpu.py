@@ -47,7 +47,8 @@ bit for bit.  ``predict`` on the card allocates a pinned staging buffer
 only for a new frame shape or dtype, and hands the model the CPU path's
 input bit for bit.  RAFT-Stereo's update loop replays its CUDA graphs with
 the eager loop's bits in every tensor its hooks see, captured once a
-shape.
+shape; so does NMRF's served forward (resnet and swin at 375x1242), which
+launches the port's kernels as often as the eager forward.
 """
 
 from pathlib import Path
@@ -1329,3 +1330,79 @@ def test_raft_update_loop_replays_graphs_to_the_bit(cuda, dtype):
     assert opened(lambda: predict(model, *other)) == 1
     assert opened(lambda: predict(model, *other)) == 0
     assert len(model.update_graphs) == 3
+
+
+# ---- NMRF's forward from CUDA graphs ---- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["resnet", "swin"])
+def test_nmrf_forward_replays_graphs_to_the_bit(cuda, variant):
+    """``predict`` at 375x1242 with the served configuration (bf16, the
+    tanh GELU, the kernels; swin at tap radius 5) and the benchmark's
+    forward hooks (``benchmark/traffic/serve_stream.py:_hooks``): three
+    requests open ``nmrf::graph_capture`` on the first only; each equals a
+    request while another call holds the graphs (the eager forward) in the
+    disparity and every hooked tensor, to the bit, and counts each of the
+    port's kernels as often (10 K1, 10 K2 and, swin, 4 B5 a request; the
+    capturing request too: a graph's warm-up and capture count none); the
+    first request's tensors are unchanged after the others."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmrf_tpu_torch import predict
+
+    cfg = get_cfg()
+    if variant == "swin":
+        cfg.merge_from_file(str(Path(__file__).resolve().parent.parent
+                                / "configs" / "sceneflow_swint.yaml"))
+        cfg.TPU.MSDA_TAP_RADIUS = 5
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.TPU.GELU_APPROX = True
+    cfg.TPU.USE_PALLAS = True
+    model = build_model(cfg, device=cuda)
+    kept = []
+
+    def hook(key, pick):
+        def fn(module, args, out):
+            kept[-1][key] = pick(out)
+        return fn
+
+    model.backbone.register_forward_hook(hook("features", lambda o: o[1]))
+    model.inference.register_forward_hook(hook("inference", lambda o: o[0]))
+    model.infer_head.register_forward_hook(hook("head", lambda o: o[-1]))
+    model.infer_score_head.register_forward_hook(hook("score",
+                                                      lambda o: o[-1]))
+    model.refinement.register_forward_hook(hook("refinement", lambda o: o[0]))
+    for key in ("prob", "proposal", "disp"):
+        model.register_forward_hook(hook(key, lambda o, key=key: o[key]))
+
+    def request(pair):
+        kept.append({})
+        _native.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            kept[-1]["result"] = torch.from_numpy(predict(model, *pair))
+        kept[-1]["launches"] = {k: n for k, n in
+                                _native.launch_counts().items() if n}
+        return sum(e.name == "nmrf::graph_capture" for e in prof.events())
+
+    rng = np.random.RandomState(11)
+    pair = [rng.randint(0, 256, (375, 1242, 3)).astype(np.uint8)
+            for _ in range(2)]
+    with model.forward_graphs.hold("another call", object):
+        assert request(pair) == 0
+        assert request(pair) == 0
+    eager = kept.pop()
+    kept.clear()
+    assert eager["launches"] == {"window_attention": 10,
+                                 "stripe_attention": 10,
+                                 **({"msda_taps": 4} if variant == "swin"
+                                    else {})}
+    opened = [request(pair) for _ in range(3)]
+    assert opened[0] > 0 and opened[1:] == [0, 0]
+    first = {k: v.clone() for k, v in kept[0].items() if k != "launches"}
+    for k in kept:
+        for key in first:
+            assert torch.equal(k[key], eager[key]), key
+    for k in kept:
+        assert k["launches"] == eager["launches"]
+    for key, value in first.items():
+        assert torch.equal(kept[0][key], value), key
