@@ -2,8 +2,8 @@
 
 The port's own copy of ``nmrf_tpu/config/defaults.py``: the keys are the
 same, so the same YAML configs and override strings drive both packages,
-but for the port's own ``MODEL.ARCH`` and ``RAFT`` node (a second
-architecture, RAFT-Stereo).
+but for the port's own ``MODEL.ARCH`` and its ``RAFT`` and ``IGEV`` nodes
+(the port's second and third architectures, RAFT-Stereo and IGEV-Stereo).
 The ``TPU`` node keeps its name; in the port its keys mean what the
 comments below say.
 """
@@ -16,20 +16,30 @@ def get_cfg() -> CN:
     _C.VERSION = 2
 
     # ---- Model ----
-    # The architecture ``build_model`` builds: "nmrf" or "raft_stereo" (the
-    # port's own key, with the RAFT node below; the JAX package has neither).
+    # The architecture ``build_model`` builds: "nmrf", "raft_stereo" or
+    # "igev_stereo" (the port's own key, with the RAFT and IGEV nodes below;
+    # the JAX package has none of them).  "nmrf" reads every node from
+    # BACKBONE on, and neither RAFT nor IGEV.
     _C.MODEL = CN()
     _C.MODEL.ARCH = "nmrf"
 
     # RAFT-Stereo at the defaults of its train_stereo.py/evaluate_stereo.py
     # (models/raft_stereo.py, where 3 GRU levels and a batch-norm context
-    # are fixed); read only under MODEL.ARCH "raft_stereo".
+    # are fixed); read under MODEL.ARCH "raft_stereo" and "igev_stereo",
+    # whose update loop takes the same five keys (IGEV-Stereo's defaults
+    # differ in CORR_LEVELS, 2, and its N_DOWNSAMPLE must be 2).
     _C.RAFT = CN()
     _C.RAFT.HIDDEN_DIMS = [128, 128, 128]
     _C.RAFT.N_DOWNSAMPLE = 2
     _C.RAFT.CORR_LEVELS = 4
     _C.RAFT.CORR_RADIUS = 4
     _C.RAFT.VALID_ITERS = 32
+
+    # IGEV-Stereo's own key (models/igev_stereo.py): the geometry encoding
+    # volume's maximum disparity at full resolution (MAX_DISP / 4 at 1/4, a
+    # multiple of 32); read only under MODEL.ARCH "igev_stereo".
+    _C.IGEV = CN()
+    _C.IGEV.MAX_DISP = 192
 
     _C.BACKBONE = CN()
     _C.BACKBONE.MODEL_TYPE = "resnet"

@@ -10,6 +10,7 @@ from .layers import (Conv1d, Conv2d, DropPathMasks, LayerNorm, Linear,
 from .losses import Criterion
 from .nmp import WindowAttention
 from .nmrf import NMRF
+from .igev_stereo import IGEVStereo, build_igev_stereo
 from .raft_stereo import RAFTStereo, build_raft_stereo
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -92,8 +93,10 @@ _DROPOUT_KEYS = ("NMP.ATTN_DROP", "NMP.PROJ_DROP", "NMP.DROP_PATH",
 
 def build_model(cfg, device=None, mesh=None):
     """The model of a config tree's ``MODEL.ARCH``: NMRF (``"nmrf"``, the
-    default) or RAFT-Stereo (``"raft_stereo"``, its ``RAFT`` node; served
-    only: no mesh, and its ``train()`` raises), in eval mode
+    default), RAFT-Stereo (``"raft_stereo"``, its ``RAFT`` node) or
+    IGEV-Stereo (``"igev_stereo"``, the ``RAFT`` node's keys and
+    ``IGEV.MAX_DISP``); the last two served only: no mesh, and their
+    ``train()`` raises.  In eval mode
     (``model.train()`` for training), on ``device`` (CUDA unless given;
     raises when CUDA is absent).  Weights are random from ``cfg.SEED``;
     load trained ones with ``load_state_dict``.  ``BACKBONE.DROP_PATH``
@@ -112,16 +115,18 @@ def build_model(cfg, device=None, mesh=None):
     The parameters are the same, so ``params_from_jax`` and
     ``load_state_dict`` apply unchanged.  The device is then the mesh's
     unless given."""
-    if cfg.MODEL.ARCH == "raft_stereo":
+    served = {"raft_stereo": build_raft_stereo,
+              "igev_stereo": build_igev_stereo}
+    if cfg.MODEL.ARCH in served:
         if mesh is not None:
-            raise ValueError("MODEL.ARCH raft_stereo runs on one device: the "
-                             "port has no mesh path for it")
+            raise ValueError(f"MODEL.ARCH {cfg.MODEL.ARCH} runs on one "
+                             "device: the port has no mesh path for it")
         device = resolve_device(device)
-        return build_raft_stereo(cfg, _DTYPES[cfg.TPU.COMPUTE_DTYPE]).to(
-            device).eval()
+        build = served[cfg.MODEL.ARCH]
+        return build(cfg, _DTYPES[cfg.TPU.COMPUTE_DTYPE]).to(device).eval()
     if cfg.MODEL.ARCH != "nmrf":
         raise ValueError(f"MODEL.ARCH {cfg.MODEL.ARCH!r}: the port builds "
-                         "'nmrf' and 'raft_stereo'")
+                         "'nmrf', 'raft_stereo' and 'igev_stereo'")
     if mesh is not None and device is None:
         device = mesh.device
     device = resolve_device(device)
@@ -187,5 +192,5 @@ def build_criterion(cfg):
     )
 
 
-__all__ = ["NMRF", "Criterion", "RAFTStereo", "build_criterion", "build_model",
-           "init_weights", "resolve_device"]
+__all__ = ["NMRF", "Criterion", "IGEVStereo", "RAFTStereo", "build_criterion",
+           "build_model", "init_weights", "resolve_device"]

@@ -10,8 +10,10 @@ inputs in (``copy_in``) and hands on fresh copies of the outputs
 
 ``capturable`` says whether work on a tensor may replay from a graph,
 ``Captured`` is one graph, ``Segments`` the graphs of one forward, captured
-where the forward first reaches each, and ``GraphCache`` keeps a model's
-graphs by key and lends them to one call at a time.  A replay counts the
+where the forward first reaches each, ``UpdateGraphs`` the two graphs of an
+iterative update loop (RAFT-Stereo's and IGEV-Stereo's), and ``GraphCache``
+keeps a model's graphs by key and lends them to one call at a time
+(``hold_loop`` for a loop's).  A replay counts the
 port's kernels that its capture launched (``ops/_native.py:recording``), so
 ``_native.launch_counts()`` counts the kernels that ran either way: on the
 graph path those counts are inferred from the capture, not observed."""
@@ -176,6 +178,66 @@ def call(segments, tag, fn, *inputs):
     if segments is None:
         return fn(*inputs)
     return segments.call(tag, fn, *inputs)
+
+
+class UpdateGraphs:
+    """An iterative update loop's CUDA graphs at one shape, over static
+    buffers: one of the lookup, one of the update block's body, in one
+    memory pool, replayed in the order they were captured.
+
+    ``lookup(held, x)`` gives the taps at the iteration's state x (a
+    tensor) and ``update(held, net, corr, motion)`` the update block's
+    body: (states, *outputs), ``net`` the list of states.  ``held`` is the
+    list of static copies of what a request holds constant (the volumes,
+    the context biases): ``load(tensors)`` copies them in once a request.
+    ``x``, ``net`` and ``motion`` are examples of the per-iteration inputs;
+    ``consts`` what the functions read beyond their arguments (column
+    indices, a lookup's grid), kept for the graphs' life.
+
+    ``lookup(x)`` and ``update(net, corr, motion)`` copy their inputs in
+    and return fresh copies of the outputs, never a graph's buffer."""
+
+    def __init__(self, held, lookup, x, update, net, motion, consts=()):
+        pool = torch.cuda.graph_pool_handle()
+        self.held = [static_like(t) for t in held]
+        self.x = static_like(x)
+        self._consts = consts
+        self._lookup = Captured(lambda x: lookup(self.held, x), [self.x],
+                                pool)
+        n = len(net)
+        self.update_in = [static_like(t) for t in net] + [
+            static_like(self._lookup.outputs), static_like(motion)]
+        self._update = Captured(
+            lambda *a: update(self.held, list(a[:n]), *a[n:]),
+            self.update_in, pool)
+
+    def load(self, tensors):
+        copy_in(self.held, tensors)
+
+    def lookup(self, x):
+        self.x.copy_(x)
+        return copy_out([self._lookup.replay()])[0]
+
+    def update(self, net, corr, motion):
+        copy_in(self.update_in, [*net, corr, motion])
+        net, *rest = self._update.replay()
+        out = copy_out([*net, *rest])
+        return (out[:len(net)], *out[len(net):])
+
+
+def hold_loop(cache, anchor, tensors, module, build):
+    """A ``with`` context that gives an update loop's graphs from ``cache``
+    (``build()`` on a miss), or None where the loop runs eagerly: off a
+    card, with a gradient recorded, inside a capture, or while another call
+    holds them (:func:`capturable` of ``anchor``).  The key: the device,
+    each of ``tensors``' shape, strides and dtype, and the addresses of
+    ``module``'s parameters."""
+    if not capturable(anchor):
+        return contextlib.nullcontext()
+    key = (anchor.device,
+           tuple((t.shape, t.stride(), t.dtype) for t in tensors),
+           tuple((p.data_ptr(), p.dtype) for p in module.parameters()))
+    return cache.hold(key, build)
 
 
 class GraphCache:

@@ -13,7 +13,10 @@ Numerical-parity notes:
     tanh form for bf16 inputs only (``TPU.GELU_APPROX``), as a per-module
     attribute.
   * InstanceNorm2d: affine-free, eps=1e-5, single-pass f32 moments.
+  * BatchNorm2d/3d: eval mode only (running statistics), in float32.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +97,81 @@ class Conv2d(nn.Conv2d):
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
                      self.stride, padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` on channel-last [B, H, W, C] tensors with the
+    compute-dtype convention above."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 bias=True, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), bias, self.stride,
+                               self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` on channel-last [B, D, H, W, C] tensors (NDHWC: cuDNN
+    takes the permuted view as the ``channels_last_3d`` format) with the
+    compute-dtype convention above."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 bias=True, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt),
+                     bias, self.stride, self.padding, self.dilation,
+                     self.groups)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` on channel-last [B, D, H, W, C] tensors with
+    the compute-dtype convention above."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 bias=True, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose3d(x.to(dt).permute(0, 4, 1, 2, 3),
+                               self.weight.to(dt), bias, self.stride,
+                               self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch norm of channel-last [B, H, W, C] with its running statistics
+    (eval mode), in float32."""
+
+    def forward(self, x):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return x * scale + (self.bias - self.running_mean * scale)
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """:class:`BatchNorm2d` of channel-last [B, D, H, W, C]."""
+
+    forward = BatchNorm2d.forward
 
 
 class Conv1d(nn.Conv1d):
@@ -204,12 +282,14 @@ class DropPath(nn.Module):
 
 
 def instance_norm_2d(x, eps=1e-5):
-    """Affine-free instance norm over the spatial dims of [B, H, W, C].
+    """Affine-free instance norm over the spatial dims of [B, H, W, C] (or
+    of [B, D, H, W, C]: every axis between the batch and the channels).
     Moments are single-pass E[x^2] - E[x]^2 in float32; returns float32."""
     xf = x.float()
-    n = x.shape[1] * x.shape[2]
-    s1 = xf.sum(dim=(1, 2), keepdim=True)
-    s2 = (xf * xf).sum(dim=(1, 2), keepdim=True)
+    dims = tuple(range(1, x.dim() - 1))
+    n = math.prod(x.shape[1:-1])
+    s1 = xf.sum(dim=dims, keepdim=True)
+    s2 = (xf * xf).sum(dim=dims, keepdim=True)
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return (xf - mean) * torch.rsqrt(var + eps)

@@ -49,7 +49,7 @@ pyramid), ``nmrf::raft.update`` (the iterations; each lookup inside
 counts the iterations of the last forward.
 
 On a card without autograd the iterations replay CUDA graphs
-(``UpdateGraphs``): one of the lookup, one of ``update_block``'s body.
+(``graphs.UpdateGraphs``): one of the lookup, one of ``update_block``'s body.
 The loop stays a Python loop and ``update_block`` a module call, so its
 hooks fire every iteration, and every tensor passed to or returned from
 it is a fresh copy, never a graph's buffer.  The kernels and their inputs
@@ -61,7 +61,6 @@ eagerly, as the CPU and any forward that records a gradient do.
 
 Training (upstream's sequence loss) is not ported: ``train()`` raises."""
 
-import contextlib
 import math
 
 import torch
@@ -71,16 +70,8 @@ from torch.profiler import record_function
 
 from . import graphs
 from .backbone import ResidualBlock
-from .layers import Conv2d, instance_norm, to_dtype
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """Batch norm of channel-last [B, H, W, C] with its running statistics
-    (eval mode), in float32."""
-
-    def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return x * scale + (self.bias - self.running_mean * scale)
+from .layers import (BatchNorm2d, BatchNorm3d, Conv2d, Conv3d,
+                     ConvTranspose2d, ConvTranspose3d, instance_norm, to_dtype)
 
 
 class BatchResidualBlock(nn.Module):
@@ -182,21 +173,28 @@ class MultiBasicEncoder(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    """The lookup's taps and the flow -> 126 features, with the flow
-    appended (128)."""
+    """The lookup's ``cor_planes`` taps and the flow's ``flow_dim``
+    channels -> 128 - flow_dim features, with the flow appended (128).
+    The flow's two convolutions are ``<flow_name>1`` and ``2``: RAFT-
+    Stereo's ``convf`` of its 2-channel flow, IGEV-Stereo's ``convd`` of
+    its 1-channel disparity."""
 
-    def __init__(self, corr_levels, corr_radius, dtype=None):
+    def __init__(self, cor_planes, flow_dim=2, flow_name="convf",
+                 dtype=None):
         super().__init__()
-        cor_planes = corr_levels * (2 * corr_radius + 1)
+        self.flow_name = flow_name
         self.convc1 = Conv2d(cor_planes, 64, 1, dtype=dtype)
         self.convc2 = Conv2d(64, 64, 3, padding=1, dtype=dtype)
-        self.convf1 = Conv2d(2, 64, 7, padding=3, dtype=dtype)
-        self.convf2 = Conv2d(64, 64, 3, padding=1, dtype=dtype)
-        self.conv = Conv2d(64 + 64, 128 - 2, 3, padding=1, dtype=dtype)
+        setattr(self, f"{flow_name}1",
+                Conv2d(flow_dim, 64, 7, padding=3, dtype=dtype))
+        setattr(self, f"{flow_name}2",
+                Conv2d(64, 64, 3, padding=1, dtype=dtype))
+        self.conv = Conv2d(64 + 64, 128 - flow_dim, 3, padding=1, dtype=dtype)
 
     def forward(self, flow, corr):
+        f1, f2 = (getattr(self, f"{self.flow_name}{i}") for i in (1, 2))
         cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
-        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
+        flo = torch.relu(f2(torch.relu(f1(flow))))
         out = torch.relu(self.conv(torch.cat([cor, flo], dim=-1)))
         return torch.cat([out, flow], dim=-1)
 
@@ -254,54 +252,74 @@ class FlowHead(nn.Module):
 
 class BasicMultiUpdateBlock(nn.Module):
     """One iteration's update of the three hidden states, coarse to fine
-    (upstream's names from RAFT's 1/8 base: ``gru08`` runs at 1/4,
-    ``gru16`` at 1/8, ``gru32`` at 1/16), then the flow head and the mask
-    head (scaled by 0.25) on the 1/4 state.  Returns (states, mask,
-    delta flow); with ``replay`` (the request's ``UpdateGraphs``, whose
-    static context biases hold ``inp``) from a replay of its graph."""
+    (the GRUs at 1/4, 1/8 and 1/16 under the names ``levels``: RAFT-
+    Stereo's ``gru08``, ``gru16``, ``gru32`` from RAFT's 1/8 base), the
+    motion encoder's features entering the finest, then ``heads`` on the
+    1/4 state: RAFT-Stereo's mask head (scaled by 0.25) and flow head.
+    Returns (states, mask, delta flow); with ``replay`` (the request's
+    ``graphs.UpdateGraphs``, whose static context biases hold ``inp``)
+    from a replay of its graph.  IGEV-Stereo's block
+    (``igev_stereo.UpdateBlock``) is this one with its own names, motion
+    encoder and heads."""
+
+    levels = ("gru08", "gru16", "gru32")
 
     def __init__(self, hidden_dims, corr_levels, corr_radius, n_downsample,
                  dtype=None):
         super().__init__()
-        self.encoder = BasicMotionEncoder(corr_levels, corr_radius, dtype)
-        self.gru08 = ConvGRU(hidden_dims[2], 128 + hidden_dims[1], dtype)
-        self.gru16 = ConvGRU(hidden_dims[1], hidden_dims[0] + hidden_dims[2],
-                             dtype)
-        self.gru32 = ConvGRU(hidden_dims[0], hidden_dims[1], dtype)
+        self.encoder = BasicMotionEncoder(corr_levels * (2 * corr_radius + 1),
+                                          dtype=dtype)
+        self.add_grus(hidden_dims, dtype)
         self.flow_head = FlowHead(hidden_dims[2], 256, 2, dtype)
         factor = 2 ** n_downsample
         self.mask = nn.Sequential(
             Conv2d(hidden_dims[2], 256, 3, padding=1, dtype=dtype), nn.ReLU(),
             Conv2d(256, factor ** 2 * 9, 1, dtype=dtype))
 
+    def add_grus(self, hidden_dims, dtype):
+        """The GRUs at 1/4, 1/8 and 1/16, registered under ``levels``."""
+        fine, mid, coarse = self.levels
+        setattr(self, fine, ConvGRU(hidden_dims[2], 128 + hidden_dims[1],
+                                    dtype))
+        setattr(self, mid, ConvGRU(hidden_dims[1],
+                                   hidden_dims[0] + hidden_dims[2], dtype))
+        setattr(self, coarse, ConvGRU(hidden_dims[0], hidden_dims[1], dtype))
+
+    def heads(self, h):
+        """(mask, delta flow) of the 1/4 state."""
+        return 0.25 * self.mask(h), self.flow_head(h)
+
     def forward(self, net, inp, corr, flow, replay=None):
         if replay is not None:
             return replay.update(net, corr, flow)
+        fine, mid, coarse = (getattr(self, n) for n in self.levels)
         net = list(net)
-        net[2] = self.gru32(net[2], *inp[2], pool2x(net[1]))
-        net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]),
-                            interp(net[2], net[1]))
+        net[2] = coarse(net[2], *inp[2], pool2x(net[1]))
+        net[1] = mid(net[1], *inp[1], pool2x(net[0]), interp(net[2], net[1]))
         motion = self.encoder(flow, corr)
-        net[0] = self.gru08(net[0], *inp[0], motion, interp(net[1], net[0]))
-        return net, 0.25 * self.mask(net[0]), self.flow_head(net[0])
+        net[0] = fine(net[0], *inp[0], motion, interp(net[1], net[0]))
+        return (net, *self.heads(net[0]))
 
 
 class CorrBlock1D(nn.Module):
     """The correlation pyramid and its lookup (upstream ``core/corr.py:
     CorrBlock1D``), float32.  The pyramid is one [B, h, w1, sum of level
     widths] tensor, the levels side by side, so that one gather reads the
-    taps of every level."""
+    taps of every level.  ``scaled``: the products over sqrt(C) (RAFT-
+    Stereo's ``reg``); IGEV-Stereo's all-pairs volume leaves them whole."""
 
-    def __init__(self, num_levels=4, radius=4):
+    def __init__(self, num_levels=4, radius=4, scaled=True):
         super().__init__()
         self.num_levels, self.radius = num_levels, radius
+        self.scaled = scaled
 
     def forward(self, fmap1, fmap2):
         """fmap1, fmap2: [B, h, w, C] -> the pyramid [B, h, w, W], level 0
         its first w columns."""
         B, h, w, C = fmap1.shape
-        corr = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2)) \
-            / math.sqrt(C)
+        corr = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2))
+        if self.scaled:
+            corr = corr / math.sqrt(C)
         levels = [corr]
         for _ in range(1, self.num_levels):
             c = levels[-1]
@@ -363,52 +381,21 @@ def convex_upsample(flow, mask, factor):
     return up.permute(0, 1, 3, 2, 4).reshape(B, factor * h, factor * w)
 
 
-class UpdateGraphs:
-    """The update loop's CUDA graphs at one shape, over static buffers:
-    ``lookup(flow)`` replays the lookup at ``columns + flow`` and
-    ``update(net, corr, flow)`` the body of ``update_block``; each copies
-    its per-iteration inputs in and returns fresh copies of its outputs.
-    ``load(pyramid, inp)`` copies in what a request holds constant (the
-    pyramid and the context biases), once a request; the lookup's
-    constants (the columns and ``CorrBlock1D.grid``) are made once, at
-    capture.  Both graphs share one memory pool and replay in the order
-    they were captured."""
+def hidden_and_context(levels, convs):
+    """``cnet``'s [hidden, context] outputs at 1/4, 1/8 and 1/16 -> the
+    GRUs' initial states (tanh, float32) and each level's z, r and q
+    biases (``convs``, the ``context_zqr_convs``, of the ReLU'd context;
+    float32)."""
+    net = [torch.tanh(level[0].float()) for level in levels]
+    inp = [conv(torch.relu(level[1])).float().split(
+               conv.out_channels // 3, dim=-1)
+           for level, conv in zip(levels, convs)]
+    return net, inp
 
-    def __init__(self, model, pyramid, net, inp):
-        B, h, w, _ = pyramid.shape
-        device = pyramid.device
-        pool = torch.cuda.graph_pool_handle()
-        self.pyramid = graphs.static_like(pyramid)
-        self.inp = [[graphs.static_like(t) for t in level] for level in inp]
-        self.flow = torch.zeros((B, h, w), device=device)
-        # kept for the life of the graph, which reads them
-        self._consts = (torch.arange(w, device=device, dtype=torch.float32),
-                        model.corr_block.grid(w, device))
-        columns, grid = self._consts
-        self._lookup = graphs.Captured(
-            lambda p, f: model.corr_block.lookup(p, columns + f, grid),
-            [self.pyramid, self.flow], pool)
-        self.update_in = [graphs.static_like(t) for t in net] + [
-            graphs.static_like(self._lookup.outputs),
-            torch.zeros((B, h, w, 2), device=device)]
-        self._update = graphs.Captured(
-            lambda n0, n1, n2, corr, flow: model.update_block.forward(
-                [n0, n1, n2], self.inp, corr, flow), self.update_in, pool)
 
-    def load(self, pyramid, inp):
-        graphs.copy_in([self.pyramid, *(t for level in self.inp
-                                        for t in level)],
-                       [pyramid, *(t for level in inp for t in level)])
-
-    def lookup(self, flow):
-        self.flow.copy_(flow)
-        return graphs.copy_out([self._lookup.replay()])[0]
-
-    def update(self, net, corr, flow):
-        graphs.copy_in(self.update_in, [*net, corr, flow])
-        net, mask, delta = self._update.replay()
-        *net, mask, delta = graphs.copy_out([*net, mask, delta])
-        return net, mask, delta
+def regroup(flat, size=3):
+    """The context biases, flat, back into ``size`` levels of z, r, q."""
+    return [flat[i:i + size] for i in range(0, len(flat), size)]
 
 
 class RAFTStereo(nn.Module):
@@ -448,57 +435,65 @@ class RAFTStereo(nn.Module):
         B = img1.shape[0]
         cnet = self.cnet(x[:B])
         fmap1, fmap2 = self.fnet(x).split(B)
-        net = [torch.tanh(level[0].float()) for level in cnet]
-        inp = [conv(torch.relu(level[1])).float().split(
-                   conv.out_channels // 3, dim=-1)
-               for level, conv in zip(cnet, self.context_zqr_convs)]
-        return net, inp, fmap1, fmap2
+        return (*hidden_and_context(cnet, self.context_zqr_convs), fmap1,
+                fmap2)
 
-    def _loop_graphs(self, pyramid, net, inp):
-        """A ``with`` context that gives the loop's ``UpdateGraphs`` at this
-        shape, or None where the loop runs eagerly: off a card, with a
-        gradient recorded, inside a capture, or while another call holds
-        them."""
-        if not graphs.capturable(pyramid):
-            return contextlib.nullcontext()
-        tensors = [pyramid, *net, *(t for level in inp for t in level)]
-        key = (pyramid.device,
-               tuple((t.shape, t.stride(), t.dtype) for t in tensors),
-               tuple((p.data_ptr(), p.dtype)
-                     for p in self.update_block.parameters()))
-        return self.update_graphs.hold(
-            key, lambda: UpdateGraphs(self, pyramid, net, inp))
+    def _loop_graphs(self, pyramid, net, inp, flow, zero):
+        """A ``with`` context that gives the loop's ``graphs.UpdateGraphs``
+        at this shape (``graphs.hold_loop``), or None where the loop runs
+        eagerly.  The graphs hold the pyramid and the context biases; the
+        lookup's constants (the columns and ``CorrBlock1D.grid``) are made
+        once, at capture."""
+        held = [pyramid, *(t for level in inp for t in level)]
+
+        def build():
+            w = pyramid.shape[2]
+            columns = torch.arange(w, device=pyramid.device,
+                                   dtype=torch.float32)
+            grid = self.corr_block.grid(w, pyramid.device)
+            return graphs.UpdateGraphs(
+                held,
+                lambda h, f: self.corr_block.lookup(h[0], columns + f, grid),
+                flow,
+                lambda h, n, corr, f: self.update_block.forward(
+                    n, regroup(h[1:]), corr, f),
+                net, torch.stack([flow, zero], dim=-1),
+                consts=(columns, grid))
+
+        return graphs.hold_loop(self.update_graphs, pyramid,
+                                [pyramid, *net, *held[1:]],
+                                self.update_block, build)
 
     def forward(self, img1, img2):
         with record_function("nmrf::raft.encode"):
             net, inp, fmap1, fmap2 = self.encode(img1, img2)
         with record_function("nmrf::raft.corr"):
             pyramid = self.corr_block(fmap1, fmap2)
-        with record_function("nmrf::raft.update"), \
-                self._loop_graphs(pyramid, net, inp) as loop:
+        with record_function("nmrf::raft.update"):
             B, h, w, _ = fmap1.shape
-            if loop is None:
-                columns = torch.arange(w, device=fmap1.device,
-                                       dtype=torch.float32)
-                grid = self.corr_block.grid(w, fmap1.device)
-
-                def lookup(flow):
-                    return self.corr_block.lookup(pyramid, columns + flow,
-                                                  grid)
-            else:
-                loop.load(pyramid, inp)
-                lookup = loop.lookup
             flow = fmap1.new_zeros((B, h, w), dtype=torch.float32)
             zero = torch.zeros_like(flow)
-            self.iterations = 0
-            for _ in range(self.valid_iters):
-                with record_function("nmrf::raft.lookup"):
-                    corr = lookup(flow)
-                net, mask, delta = self.update_block(
-                    net, inp, corr, torch.stack([flow, zero], dim=-1),
-                    replay=loop)
-                flow = flow + delta[..., 0]
-                self.iterations += 1
+            with self._loop_graphs(pyramid, net, inp, flow, zero) as loop:
+                if loop is None:
+                    columns = torch.arange(w, device=fmap1.device,
+                                           dtype=torch.float32)
+                    grid = self.corr_block.grid(w, fmap1.device)
+
+                    def lookup(flow):
+                        return self.corr_block.lookup(pyramid,
+                                                      columns + flow, grid)
+                else:
+                    loop.load([pyramid, *(t for level in inp for t in level)])
+                    lookup = loop.lookup
+                self.iterations = 0
+                for _ in range(self.valid_iters):
+                    with record_function("nmrf::raft.lookup"):
+                        corr = lookup(flow)
+                    net, mask, delta = self.update_block(
+                        net, inp, corr, torch.stack([flow, zero], dim=-1),
+                        replay=loop)
+                    flow = flow + delta[..., 0]
+                    self.iterations += 1
         with record_function("nmrf::raft.upsample"):
             disp = -convex_upsample(flow, mask, 2 ** self.n_downsample)
             return {"disp": disp, "disp_lowres": -flow}
@@ -507,17 +502,19 @@ class RAFTStereo(nn.Module):
 def init_weights(model, seed):
     """Seeded random weights: every convolution Kaiming normal (fan out),
     biases 0, batch norms the identity (weight 1, bias 0, running mean 0
-    and variance 1).  A stand-in: load trained (or the benchmark's seeded)
-    weights with ``load_state_dict``."""
+    and variance 1), in module order (RAFT-Stereo's and IGEV-Stereo's).  A
+    stand-in: load trained (or the benchmark's seeded) weights with
+    ``load_state_dict``."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, Conv2d):
+            if isinstance(m, (Conv2d, Conv3d, ConvTranspose2d,
+                              ConvTranspose3d)):
                 fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
                 m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, BatchNorm2d):
+            elif isinstance(m, (BatchNorm2d, BatchNorm3d)):
                 m.reset_parameters()
     return model
 

@@ -45,9 +45,9 @@ variant exported on the card holds one operator node per launch, and its
 loaded artifact launches the kernels as often and equals the live model
 bit for bit.  ``predict`` on the card allocates a pinned staging buffer
 only for a new frame shape or dtype, and hands the model the CPU path's
-input bit for bit.  RAFT-Stereo's update loop replays its CUDA graphs with
-the eager loop's bits in every tensor its hooks see, captured once a
-shape; so does NMRF's served forward (resnet and swin at 375x1242), which
+input bit for bit.  RAFT-Stereo's and IGEV-Stereo's update loops replay
+their CUDA graphs with the eager loop's bits in every tensor their hooks
+see, captured once a shape; so does NMRF's served forward (resnet and swin at 375x1242), which
 launches the port's kernels as often as the eager forward.
 """
 
@@ -1330,6 +1330,90 @@ def test_raft_update_loop_replays_graphs_to_the_bit(cuda, dtype):
     assert opened(lambda: predict(model, *other)) == 1
     assert opened(lambda: predict(model, *other)) == 0
     assert len(model.update_graphs) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_igev_update_loop_replays_graphs_to_the_bit(cuda, dtype):
+    """IGEV-Stereo (4 iterations) through RAFT-Stereo's loop graphs, with
+    forward hooks on ``update_block``, ``desc``, ``cost_agg`` and the
+    model, as the benchmark's generator registers them: three ``predict``
+    calls on the same 60x124 frames open ``nmrf::igev.graph_capture`` once,
+    and each equals the eager loop (run while another call holds the
+    graphs) in the disparity and every hooked tensor, to the bit; the first
+    request's tensors are unchanged after the others (nothing handed out is
+    a graph's buffer); a forward that records a gradient runs eagerly with
+    the same bits.  cuDNN runs deterministic algorithms here: in float32 it
+    may run the volume stage's transposed 3-D convolutions with a
+    backward-data algorithm that adds in another order from run to run, and
+    what is compared is the loop's graphs against the eager loop, not two
+    runs of the volume."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmrf_tpu_torch import predict
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _igev_update_loop_to_the_bit(cuda, dtype, predict, profile,
+                                     ProfilerActivity)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _igev_update_loop_to_the_bit(cuda, dtype, predict, profile,
+                                 ProfilerActivity):
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "igev_stereo", "RAFT.CORR_LEVELS", 2,
+                         "RAFT.VALID_ITERS", 4, "TPU.COMPUTE_DTYPE", dtype])
+    model = build_model(cfg, device=cuda)
+    kept = []
+    model.update_block.register_forward_hook(
+        lambda m, args, out: kept[-1]["calls"].append(
+            (*args[2:], *out[0], out[1], out[2])))
+    for name in ("desc", "cost_agg"):
+        model.get_submodule(name).register_forward_hook(
+            lambda m, args, out, name=name: kept[-1].update({name: out}))
+    model.register_forward_hook(
+        lambda m, args, out: kept[-1].update(out=out))
+
+    def opened(fn):
+        kept.append({"calls": []})
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        kept[-1]["result"] = out
+        return sum(e.name == "nmrf::igev.graph_capture"
+                   for e in prof.events())
+
+    def same(a, b):
+        assert len(a["calls"]) == len(b["calls"]) == 4
+        for x, y in zip(a["calls"], b["calls"]):
+            assert all(torch.equal(s, t) for s, t in zip(x, y))
+        for key in ("disp", "disp_lowres", "init_disp"):
+            assert torch.equal(a["out"][key].detach(), b["out"][key]), key
+        for key in ("desc", "cost_agg"):
+            assert torch.equal(a[key].detach(), b[key]), key
+
+    rng = np.random.RandomState(7)
+    pair = [rng.randint(0, 256, (60, 124, 3)).astype(np.uint8)
+            for _ in range(2)]
+    with model.update_graphs.hold("another call", object):
+        assert opened(lambda: predict(model, *pair)) == 0
+    eager = kept.pop()
+    assert [opened(lambda: predict(model, *pair)) for _ in range(3)] == \
+        [1, 0, 0]
+    first = [[t.clone() for t in call] for call in kept[0]["calls"]]
+    for k in kept:
+        same(k, eager)
+        assert np.array_equal(k["result"], eager["result"])
+    for call, copy in zip(kept[0]["calls"], first):
+        assert all(torch.equal(t, c) for t, c in zip(call, copy))
+    a, b = (torch.from_numpy(np.pad(x.astype(np.float32),
+                                    ((0, 4), (0, 4), (0, 0)), mode="edge")
+                             [None]).to(cuda) for x in pair)
+    with torch.enable_grad():
+        assert opened(lambda: model(a, b)) == 0
+    same(kept[-1], eager)
 
 
 # ---- NMRF's forward from CUDA graphs ---- #

@@ -107,8 +107,9 @@ def test_config_tree_matches_jax_package():
     from nmrf_tpu_torch.config import get_cfg
 
     port, jax_tree = get_cfg().to_dict(), get_cfg_jax().to_dict()
-    # the port's own keys: the architecture switch and RAFT-Stereo's node
-    own = {"MODEL", "RAFT"}
+    # the port's own keys: the architecture switch and the RAFT-Stereo and
+    # IGEV-Stereo nodes
+    own = {"MODEL", "RAFT", "IGEV"}
     assert set(port) - set(jax_tree) == own
     assert {k: v for k, v in port.items() if k not in own} == jax_tree
     cfg = get_cfg()

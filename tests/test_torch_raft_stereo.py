@@ -391,7 +391,7 @@ def test_graph_path_hands_out_fresh_tensors(port, monkeypatch):
         assert all(torch.equal(t, c) for t, c in zip(call, copy))
     (entry,) = port.update_graphs._kept.values()
     static = {t.data_ptr() for t in [
-        entry.pyramid, entry.flow, *entry.update_in,
+        *entry.held, entry.x, *entry.update_in,
         *leaves(entry._lookup.outputs), *leaves(entry._update.outputs)]}
     assert not static & {t.data_ptr() for k in kept
                          for call in k["calls"] for t in call}
